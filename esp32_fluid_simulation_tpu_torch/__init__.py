@@ -1,0 +1,40 @@
+"""esp32_fluid_simulation_tpu_torch — the PyTorch + CUDA port of
+``esp32_fluid_simulation_tpu`` for one NVIDIA H100.
+
+It mirrors the JAX package file for file (each module names its
+counterpart by path); the JAX package stays the reference it is tested
+against.  Plain tensor code is PyTorch; the TPU's Pallas kernels on the
+main path are hand-written CUDA kernels under ``csrc/`` (``ops/cuda``,
+``render/cuda_upscale.py``), built at first use.  Layout:
+
+  L0  array conventions      channels-first tensors (``state.py``)
+  L2  numerical ops          ``ops/`` (advect, fd, poisson, cuda kernels)
+  L3  application runtime    ``models/`` step functions, ``render/``,
+                             ``io_host/`` touch input
+"""
+
+from .config import SimConfig, reference_config
+from .state import SimState, Impulses
+from .models import (init_state, step, make_step, step_render,
+                     make_step_render, make_step_with_metrics,
+                     make_multi_step, stack_schedule)
+from .render import render_rgb565, render_rgb8
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "SimConfig",
+    "reference_config",
+    "SimState",
+    "Impulses",
+    "init_state",
+    "step",
+    "make_step",
+    "step_render",
+    "make_step_render",
+    "make_step_with_metrics",
+    "make_multi_step",
+    "stack_schedule",
+    "render_rgb565",
+    "render_rgb8",
+]

@@ -1,0 +1,54 @@
+"""Carry state between the JAX package and this one through numpy.
+
+The JAX package's arrays, once converted with ``numpy.asarray``, become this
+package's tensors and back.  bfloat16 crosses as its raw 16-bit pattern:
+a numpy ``bfloat16`` array (the ``ml_dtypes`` type JAX hands out) is viewed
+as ``uint16`` and reinterpreted as ``torch.bfloat16``, so nothing is rounded
+at the boundary and this module needs no ``ml_dtypes``.  On the way back a
+bfloat16 tensor comes out as its ``uint16`` bits; ``bits.view(jnp.bfloat16)``
+restores the JAX dtype.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .state import Impulses, SimState
+
+
+def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
+    """numpy array (bfloat16 included) -> tensor on ``device``, bit for bit."""
+    arr = np.array(arr, copy=True, order="C")  # writable, owned by torch
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """tensor -> numpy array; bfloat16 comes back as its ``uint16`` bits."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.uint16).numpy().copy()
+    return t.numpy().copy()
+
+
+def state_from_numpy(velocity, color, step=0, device="cpu") -> SimState:
+    """The JAX package's ``SimState`` fields (as numpy) -> ``SimState``."""
+    return SimState(velocity=tensor_from_numpy(velocity, device),
+                    color=tensor_from_numpy(color, device),
+                    step=int(np.asarray(step)))
+
+
+def impulses_from_numpy(pos, velocity, active, device="cpu") -> Impulses:
+    """The JAX package's ``Impulses`` fields (as numpy) -> ``Impulses``."""
+    return Impulses(pos=tensor_from_numpy(pos, device),
+                    velocity=tensor_from_numpy(velocity, device),
+                    active=tensor_from_numpy(active, device))
+
+
+def state_to_numpy(state: SimState):
+    """``SimState`` -> ``(velocity, color, step)`` numpy arrays."""
+    return (tensor_to_numpy(state.velocity), tensor_to_numpy(state.color),
+            np.int32(state.step))

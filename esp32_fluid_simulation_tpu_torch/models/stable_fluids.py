@@ -1,0 +1,261 @@
+"""The stable-fluids dye bed step (counterpart of
+``esp32_fluid_simulation_tpu/models/stable_fluids.py``).
+
+``step(state, impulses) -> state`` is the reference's ``loop()``
+(``.ino:249-289``):
+
+  1. self-advect velocity (``.ino:251-256``, no-slip sampling),
+  2. apply the drained drag queue (``.ino:258-269``),
+  3. pressure projection: divergence -> RB-SOR -> gradient subtract
+     (``.ino:271-278``),
+  4. advect dye (``.ino:280-282``).
+
+With ``solver="fused_pallas"`` the drain and the projection run in the K1
+kernel (``ops/cuda/project.py``); with the kernel advect
+(``_use_pallas_advect``) both advections run in K2 (``ops/cuda/advect.py``),
+the dye clamp and, in ``step_render`` at ``scaling == 1``, the RGB565 frame
+riding the dye store.  The kernel wrappers run their plain PyTorch versions
+on CPU tensors.  PyTorch runs eagerly: ``make_step`` and friends return
+plain closures.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..config import SimConfig
+from ..state import SimState, Impulses
+from ..ops.advect import advect
+from ..ops.blur import triangular_blur_inplace
+from ..ops.fd import divergence, subtract_gradient
+from ..ops.poisson import poisson_solve
+from ..ops.cuda.advect import advect_kernel
+from ..ops.cuda.project import project_fused
+from ..render.upscale import render_rgb565
+
+
+def _check_ported(cfg: SimConfig) -> None:
+    if cfg.domain_tile is not None:
+        raise NotImplementedError("domain_tile is not ported yet (ROADMAP.md "
+                                  "queue 1, item 8)")
+    if cfg.vorticity_eps > 0.0:
+        raise NotImplementedError("vorticity_eps > 0 is not ported yet "
+                                  "(ROADMAP.md queue 1, item 6)")
+    if cfg.advector != "semilag":
+        raise NotImplementedError(f"advector={cfg.advector!r} is not ported "
+                                  "yet (ROADMAP.md queue 1, item 6)")
+
+
+def init_color(cfg: SimConfig, device="cpu") -> torch.Tensor:
+    """Angular RGB sectors around the grid center, then two in-place
+    [1/4,1/2,1/4] blurs in the storage dtype (``.ino:203-241``)."""
+    if cfg.domain_tile is not None:
+        raise NotImplementedError("domain_tile is not ported yet (ROADMAP.md "
+                                  "queue 1, item 8)")
+    h, w = cfg.shape[-2], cfg.shape[-1]
+    ci, cj = h // 2, w // 2
+    ii = np.arange(h, dtype=np.float32)[:, None]
+    jj = np.arange(w, dtype=np.float32)[None, :]
+    # ``ci - ii`` (not ``-(ii - ci)``): the reference negates an *integer*
+    # zero at the center row (.ino:210), yielding +0.0 and atan2 = +pi on the
+    # left half; float ``-(ii-ci)`` would give -0.0 and -pi there.
+    angle = np.arctan2(ci - ii, jj - cj)
+    red = angle < -np.pi / 3
+    green = (angle >= -np.pi / 3) & (angle < np.pi / 3)
+    blue = ~(red | green)
+    color = np.stack([red, green, blue]).astype(np.float32)  # [3, H, W]
+    if cfg.ndim == 3:
+        color = np.broadcast_to(color[:, None], (3,) + cfg.shape).copy()
+    c = torch.from_numpy(color).to(device=device,
+                                   dtype=cfg.torch_color_dtype)
+    # horizontal (j) pass then vertical (i) pass (.ino:220-241)
+    c = triangular_blur_inplace(c, axis=c.dim() - 1)
+    c = triangular_blur_inplace(c, axis=c.dim() - 2)
+    return c
+
+
+def init_state(cfg: SimConfig, device="cpu") -> SimState:
+    """Zero velocity + sector dye on ``device`` (``setup()``,
+    ``.ino:194-241``)."""
+    vel = torch.zeros((cfg.ndim,) + tuple(cfg.shape), dtype=cfg.torch_dtype,
+                      device=device)
+    return SimState(velocity=vel, color=init_color(cfg, device), step=0)
+
+
+def _resolved_impulse_targets(imp: Impulses, shape):
+    """Queue-drain resolution in slot space (``.ino:264-269``): each slot's
+    cell, clamped to the grid, and the index of the LAST active slot that
+    writes that cell (-1 where no active slot does)."""
+    nd = len(shape)
+    k = imp.pos.shape[0]
+    idx = tuple(imp.pos[:, a].long().clamp(0, shape[a] - 1)
+                for a in range(nd))
+    same = idx[0][:, None] == idx[0][None, :]
+    for ax in range(1, nd):
+        same &= idx[ax][:, None] == idx[ax][None, :]
+    slots = torch.arange(k, device=imp.pos.device)
+    winner = torch.where(same & imp.active[None, :], slots[None, :],
+                         torch.full_like(slots[None, :], -1)).amax(dim=1)
+    return idx, winner
+
+
+def apply_impulses(vel: torch.Tensor, imp: Impulses) -> torch.Tensor:
+    """Write drag velocities into cells (``.ino:264-269``), the last active
+    slot winning at a duplicated cell; positions are clamped to the grid.
+
+    One scatter for all slots: every slot writes the value its cell ends
+    with (the winner's, or the cell's own where no active slot writes it),
+    so duplicate indices carry equal values and the write order does not
+    matter — no host sync, no per-slot pass."""
+    idx, winner = _resolved_impulse_targets(imp, vel.shape[1:])
+    where = (slice(None),) + idx
+    vals = imp.velocity.to(vel.dtype)[winner.clamp(min=0)].T   # [nd, k]
+    out = vel.clone()
+    out[where] = torch.where(winner >= 0, vals, vel[where])
+    return out
+
+
+def _use_pallas_advect(cfg: SimConfig, vel: torch.Tensor) -> bool:
+    """Whether the step advects through K2: forced by
+    ``advect_impl="pallas"``; under ``"auto"`` from 512^2 up on CUDA
+    tensors (smaller grids stay on the unclamped ``ops.advect`` path)."""
+    if cfg.advector not in ("semilag", "maccormack") or cfg.ndim != 2:
+        return False
+    if cfg.advect_impl == "pallas":
+        return True
+    if cfg.advect_impl == "jnp":
+        return False
+    h, w = cfg.shape
+    return h * w >= 512 * 512 and vel.is_cuda
+
+
+def _advect_by(cfg: SimConfig, vel: torch.Tensor):
+    if not _use_pallas_advect(cfg, vel):
+        return advect
+    if cfg.advect_sample_dtype != "float32":
+        raise NotImplementedError(
+            "advect_sample_dtype='bfloat16' is not ported (ROADMAP.md queue "
+            "1, 'Not to port')")
+
+    def adv(field, vel, dt, no_slip, clip01=False, self_advect=False):
+        return advect_kernel(field, vel, dt, no_slip,
+                             max_disp=cfg.advect_max_disp, clip01=clip01,
+                             self_advect=self_advect)
+    adv.fuses_clip01 = True
+    adv.takes_self_advect = True
+    return adv
+
+
+def _self_advect(adv, vel, dt):
+    """Velocity self-advect (``.ino:251-256``)."""
+    if getattr(adv, "takes_self_advect", False):
+        return adv(vel, vel, dt, no_slip=True, self_advect=True)
+    return adv(vel, vel, dt, no_slip=True)
+
+
+def _advect_color(adv, color, vel, cfg: SimConfig):
+    clip = cfg.clamps_dye
+    if clip and getattr(adv, "fuses_clip01", False):
+        return adv(color, vel, cfg.dt, no_slip=False, clip01=True)
+    color = adv(color, vel, cfg.dt, no_slip=False)
+    return torch.clamp(color, 0.0, 1.0) if clip else color
+
+
+def _project(vel: torch.Tensor, cfg: SimConfig,
+             impulses: Impulses | None = None) -> torch.Tensor:
+    """Pressure projection (``.ino:271-278``): composed ops, or K1 (which
+    also drains ``impulses``)."""
+    if cfg.solver == "fused_pallas":
+        vel, _ = project_fused(vel, cfg.dx, cfg.sor_iters, cfg.omega,
+                               impulses=impulses)
+        return vel
+    if impulses is not None:
+        raise ValueError("the composed projection takes no impulses")
+    p = poisson_solve(divergence(vel, cfg.dx), cfg)
+    return subtract_gradient(vel, p, cfg.dx)
+
+
+def _on_device(imp: Impulses, device) -> Impulses:
+    return Impulses(*(t.to(device) for t in imp))
+
+
+def step(state: SimState, impulses: Impulses, cfg: SimConfig) -> SimState:
+    """One simulation step — the reference's ``loop()`` (``.ino:249-289``).
+    ``impulses`` may lie on the CPU; they follow the state's device."""
+    _check_ported(cfg)
+    impulses = _on_device(impulses, state.velocity.device)
+    adv = _advect_by(cfg, state.velocity)
+    vel = _self_advect(adv, state.velocity, cfg.dt)
+    if cfg.solver == "fused_pallas":
+        # K1 drains the queue itself (same .ino:258-278 order)
+        vel = _project(vel, cfg, impulses=impulses)
+    else:
+        vel = _project(apply_impulses(vel, impulses), cfg)
+    color = _advect_color(adv, state.color, vel, cfg)
+    return SimState(velocity=vel, color=color, step=state.step + 1)
+
+
+def step_render(state: SimState, impulses: Impulses, cfg: SimConfig,
+                bswap: bool = True):
+    """One step plus its RGB565 frame: ``(state, frame)``.
+
+    At ``cfg.scaling == 1`` on the kernel path the pack rides the K2 dye
+    store (bit-identical to ``render_rgb565(state.color, s=1)``); otherwise
+    the render follows the step."""
+    _check_ported(cfg)
+    fused = (cfg.ndim == 2 and cfg.scaling == 1 and cfg.clamps_dye
+             and cfg.solver == "fused_pallas"
+             and _use_pallas_advect(cfg, state.velocity))
+    if not fused:
+        st = step(state, impulses, cfg)
+        return st, render_rgb565(st.color, s=cfg.scaling, bswap=bswap,
+                                 unit_range=cfg.clamps_dye)
+    impulses = _on_device(impulses, state.velocity.device)
+    adv = _advect_by(cfg, state.velocity)
+    vel = _self_advect(adv, state.velocity, cfg.dt)
+    vel = _project(vel, cfg, impulses=impulses)
+    color, frame = advect_kernel(state.color, vel, cfg.dt, False,
+                                 max_disp=cfg.advect_max_disp, clip01=True,
+                                 rgb565=True, bswap=bswap)
+    return SimState(velocity=vel, color=color, step=state.step + 1), frame
+
+
+def make_step(cfg: SimConfig):
+    """``(state, impulses) -> state`` specialized to ``cfg``."""
+    return functools.partial(step, cfg=cfg)
+
+
+def make_step_render(cfg: SimConfig, bswap: bool = True):
+    """``(state, impulses) -> (state, rgb565_frame)`` — see
+    :func:`step_render`."""
+    return functools.partial(step_render, cfg=cfg, bswap=bswap)
+
+
+def step_with_metrics(state: SimState, impulses: Impulses, cfg: SimConfig):
+    raise NotImplementedError("step_with_metrics is not ported yet "
+                              "(ROADMAP.md queue 1, item 6)")
+
+
+def make_step_with_metrics(cfg: SimConfig):
+    raise NotImplementedError("make_step_with_metrics is not ported yet "
+                              "(ROADMAP.md queue 1, item 6)")
+
+
+def make_multi_step(cfg: SimConfig):
+    """``run(state, schedule) -> state``: ``n`` steps, where ``schedule`` is
+    an ``Impulses`` with a leading ``[n]`` axis (``stack_schedule``).  A
+    plain loop for now."""
+    def run(state: SimState, schedule: Impulses) -> SimState:
+        for t in range(schedule.pos.shape[0]):
+            state = step(state, Impulses(*(x[t] for x in schedule)), cfg)
+        return state
+
+    return run
+
+
+def stack_schedule(imps) -> Impulses:
+    """[Impulses, ...] (one per step) -> schedule with a leading [n]."""
+    return Impulses(*(torch.stack(xs) for xs in zip(*imps)))

@@ -1,0 +1,125 @@
+"""Build and load the package's CUDA kernels.
+
+All of ``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a
+plain C interface and loaded with ``ctypes`` — no PyTorch headers, so a
+build takes seconds.  The build happens at first use, never on import, into
+``build/kernels/`` beside the package (git-ignored).  The library's file
+name carries a hash of the sources and flags, so an edited source builds
+anew and an unchanged one is reused.  The compiler writes to a temporary
+file that is then renamed into place, so processes building at once do not
+see each other's half-written output.
+
+``--fmad=false`` keeps every product and sum rounded on its own, so each
+kernel matches its plain PyTorch version to the bit.
+
+Every C entry point returns ``cudaGetLastError()`` after its launches;
+``KernelLibrary.call`` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # field, vel, out, frame, C, H, W, field_bf16, dt, max_disp, no_slip,
+    # clip01, bswap, stream
+    "fluid_advect": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P),
+    # vel, vel_out, p, dxd, ipos, ivel, iact, n_imp, H, W, dx, inv2dx,
+    # iters, omega, one_m_w, stream
+    "fluid_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I,
+                      _F, _F, _P),
+    # color, out, H, W, color_bf16, s, bswap, unit_range, stream
+    "fluid_render_rgb565": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+}
+
+
+class KernelLibrary:
+    """The loaded library, with the build's wall time and compiler log."""
+
+    def __init__(self, path: Path, build_seconds: float, log: str):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.log = log
+        self._lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(self._lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+
+    def call(self, name: str, *args) -> None:
+        """Call entry ``name``; raise if it reports a CUDA error."""
+        err = getattr(self._lib, name)(*args)
+        if err != 0:
+            raise RuntimeError(f"{name} failed with CUDA error {err}")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return path
+
+
+def _source_key(srcs) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in srcs:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=1)
+def load() -> KernelLibrary:
+    """Build (if needed) and load the kernel library; cached per process."""
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target = BUILD_DIR / f"libfluidkernels-{_source_key(srcs)}.so"
+    t0 = time.perf_counter()
+    log = ""
+    if not target.exists():
+        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+        os.close(fd)
+        try:
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            log = res.stdout + res.stderr
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+            os.replace(tmp, target)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return KernelLibrary(target, time.perf_counter() - t0, log)
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    """The current PyTorch stream on ``t``'s device, as a C pointer."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
