@@ -8,23 +8,37 @@ Needs one CUDA device, ``nvcc`` and the repository checkout around this
 file; it exits non-zero on any failure and imports nothing of JAX.
 
 1. Builds the kernels from ``esp32_fluid_simulation_tpu_torch/csrc/*.cu``
-   and holds each (K1 projection, K2 advection, K3 RGB565 upscale) against
-   its plain PyTorch version on the card, at a small odd shape and at the
-   production shapes; bit-equality is expected (``--fmad=false``).
+   (one ``nvcc`` per source, all at once) and holds each 2D kernel (K1
+   projection, K2 advection, K3 RGB565 upscale) against its plain PyTorch
+   version on the card, at a small odd shape and at the production shapes;
+   bit-equality is expected (``--fmad=false``).
+1b. The same for the 3D smoke kernels (K7 advection, K8 divergence and
+   gradient subtract, K9 SOR, K10 MIP render) at (9, 33, 130) and 256^3.
 2. The reference workload ``SimConfig()`` against the golden trajectory
    ``tests/golden/ref_61x81_4steps.npz`` (rtol 1e-4, atol 2e-4), on the
    composed path and on the kernel path.
-3. The main path: ``examples/config0_4096_production.json`` through
+3. The 2D main path: ``examples/config0_4096_production.json`` through
    ``make_step_render`` for 30 steps of ``scripted_swirl``, with the launch
    counters proving K1 ran once and K2 twice per step, checked against the
    same steps on the plain path on the card.
 4. The same config at ``scaling=4``: ``make_step_render`` renders through
    K3, checked against the plain render.
-5. Times (CUDA events): ms/step of the kernel and plain paths at 4096^2,
-   and ms per call of each kernel and its plain version.
+6. The 24^3 multigrid smoke config for 5 steps against the golden
+   ``tests/golden/path_smoke3d.npz`` (rtol 1e-4, atol 1e-4).
+7. The 3D main path: the default ``SmokeConfig`` at 256^3 through
+   ``make_smoke_step`` + ``render_smoke`` for 20 steps, with the launch
+   counters proving K7 ran twice, K8 (each) and K9 once per step and K10
+   once per frame; the plume checked and held against the same steps on
+   the plain path on the card.
+5. Times (CUDA events), last: ms/step of the kernel and plain paths at
+   4096^2 and at 256^3, and ms per call of each kernel and its plain
+   version.
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it is
-the per-kernel JSON summary.
+Each kernel's entry in the summary carries its bound: the larger of the
+bytes it must move (each input read once, each output written once) over
+3.35 TB/s and its float32 operations over 67 TFLOP/s, the H100 SXM's
+published peaks.  The last line is ``{"ok": true, "device": {...}}``; the
+line before it is the per-kernel JSON summary.
 """
 
 from __future__ import annotations
@@ -43,20 +57,36 @@ import torch
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "ref_61x81_4steps.npz"
 CONFIG0 = ROOT / "examples" / "config0_4096_production.json"
+SMOKE_GOLDEN = ROOT / "tests" / "golden" / "path_smoke3d.npz"
 MAIN_STEPS = 30
 RENDER_STEPS = 3
+SMOKE_STEPS = 20
 SMALL = (61, 81)
 PROD = (4096, 4096)
+SMALL3 = (9, 33, 130)
+SMOKE = (256, 256, 256)
+PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+PEAK_F32_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 PKG = "esp32_fluid_simulation_tpu_torch"
+TPU = "esp32_fluid_simulation_tpu"
 KERNELS = {
     # name: (source, replaced TPU kernel)
     "K1 project_fused": (f"{PKG}/csrc/project.cu",
-                         "esp32_fluid_simulation_tpu/ops/pallas/project.py:203"),
+                         f"{TPU}/ops/pallas/project.py:203"),
     "K2 advect_kernel": (f"{PKG}/csrc/advect.cu",
-                         "esp32_fluid_simulation_tpu/ops/pallas/advect.py:715"),
-    "K3 render_rgb565_kernel": (
-        f"{PKG}/csrc/upscale.cu",
-        "esp32_fluid_simulation_tpu/render/pallas_upscale.py:171"),
+                         f"{TPU}/ops/pallas/advect.py:715"),
+    "K3 render_rgb565_kernel": (f"{PKG}/csrc/upscale.cu",
+                                f"{TPU}/render/pallas_upscale.py:171"),
+    "K7 advect3d_kernel": (f"{PKG}/csrc/advect3d.cu",
+                           f"{TPU}/ops/pallas/advect3d.py:255"),
+    "K8 divergence3d": (f"{PKG}/csrc/fd3d.cu",
+                        f"{TPU}/ops/pallas/fd3d.py:138"),
+    "K8 subtract_gradient3d": (f"{PKG}/csrc/fd3d.cu",
+                               f"{TPU}/ops/pallas/fd3d.py:167"),
+    "K9 sor3d_solve": (f"{PKG}/csrc/sor3d.cu",
+                       f"{TPU}/ops/pallas/sor3d.py:265"),
+    "K10 render_smoke_mip_kernel": (f"{PKG}/csrc/smoke_mip.cu",
+                                    f"{TPU}/render/pallas_smoke.py:46"),
 }
 
 
@@ -103,6 +133,18 @@ def cuda_ms(fn, n, warmup=1):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def bound(nbytes, flops):
+    """(ms, what bounds it): the least time the card could take for work
+    that moves ``nbytes`` and does ``flops`` float32 operations."""
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    t_ops = 1e3 * flops / PEAK_F32_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def phase1_kernels(dev):
@@ -175,6 +217,58 @@ def phase1_kernels(dev):
     return err
 
 
+def phase1b_kernels3d(dev):
+    """Each 3D smoke kernel against its plain version, at a small odd shape
+    and at the plume's 256^3."""
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.advect3d import (
+        advect3d_kernel, advect3d_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.fd3d import (
+        divergence3d, divergence3d_reference, subtract_gradient3d,
+        subtract_gradient3d_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.sor3d import (
+        sor3d_solve, sor3d_reference)
+    from esp32_fluid_simulation_tpu_torch.render.cuda_smoke import (
+        render_smoke_mip_kernel, render_smoke_mip_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    err = {}
+
+    def check(name, label, got, want):
+        err[name] = max(err.get(name, 0.0), compare(label, got, want))
+
+    dt = 1.0 / 30.0
+    for shape in (SMALL3, SMOKE):
+        print(f"phase 1b kernels vs plain at {shape}")
+        # sigma 40 cells/s: |v|*dt > max_disp=2 on ~13% of the components
+        vel = 40.0 * torch.randn((3,) + shape, generator=gen, device=dev)
+        check("K7 advect3d_kernel", "K7 self-advect f32 no_slip",
+              advect3d_kernel(vel, vel, dt, True, 2),
+              advect3d_reference(vel, vel, dt, True, 2))
+        pair = torch.rand((2,) + shape, generator=gen,
+                          device=dev).to(torch.bfloat16)
+        check("K7 advect3d_kernel", "K7 bf16 density+temperature",
+              advect3d_kernel(pair, vel, dt, False, 2),
+              advect3d_reference(pair, vel, dt, False, 2))
+        p = torch.randn(shape, generator=gen, device=dev)
+        check("K8 divergence3d", "K8 divergence", divergence3d(vel, 1.0),
+              divergence3d_reference(vel, 1.0))
+        check("K8 subtract_gradient3d", "K8 gradient subtract",
+              subtract_gradient3d(vel, p, 1.0),
+              subtract_gradient3d_reference(vel, p, 1.0))
+        for iters in (10, 1):
+            check("K9 sor3d_solve", f"K9 iters={iters} chunk=3",
+                  sor3d_solve(p, 1.0, iters, 1.5, chunk=3),
+                  sor3d_reference(p, 1.0, iters, 1.5))
+        rho = 1.2 * torch.rand(shape, generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            for bswap in (True, False):
+                check("K10 render_smoke_mip_kernel",
+                      f"K10 {str(dtype)[6:]} bswap={bswap}",
+                      render_smoke_mip_kernel(rho.to(dtype), bswap),
+                      render_smoke_mip_reference(rho.to(dtype), bswap))
+    return err
+
+
 def phase2_golden(dev):
     from esp32_fluid_simulation_tpu_torch import (SimConfig, Impulses,
                                                   init_state, make_step)
@@ -226,9 +320,21 @@ def reset_counts():
         project_fused)
     from esp32_fluid_simulation_tpu_torch.render.cuda_upscale import (
         render_rgb565_kernel)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.advect3d import (
+        advect3d_kernel)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.fd3d import (
+        divergence3d, subtract_gradient3d)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.sor3d import sor3d_solve
+    from esp32_fluid_simulation_tpu_torch.render.cuda_smoke import (
+        render_smoke_mip_kernel)
     fns = {"K1 project_fused": project_fused,
            "K2 advect_kernel": advect_kernel,
-           "K3 render_rgb565_kernel": render_rgb565_kernel}
+           "K3 render_rgb565_kernel": render_rgb565_kernel,
+           "K7 advect3d_kernel": advect3d_kernel,
+           "K8 divergence3d": divergence3d,
+           "K8 subtract_gradient3d": subtract_gradient3d,
+           "K9 sor3d_solve": sor3d_solve,
+           "K10 render_smoke_mip_kernel": render_smoke_mip_kernel}
     for fn in fns.values():
         fn.launches = 0
     return lambda: {k: fn.launches for k, fn in fns.items()}
@@ -305,7 +411,7 @@ def phase3_4_main_path(dev, cfg):
     compare("phase 4 K3 frame at s=4 vs plain", frame4, want)
     print(f"phase 4 scaling=4: {RENDER_STEPS} step_render calls, frame "
           f"{tuple(frame4.shape)}, launches {n}")
-    return n, state0
+    return {k: n[k] for k in list(KERNELS)[:3]}, state0
 
 
 def phase5_timing(dev, cfg, state0, card):
@@ -371,14 +477,246 @@ def phase5_timing(dev, cfg, state0, card):
           "(CUDA events, ms per call):")
     for k, v in res.items():
         print(f"  {k}: {v:.4f} ms")
-    return res
+
+    # per kernel over the calls of one step: (ms, plain ms, bytes, flops);
+    # flops counted from each kernel's formula (see its source)
+    h, w = cfg.shape
+    n = h * w
+    frame = (h - 1) * (w - 1)
+    up = 16 * frame                               # s=4 output pixels
+    return {
+        "K1 project_fused": (
+            res["K1 project_fused"], res["K1 project_fused plain"],
+            2 * nbytes(vel) + 4 * n + nbytes(*imp),
+            n * (13 + 8 * cfg.sor_iters)),
+        "K2 advect_kernel": (
+            res["K2 advect_kernel"] + res["K2 advect_kernel dye"],
+            res["K2 advect_kernel plain"] + res["K2 advect_kernel dye plain"],
+            3 * nbytes(vel) + 2 * nbytes(color) + 2 * frame, n * (49 + 60)),
+        "K3 render_rgb565_kernel": (
+            res["K3 render_rgb565_kernel"],
+            res["K3 render_rgb565_kernel plain"],
+            nbytes(color) + 2 * up, 24 * up),
+    }
+
+
+def phase6_smoke_golden(dev):
+    from esp32_fluid_simulation_tpu_torch import (SmokeConfig, init_smoke,
+                                                  make_smoke_step)
+    cfg = SmokeConfig(shape=(24, 24, 24), solver="multigrid", sor_iters=4)
+    st = init_smoke(cfg, device=dev)
+    fn = make_smoke_step(cfg)
+    for _ in range(5):
+        st = fn(st)
+    diffs = []
+    with np.load(SMOKE_GOLDEN) as z:
+        for name in ("velocity", "density", "temperature"):
+            got = getattr(st, name).float().cpu().numpy()
+            np.testing.assert_allclose(got, z[name], rtol=1e-4, atol=1e-4)
+            diffs.append(f"max|d{name[0]}|={np.abs(got - z[name]).max():.3g}")
+    print(f"phase 6 smoke golden 24^3 multigrid 5 steps: {' '.join(diffs)} "
+          "(rtol 1e-4, atol 1e-4) ok")
+
+
+def plain_smoke_step(state, cfg, src):
+    """The plume step through the kernels' plain versions (the same
+    arithmetic in PyTorch ops), on any device."""
+    from esp32_fluid_simulation_tpu_torch import SmokeState
+    from esp32_fluid_simulation_tpu_torch.models.smoke3d import (
+        inject_and_buoy)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.advect3d import (
+        advect3d_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.fd3d import (
+        divergence3d_reference, subtract_gradient3d_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.sor3d import (
+        sor3d_reference)
+    md, dt = cfg.advect_max_disp, cfg.dt
+    vel = advect3d_reference(state.velocity, state.velocity, dt, True, md)
+    scal = advect3d_reference(torch.stack([state.density,
+                                           state.temperature]), vel, dt,
+                              False, md)
+    vel, rho, temp = inject_and_buoy(vel, scal[0], scal[1], src, cfg)
+    p = sor3d_reference(divergence3d_reference(vel, cfg.dx), cfg.dx,
+                        cfg.sor_iters, cfg.omega)
+    vel = subtract_gradient3d_reference(vel, p, cfg.dx)
+    return SmokeState(velocity=vel, density=rho, temperature=temp,
+                      step=state.step + 1)
+
+
+def phase7_smoke_main_path(dev, cfg):
+    """Returns the launch counts of the plume's run and its last state."""
+    from esp32_fluid_simulation_tpu_torch import (SmokeState, init_smoke,
+                                                  make_smoke_step,
+                                                  render_smoke)
+    from esp32_fluid_simulation_tpu_torch.models.smoke3d import (
+        source_tensor)
+    from esp32_fluid_simulation_tpu_torch.render.cuda_smoke import (
+        render_smoke_mip_reference)
+
+    state0 = init_smoke(cfg, device=dev)
+    step = make_smoke_step(cfg)
+    torch.cuda.synchronize()
+    counts = reset_counts()
+    st = state0
+    for _ in range(SMOKE_STEPS):
+        st = step(st)
+        frame = render_smoke(st.density)
+    torch.cuda.synchronize()
+    n = counts()
+    want = {"K7 advect3d_kernel": 2 * SMOKE_STEPS,
+            "K8 divergence3d": SMOKE_STEPS,
+            "K8 subtract_gradient3d": SMOKE_STEPS,
+            "K9 sor3d_solve": SMOKE_STEPS,
+            "K10 render_smoke_mip_kernel": SMOKE_STEPS}
+    if any(n[k] != v for k, v in want.items()):
+        raise AssertionError(f"phase 7: launch counts {n} for {SMOKE_STEPS} "
+                             f"steps (want {want})")
+    for name in ("velocity", "density", "temperature"):
+        if not torch.isfinite(getattr(st, name).float()).all():
+            raise AssertionError(f"phase 7: non-finite {name}")
+    rho = st.density.float()
+    lo, hi = float(rho.min()), float(rho.max())
+    if lo < 0.0 or hi > 1.0 or hi < 0.05:
+        raise AssertionError(f"phase 7: density in [{lo}, {hi}]")
+    d = cfg.shape[0]
+    src_top = int(cfg.source_center[0] * d
+                  - cfg.source_radius * min(cfg.shape)) - 2
+    above = float(rho[:src_top].sum())
+    w_up = float((st.velocity[0] * rho).sum())
+    if not above > 0.0 or not w_up < 0.0:
+        raise AssertionError(f"phase 7: no rising plume (smoke above the "
+                             f"source {above}, sum v0*rho {w_up})")
+    if frame.dtype != torch.uint16 or tuple(frame.shape) != cfg.shape[1:]:
+        raise AssertionError(f"phase 7: frame {frame.dtype} "
+                             f"{tuple(frame.shape)}")
+    print(f"phase 7 smoke main path {cfg.shape} {SMOKE_STEPS} steps + "
+          f"renders: launches {want}; finite, density in [{lo}, {hi}], "
+          f"smoke above the source {above:.4g}, sum v0*rho {w_up:.4g} (< 0: "
+          f"rising), frame uint16 {tuple(frame.shape)}")
+
+    src = source_tensor(cfg, dev)
+    ps = SmokeState(state0.velocity.clone(), state0.density.clone(),
+                    state0.temperature.clone(), 0)
+    for _ in range(SMOKE_STEPS):
+        ps = plain_smoke_step(ps, cfg, src)
+    pframe = render_smoke_mip_reference(ps.density)
+    dv = float((ps.velocity - st.velocity).abs().max())
+    dr = float((ps.density.float() - rho).abs().max())
+    frame_eq = float((pframe.view(torch.int16) == frame.view(torch.int16))
+                     .float().mean())
+    same = (torch.equal(ps.velocity, st.velocity)
+            and torch.equal(ps.density, st.density)
+            and torch.equal(ps.temperature, st.temperature))
+    print(f"phase 7 plain path on the card: max|dv|={dv:.3g} "
+          f"max|drho|={dr:.3g} frame equal={100 * frame_eq:.4f}% "
+          f"bit-identical={same}")
+    # stated tolerance: each kernel is bit-equal to its plain version, so
+    # the trajectories must agree to the bit up to float32 noise
+    torch.testing.assert_close(st.velocity, ps.velocity, rtol=1e-5,
+                               atol=1e-5)
+    for a, b in ((st.density, ps.density),
+                 (st.temperature, ps.temperature)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=2.0 ** -8)
+    if frame_eq < 0.9999:
+        raise AssertionError(f"phase 7: frames agree on {frame_eq:.6f}")
+    return {k: n[k] for k in want}, st
+
+
+def phase5_smoke_timing(dev, cfg, state, card):
+    from esp32_fluid_simulation_tpu_torch import make_smoke_step, render_smoke
+    from esp32_fluid_simulation_tpu_torch.models.smoke3d import (
+        source_tensor)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.advect3d import (
+        advect3d_kernel, advect3d_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.fd3d import (
+        divergence3d, divergence3d_reference, subtract_gradient3d,
+        subtract_gradient3d_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.sor3d import (
+        sor3d_solve, sor3d_reference)
+    from esp32_fluid_simulation_tpu_torch.render.cuda_smoke import (
+        render_smoke_mip_kernel, render_smoke_mip_reference)
+
+    src = source_tensor(cfg, dev)
+    box = {"st": state}
+
+    def stepper(fn):
+        def one():
+            box["st"] = fn(box["st"])
+        return one
+
+    res = {}
+    res["smoke step kernel"] = cuda_ms(stepper(make_smoke_step(cfg)), 20,
+                                       warmup=3)
+    box["st"] = state
+    res["smoke step plain"] = cuda_ms(
+        stepper(lambda s: plain_smoke_step(s, cfg, src)), 3, warmup=1)
+
+    vel, rho = state.velocity, state.density
+    pair = torch.stack([state.density, state.temperature])
+    md, dt, dx = cfg.advect_max_disp, cfg.dt, cfg.dx
+    div = divergence3d(vel, dx)
+    p = sor3d_solve(div, dx, cfg.sor_iters, cfg.omega)
+    it, om = cfg.sor_iters, cfg.omega
+    per_kernel = {
+        "K7 velocity": (lambda: advect3d_kernel(vel, vel, dt, True, md),
+                        lambda: advect3d_reference(vel, vel, dt, True, md)),
+        "K7 scalars": (lambda: advect3d_kernel(pair, vel, dt, False, md),
+                       lambda: advect3d_reference(pair, vel, dt, False, md)),
+        "K8 divergence3d": (lambda: divergence3d(vel, dx),
+                            lambda: divergence3d_reference(vel, dx)),
+        "K8 subtract_gradient3d": (
+            lambda: subtract_gradient3d(vel, p, dx),
+            lambda: subtract_gradient3d_reference(vel, p, dx)),
+        "K9 sor3d_solve": (lambda: sor3d_solve(div, dx, it, om),
+                           lambda: sor3d_reference(div, dx, it, om)),
+        "K10 render_smoke_mip_kernel": (
+            lambda: render_smoke_mip_kernel(rho),
+            lambda: render_smoke_mip_reference(rho)),
+    }
+    for name, (kern, plain) in per_kernel.items():
+        # kernel, plain, plain, kernel: the two sides see the same card state
+        k1 = cuda_ms(kern, 20, warmup=2)
+        p1 = cuda_ms(plain, 3, warmup=1)
+        p2 = cuda_ms(plain, 3, warmup=0)
+        k2 = cuda_ms(kern, 20, warmup=0)
+        res[name] = (k1 + k2) / 2
+        res[name + " plain"] = (p1 + p2) / 2
+    res["render_smoke mip"] = cuda_ms(lambda: render_smoke(rho), 20,
+                                      warmup=2)
+    print(f"phase 5 timing at {cfg.shape} on {card} (CUDA events, ms per "
+          "call):")
+    for k, v in res.items():
+        print(f"  {k}: {v:.4f} ms")
+
+    n = vel[0].numel()
+    d, h, w = cfg.shape
+    return {
+        "K7 advect3d_kernel": (
+            res["K7 velocity"] + res["K7 scalars"],
+            res["K7 velocity plain"] + res["K7 scalars plain"],
+            3 * nbytes(vel) + 2 * nbytes(pair), n * ((34 + 3 * 19 + 17)
+                                                     + (34 + 2 * 19))),
+        "K8 divergence3d": (res["K8 divergence3d"],
+                            res["K8 divergence3d plain"],
+                            nbytes(vel, div), 9 * n),
+        "K8 subtract_gradient3d": (res["K8 subtract_gradient3d"],
+                                   res["K8 subtract_gradient3d plain"],
+                                   2 * nbytes(vel) + nbytes(p), 9 * n),
+        "K9 sor3d_solve": (res["K9 sor3d_solve"], res["K9 sor3d_solve plain"],
+                           nbytes(div, p), 11 * n * it),
+        "K10 render_smoke_mip_kernel": (
+            res["K10 render_smoke_mip_kernel"],
+            res["K10 render_smoke_mip_kernel plain"],
+            nbytes(rho) + 2 * h * w, n + 12 * h * w),
+    }
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is false); this check runs only on a GPU")
-    from esp32_fluid_simulation_tpu_torch import SimConfig
+    from esp32_fluid_simulation_tpu_torch import SimConfig, SmokeConfig
     from esp32_fluid_simulation_tpu_torch.ops.cuda import build
 
     dev = torch.device("cuda", 0)
@@ -395,19 +733,29 @@ def main():
             print(f"  ptxas: {line.strip()}")
 
     err = phase1_kernels(dev)
+    err.update(phase1b_kernels3d(dev))
     phase2_golden(dev)
     cfg = SimConfig.from_json(CONFIG0.read_text())
     counts, state0 = phase3_4_main_path(dev, cfg)
-    times = phase5_timing(dev, cfg, state0, card)
+    phase6_smoke_golden(dev)
+    scfg = SmokeConfig(shape=SMOKE)
+    counts3, smoke = phase7_smoke_main_path(dev, scfg)
+    counts.update(counts3)
+    work = phase5_timing(dev, cfg, state0, card)
+    work.update(phase5_smoke_timing(dev, scfg, smoke, card))
 
     for name, n in counts.items():
         if n == 0:
-            raise AssertionError(f"{name} never launched on the main path")
-    summary = {"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], "max_abs_err": err[name],
-         "ms": times[name], "plain_ms": times[name + " plain"]}
-        for name, (src, rep) in KERNELS.items()]}
+            raise AssertionError(f"{name} never launched on its main path")
+    summary = {"kernels": []}
+    for name, (src, rep) in KERNELS.items():
+        ms, plain_ms, moved, flops = work[name]
+        bound_ms, bound_by = bound(moved, flops)
+        summary["kernels"].append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": counts[name], "max_abs_err": err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None})
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

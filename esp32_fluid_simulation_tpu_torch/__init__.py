@@ -5,11 +5,14 @@ It mirrors the JAX package file for file (each module names its
 counterpart by path); the JAX package stays the reference it is tested
 against.  Plain tensor code is PyTorch; the TPU's Pallas kernels on the
 main path are hand-written CUDA kernels under ``csrc/`` (``ops/cuda``,
-``render/cuda_upscale.py``), built at first use.  Layout:
+``render/cuda_upscale.py``, ``render/cuda_smoke.py``), built at first use.
+Every entry point that creates state puts it on the card (``"cuda"``)
+unless the caller names another device.  Layout:
 
   L0  array conventions      channels-first tensors (``state.py``)
   L2  numerical ops          ``ops/`` (advect, fd, poisson, cuda kernels)
-  L3  application runtime    ``models/`` step functions, ``render/``,
+  L3  application runtime    ``models/`` step functions (the 2D dye bed,
+                             the 3D smoke plume), ``render/``,
                              ``io_host/`` touch input
 """
 
@@ -17,8 +20,9 @@ from .config import SimConfig, reference_config
 from .state import SimState, Impulses
 from .models import (init_state, step, make_step, step_render,
                      make_step_render, make_step_with_metrics,
-                     make_multi_step, stack_schedule)
-from .render import render_rgb565, render_rgb8
+                     make_multi_step, stack_schedule, SmokeConfig,
+                     SmokeState, init_smoke, smoke_step, make_smoke_step)
+from .render import render_rgb565, render_rgb8, render_smoke
 
 __version__ = "0.1.0"
 
@@ -37,4 +41,10 @@ __all__ = [
     "stack_schedule",
     "render_rgb565",
     "render_rgb8",
+    "SmokeConfig",
+    "SmokeState",
+    "init_smoke",
+    "smoke_step",
+    "make_smoke_step",
+    "render_smoke",
 ]

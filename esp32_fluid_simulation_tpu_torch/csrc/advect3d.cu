@@ -1,0 +1,150 @@
+// 3D semi-Lagrangian advection with the per-axis CFL clamp and the no-slip
+// discount, for 1-4 channels stored in float32 or bfloat16.
+//
+// Replaces the TPU kernel esp32_fluid_simulation_tpu/ops/pallas/
+// advect3d.py (advect3d_pallas / _advect3d_kernel).  That kernel DMAs a
+// haloed window and walks every integer (z, row) shift with lane gathers
+// over 128-lane panels (packed bf16 pairs, rolled copies), because a TPU
+// core has no fast per-element gather.  Hopper does: here one thread owns
+// one output cell and reads its eight trilinear taps of each channel
+// directly through L1/L2.
+//
+// Bound on the H100: device-memory bytes.  Per cell it reads the velocity
+// (12 B as float32), writes C channels, and reads the taps; the backtrace
+// moves at most max_disp cells per axis, so neighbouring threads read
+// neighbouring taps and the field is fetched from device memory about once.
+// At 256^3 the velocity self-advect moves ~403 MB and the bf16 density +
+// temperature pair ~336 MB.
+//
+// Arithmetic follows the TPU kernel (advect3d.py:83-243): the backtrace
+// s = x - v*dt per axis, clamped to x +- max_disp, then to the domain; the
+// lower tap floor(s) clamped to [0, n-2]; the accumulation in the kernel's
+// order, z-shift outer and row-shift inner,
+//   acc = ((c00 + c01) + c10) + c11,  c_ab = colv_ab * (wz_a * wi_b),
+//   colv = f[j0] * (1 - dj) + f[j0+1] * dj,
+// then the no-slip factor of the unclamped coordinates, (fz * fi) * fj, and
+// the store in the field dtype (bf16: round to nearest even).  Computed in
+// float32 whatever the storage.  Built with --fmad=false, bit-equal to the
+// plain PyTorch version.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+namespace {
+
+__device__ __forceinline__ float load(const float* p, long long k) {
+  return p[k];
+}
+__device__ __forceinline__ float load(const __nv_bfloat16* p, long long k) {
+  return __bfloat162float(p[k]);
+}
+__device__ __forceinline__ void store(float* p, long long k, float v) {
+  p[k] = v;
+}
+__device__ __forceinline__ void store(__nv_bfloat16* p, long long k,
+                                      float v) {
+  p[k] = __float2bfloat16_rn(v);
+}
+
+// advect.h:62-70: a sample past the wall attenuates to zero over half a
+// cell of overshoot; raw >= n-1 already counts as the boundary.
+__device__ __forceinline__ float noslip_factor(float raw, int n) {
+  const float hi = (float)(n - 1);
+  const bool under = raw < 0.f;
+  const bool over = raw >= hi;
+  if (!(under || over)) return 1.f;
+  const float overshoot = under ? -raw : raw - hi;
+  return overshoot < 0.5f ? 1.f - 2.f * overshoot : 0.f;
+}
+
+// The clamped backtrace coordinate along one axis of n nodes.
+__device__ __forceinline__ float source(float x, float raw, float md, int n) {
+  const float s = fminf(fmaxf(raw, x - md), x + md);
+  return fminf(fmaxf(s, 0.f), (float)(n - 1));
+}
+
+template <typename T, typename V>
+__global__ void advect3d_kernel(const T* __restrict__ field,
+                                const V* __restrict__ vel,
+                                T* __restrict__ out, int C, int D, int H,
+                                int W, float dt, float md, int no_slip) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  const int z = blockIdx.z;
+  if (i >= H || j >= W) return;
+  const long long plane = (long long)H * W;
+  const long long vol = plane * D;
+  const long long c = z * plane + (long long)i * W + j;
+  const float zf = (float)z;
+  const float xi = (float)i;
+  const float xj = (float)j;
+  const float sz_raw = zf - load(vel, c) * dt;
+  const float si_raw = xi - load(vel, vol + c) * dt;
+  const float sj_raw = xj - load(vel, 2 * vol + c) * dt;
+  const float sz = source(zf, sz_raw, md, D);
+  const float si = source(xi, si_raw, md, H);
+  const float sj = source(xj, sj_raw, md, W);
+  const float z0 = fminf(fmaxf(floorf(sz), 0.f), (float)(D - 2));
+  const float i0 = fminf(fmaxf(floorf(si), 0.f), (float)(H - 2));
+  const float j0 = fminf(fmaxf(floorf(sj), 0.f), (float)(W - 2));
+  const float dz = sz - z0;
+  const float di = si - i0;
+  const float dj = sj - j0;
+  const float one_m_dj = 1.f - dj;
+  const float w00 = (1.f - dz) * (1.f - di);
+  const float w01 = (1.f - dz) * di;
+  const float w10 = dz * (1.f - di);
+  const float w11 = dz * di;
+  const long long t = (long long)z0 * plane + (long long)i0 * W + (int)j0;
+  float ns = 1.f;
+  if (no_slip)
+    ns = (noslip_factor(sz_raw, D) * noslip_factor(si_raw, H)) *
+         noslip_factor(sj_raw, W);
+  for (int ch = 0; ch < C; ++ch) {
+    const T* f = field + ch * vol + t;
+    const float c00 = (load(f, 0) * one_m_dj + load(f, 1) * dj) * w00;
+    const float c01 = (load(f, W) * one_m_dj + load(f, W + 1) * dj) * w01;
+    const float c10 =
+        (load(f, plane) * one_m_dj + load(f, plane + 1) * dj) * w10;
+    const float c11 =
+        (load(f, plane + W) * one_m_dj + load(f, plane + W + 1) * dj) * w11;
+    float acc = ((c00 + c01) + c10) + c11;
+    if (no_slip) acc = acc * ns;
+    store(out, ch * vol + c, acc);
+  }
+}
+
+template <typename T, typename V>
+cudaError_t launch(const void* field, const void* vel, void* out, int C,
+                   int D, int H, int W, float dt, float md, int no_slip,
+                   cudaStream_t stream) {
+  const dim3 block(32, 8);
+  const dim3 grid((W + 31) / 32, (H + 7) / 8, D);
+  advect3d_kernel<T, V><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(field), static_cast<const V*>(vel),
+      static_cast<T*>(out), C, D, H, W, dt, md, no_slip);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// field, out: [C, D, H, W] float32 (field_bf16 = 0) or bfloat16 (= 1);
+// vel: [3, D, H, W] float32 (vel_bf16 = 0) or bfloat16 (= 1).
+extern "C" int fluid_advect3d(const void* field, const void* vel, void* out,
+                              int C, int D, int H, int W, int field_bf16,
+                              int vel_bf16, float dt, int max_disp,
+                              int no_slip, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float md = (float)max_disp;
+  if (field_bf16)
+    return (int)(vel_bf16
+                     ? launch<__nv_bfloat16, __nv_bfloat16>(
+                           field, vel, out, C, D, H, W, dt, md, no_slip, s)
+                     : launch<__nv_bfloat16, float>(field, vel, out, C, D, H,
+                                                    W, dt, md, no_slip, s));
+  return (int)(vel_bf16 ? launch<float, __nv_bfloat16>(field, vel, out, C, D,
+                                                        H, W, dt, md,
+                                                        no_slip, s)
+                        : launch<float, float>(field, vel, out, C, D, H, W,
+                                               dt, md, no_slip, s));
+}

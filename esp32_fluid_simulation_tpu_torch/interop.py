@@ -14,10 +14,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.smoke3d import SmokeState
 from .state import Impulses, SimState
 
 
-def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
+def tensor_from_numpy(arr, device="cuda") -> torch.Tensor:
     """numpy array (bfloat16 included) -> tensor on ``device``, bit for bit."""
     arr = np.array(arr, copy=True, order="C")  # writable, owned by torch
     if arr.dtype.name == "bfloat16":
@@ -34,14 +35,14 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-def state_from_numpy(velocity, color, step=0, device="cpu") -> SimState:
+def state_from_numpy(velocity, color, step=0, device="cuda") -> SimState:
     """The JAX package's ``SimState`` fields (as numpy) -> ``SimState``."""
     return SimState(velocity=tensor_from_numpy(velocity, device),
                     color=tensor_from_numpy(color, device),
                     step=int(np.asarray(step)))
 
 
-def impulses_from_numpy(pos, velocity, active, device="cpu") -> Impulses:
+def impulses_from_numpy(pos, velocity, active, device="cuda") -> Impulses:
     """The JAX package's ``Impulses`` fields (as numpy) -> ``Impulses``."""
     return Impulses(pos=tensor_from_numpy(pos, device),
                     velocity=tensor_from_numpy(velocity, device),
@@ -52,3 +53,20 @@ def state_to_numpy(state: SimState):
     """``SimState`` -> ``(velocity, color, step)`` numpy arrays."""
     return (tensor_to_numpy(state.velocity), tensor_to_numpy(state.color),
             np.int32(state.step))
+
+
+def smoke_state_from_numpy(velocity, density, temperature, step=0,
+                           device="cuda") -> SmokeState:
+    """The JAX package's ``SmokeState`` fields (as numpy) -> ``SmokeState``;
+    the plume has no learned parameters, so this is all it carries."""
+    return SmokeState(velocity=tensor_from_numpy(velocity, device),
+                      density=tensor_from_numpy(density, device),
+                      temperature=tensor_from_numpy(temperature, device),
+                      step=int(np.asarray(step)))
+
+
+def smoke_state_to_numpy(state: SmokeState):
+    """``SmokeState`` -> ``(velocity, density, temperature, step)`` numpy
+    arrays, bfloat16 as its ``uint16`` bits."""
+    return (tensor_to_numpy(state.velocity), tensor_to_numpy(state.density),
+            tensor_to_numpy(state.temperature), np.int32(state.step))

@@ -70,7 +70,7 @@ def drags_from_touch_trace(
     return drags
 
 
-def drags_to_impulses(drags, cfg: SimConfig, device="cpu") -> Impulses:
+def drags_to_impulses(drags, cfg: SimConfig, device="cuda") -> Impulses:
     """Graphics-frame drags -> sim-frame impulses: swap x/y for both the cell
     index and the velocity (``.ino:264-268``)."""
     pos = [(gy, gx) for (gx, gy), _ in drags]
@@ -79,7 +79,7 @@ def drags_to_impulses(drags, cfg: SimConfig, device="cpu") -> Impulses:
 
 
 def scripted_swirl(cfg: SimConfig, t_step: int, n_points: int = 8,
-                   speed: float = 300.0, device="cpu") -> Impulses:
+                   speed: float = 300.0, device="cuda") -> Impulses:
     """A rotating ring of tangential pokes around the grid center (the
     scripted stand-in for a finger swirl)."""
     h, w = cfg.shape[-2], cfg.shape[-1]

@@ -9,6 +9,13 @@ from .stable_fluids import (
     make_multi_step,
     stack_schedule,
 )
+from .smoke3d import (
+    SmokeConfig,
+    SmokeState,
+    init_smoke,
+    smoke_step,
+    make_smoke_step,
+)
 
 __all__ = [
     "init_state",
@@ -20,4 +27,9 @@ __all__ = [
     "make_step_with_metrics",
     "make_multi_step",
     "stack_schedule",
+    "SmokeConfig",
+    "SmokeState",
+    "init_smoke",
+    "smoke_step",
+    "make_smoke_step",
 ]

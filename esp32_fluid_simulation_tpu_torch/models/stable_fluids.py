@@ -49,7 +49,7 @@ def _check_ported(cfg: SimConfig) -> None:
                                   "yet (ROADMAP.md queue 1, item 6)")
 
 
-def init_color(cfg: SimConfig, device="cpu") -> torch.Tensor:
+def init_color(cfg: SimConfig, device="cuda") -> torch.Tensor:
     """Angular RGB sectors around the grid center, then two in-place
     [1/4,1/2,1/4] blurs in the storage dtype (``.ino:203-241``)."""
     if cfg.domain_tile is not None:
@@ -77,7 +77,7 @@ def init_color(cfg: SimConfig, device="cpu") -> torch.Tensor:
     return c
 
 
-def init_state(cfg: SimConfig, device="cpu") -> SimState:
+def init_state(cfg: SimConfig, device="cuda") -> SimState:
     """Zero velocity + sector dye on ``device`` (``setup()``,
     ``.ino:194-241``)."""
     vel = torch.zeros((cfg.ndim,) + tuple(cfg.shape), dtype=cfg.torch_dtype,

@@ -1,0 +1,128 @@
+"""K7: 3D semi-Lagrangian advection on the GPU (``csrc/advect3d.cu``).
+
+Replaces ``esp32_fluid_simulation_tpu/ops/pallas/advect3d.py:
+advect3d_pallas`` (single device; its block mode is K11).
+``advect3d_kernel`` launches the CUDA kernel for CUDA tensors and runs
+``advect3d_reference``, its plain PyTorch version, for CPU tensors — only
+because they lie on the CPU.  Any other device raises.
+
+Semantics (both versions): backtrace ``x - dt*v`` per axis, the
+displacement clamped to ``max_disp`` cells per axis (a CFL clamp that the
+unclamped ``ops.advect.advect`` does not apply), trilinear sample at the
+domain-clamped coordinate accumulated in the TPU kernel's order, the
+no-slip factor from the unclamped coordinate, all in float32, and the
+store in the field dtype.  The eager ``ops.advect.advect`` lerps in the
+field dtype instead, so for bfloat16 fields the two differ by bf16
+rounding.  The TPU kernel's ``max_disp <= 62`` limit came from its lane
+band; a direct gather has none, so only ``0 <= max_disp < 2**24`` (exact
+in float32) is checked.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..advect import noslip_axis_factor
+from .build import load, stream_of
+
+_UNPORTED = ("global_offset", "global_shape", "halo")
+
+
+def _clamped_source(x, raw, max_disp, n):
+    s = torch.minimum(torch.maximum(raw, x - max_disp), x + max_disp)
+    return torch.clamp(s, 0.0, n - 1.0)
+
+
+def advect3d_reference(field, vel, dt, no_slip, max_disp=4):
+    """Plain PyTorch version of the kernel (same arithmetic, same order)."""
+    squeeze = field.dim() == 3
+    f = (field[None] if squeeze else field).to(torch.float32)
+    _, d, h, w = f.shape
+    dev = field.device
+    grid = torch.meshgrid(*(torch.arange(n, dtype=torch.float32, device=dev)
+                            for n in (d, h, w)), indexing="ij")
+    v = vel.to(torch.float32)
+    raw = [grid[k] - v[k] * dt for k in range(3)]
+    src = [_clamped_source(grid[k], raw[k], max_disp, n)
+           for k, n in enumerate((d, h, w))]
+    lo = [torch.clamp(torch.floor(s), 0.0, n - 2.0)
+          for s, n in zip(src, (d, h, w))]
+    dz, di, dj = (s - l for s, l in zip(src, lo))
+    one_m_dj = 1.0 - dj
+    z0, i0, j0 = (x.long() for x in lo)
+
+    def colv(a, b):
+        return (f[:, z0 + a, i0 + b, j0] * one_m_dj
+                + f[:, z0 + a, i0 + b, j0 + 1] * dj)
+
+    acc = colv(0, 0) * ((1.0 - dz) * (1.0 - di))
+    acc = acc + colv(0, 1) * ((1.0 - dz) * di)
+    acc = acc + colv(1, 0) * (dz * (1.0 - di))
+    acc = acc + colv(1, 1) * (dz * di)
+    if no_slip:
+        acc = acc * (noslip_axis_factor(raw[0], d)
+                     * noslip_axis_factor(raw[1], h)
+                     * noslip_axis_factor(raw[2], w))
+    out = acc.to(field.dtype)
+    return out[0] if squeeze else out
+
+
+def advect3d_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
+                    no_slip: bool, max_disp: int = 4, **unported):
+    """Advect ``field`` (``[C, D, H, W]`` or ``[D, H, W]``, float32 or
+    bfloat16, C <= 4) through ``vel`` (``[3, D, H, W]``, float32 or
+    bfloat16) into a fresh tensor.  ``field`` may be ``vel`` itself (the
+    velocity self-advect).  Block mode raises."""
+    for key in unported:
+        if key not in _UNPORTED:
+            raise TypeError(f"advect3d_kernel got an unexpected argument "
+                            f"{key!r}")
+    if any(v is not None and not (k == "halo" and v == 0)
+           for k, v in unported.items()):
+        raise NotImplementedError(
+            "advect3d_kernel: block mode (global_offset/global_shape/halo) "
+            "is not ported yet (ROADMAP.md queue 2, K11)")
+    if field.device.type == "cpu":
+        return advect3d_reference(field, vel, dt, no_slip, max_disp)
+    if not field.is_cuda:
+        raise ValueError(f"advect3d_kernel: unsupported device "
+                         f"{field.device}")
+
+    f4 = field[None] if field.dim() == 3 else field
+    if f4.dim() != 4:
+        raise ValueError(f"advect3d_kernel: field shape "
+                         f"{tuple(field.shape)} is not [C, D, H, W]")
+    c, d, h, w = f4.shape
+    # the launch puts planes on grid.z and rows on grid.y, 8 a block
+    if not 1 <= c <= 4 or min(d, h, w) < 2 or d > 65535 or h > 8 * 65535:
+        raise ValueError(f"advect3d_kernel: field shape "
+                         f"{tuple(field.shape)} not supported (C <= 4, "
+                         "2 <= D <= 65535, 2 <= H <= 524280, W >= 2)")
+    for name, t in (("field", f4), ("vel", vel)):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"advect3d_kernel: {name} dtype {t.dtype} not "
+                             "supported (float32, bfloat16)")
+    if vel.shape != (3, d, h, w):
+        raise ValueError("advect3d_kernel: vel must be [3, D, H, W]")
+    if vel.device != field.device:
+        raise ValueError("advect3d_kernel: field and vel on different "
+                         "devices")
+    if not (f4.is_contiguous() and vel.is_contiguous()):
+        raise ValueError("advect3d_kernel: inputs must be contiguous")
+    if not 0 <= max_disp < 2 ** 24:
+        raise ValueError(f"advect3d_kernel: max_disp={max_disp} out of "
+                         "range")
+
+    out = torch.empty_like(f4)
+    lib = load()
+    with torch.cuda.device(field.device):
+        lib.call("fluid_advect3d", f4.data_ptr(), vel.data_ptr(),
+                 out.data_ptr(), c, d, h, w,
+                 int(f4.dtype == torch.bfloat16),
+                 int(vel.dtype == torch.bfloat16), float(dt), int(max_disp),
+                 int(no_slip), stream_of(field))
+    advect3d_kernel.launches += 1
+    return out[0] if field.dim() == 3 else out
+
+
+advect3d_kernel.launches = 0

@@ -2,7 +2,8 @@
 
 All of ``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a
 plain C interface and loaded with ``ctypes`` — no PyTorch headers, so a
-build takes seconds.  The build happens at first use, never on import, into
+build takes seconds.  Each source compiles in its own ``nvcc`` process, all
+started together, and one more links the objects.  The build happens at first use, never on import, into
 ``build/kernels/`` beside the package (git-ignored).  The library's file
 name carries a hash of the sources and flags, so an edited source builds
 anew and an unchanged one is reused.  The compiler writes to a temporary
@@ -34,8 +35,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +50,17 @@ _SIGNATURES = {
                       _F, _F, _P),
     # color, out, H, W, color_bf16, s, bswap, unit_range, stream
     "fluid_render_rgb565": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # field, vel, out, C, D, H, W, field_bf16, vel_bf16, dt, max_disp,
+    # no_slip, stream
+    "fluid_advect3d": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    # vel, out, D, H, W, inv2dx, stream
+    "fluid_divergence3d": (_P, _P, _I, _I, _I, _F, _P),
+    # vel, p, out, D, H, W, inv2dx, stream
+    "fluid_subtract_gradient3d": (_P, _P, _P, _I, _I, _I, _F, _P),
+    # d, p, D, H, W, dx, iters, omega, one_m_w, stream
+    "fluid_sor3d": (_P, _P, _I, _I, _I, _F, _I, _F, _F, _P),
+    # density, out, D, H, W, density_bf16, inv_vmax, bswap, stream
+    "fluid_smoke_mip": (_P, _P, _I, _I, _I, _I, _F, _I, _P),
 }
 
 
@@ -105,19 +116,37 @@ def load() -> KernelLibrary:
     t0 = time.perf_counter()
     log = ""
     if not target.exists():
-        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-        os.close(fd)
-        try:
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-            os.replace(tmp, target)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            log = _compile_and_link(srcs, Path(tmp), target)
     return KernelLibrary(target, time.perf_counter() - t0, log)
+
+
+def _compile_and_link(srcs, tmp: Path, target: Path) -> str:
+    """One ``nvcc -c`` per source, run at once, then one link; the library
+    is renamed into place only when every step succeeded."""
+    nvcc = _nvcc()
+    objs = [tmp / f"{src.stem}.o" for src in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    log = ""
+    failed = []
+    for src, proc in zip(srcs, procs):
+        out, _ = proc.communicate()
+        log += out
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+    lib = tmp / target.name
+    res = subprocess.run([nvcc, "-shared", "-o", str(lib), *map(str, objs)],
+                         capture_output=True, text=True)
+    log += res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{log}")
+    os.replace(lib, target)
+    return log
 
 
 def stream_of(t) -> ctypes.c_void_p:

@@ -47,7 +47,7 @@ def _axis_index(shape, axis, device):
     return torch.arange(shape[axis], device=device).view(view)
 
 
-def neighbor_count(shape, dtype=torch.float32, device="cpu") -> torch.Tensor:
+def neighbor_count(shape, dtype=torch.float32, *, device) -> torch.Tensor:
     """a_ii: number of in-bounds face neighbours per node
     (``poisson.cpp:71-86``)."""
     a = torch.zeros(tuple(shape), dtype=torch.int64, device=device)
@@ -57,16 +57,16 @@ def neighbor_count(shape, dtype=torch.float32, device="cpu") -> torch.Tensor:
     return a.to(dtype)
 
 
-def _neg_inv_diag(shape, dtype=torch.float32, device="cpu") -> torch.Tensor:
+def _neg_inv_diag(shape, dtype=torch.float32, *, device) -> torch.Tensor:
     """-1/a_ii as a tensor, matching ``neg_a_ii_inv`` (``poisson.cpp:67``):
     the LUT entries are double divisions rounded to float."""
-    a = neighbor_count(shape, torch.int64, device)
+    a = neighbor_count(shape, torch.int64, device=device)
     lut = torch.tensor([-1.0 / k for k in range(1, 2 * len(shape) + 1)],
                        dtype=torch.float64).to(torch.float32)
     return lut.to(device=device)[a - 1].to(dtype)
 
 
-def _parity(shape, device="cpu") -> torch.Tensor:
+def _parity(shape, *, device) -> torch.Tensor:
     """(i + j + ...) % 2 checkerboard parity (``poisson.cpp:10-12``)."""
     par = torch.zeros(tuple(shape), dtype=torch.int64, device=device)
     for axis in range(len(shape)):
@@ -79,9 +79,9 @@ def sor_sweep(p: torch.Tensor, d: torch.Tensor, omega: float,
               parity: torch.Tensor | None = None) -> torch.Tensor:
     """One full red-black SOR sweep (even half then odd half)."""
     if neg_inv is None:
-        neg_inv = _neg_inv_diag(p.shape, p.dtype, p.device)
+        neg_inv = _neg_inv_diag(p.shape, p.dtype, device=p.device)
     if parity is None:
-        parity = _parity(p.shape, p.device)
+        parity = _parity(p.shape, device=p.device)
     for color in (0, 1):
         gs = neg_inv * (dx * d - neighbor_sum(p))
         p_new = (1.0 - omega) * p + omega * gs
@@ -93,8 +93,8 @@ def sor_solve(d: torch.Tensor, dx: float = 1.0, iters: int = 10,
               omega: float = 1.96, p0: torch.Tensor | None = None):
     """Solve lap(p) = d (``poisson.cpp:114-125``), zero-initialized."""
     p = torch.zeros_like(d) if p0 is None else p0
-    neg_inv = _neg_inv_diag(d.shape, d.dtype, d.device)
-    parity = _parity(d.shape, d.device)
+    neg_inv = _neg_inv_diag(d.shape, d.dtype, device=d.device)
+    parity = _parity(d.shape, device=d.device)
     for _ in range(iters):
         p = sor_sweep(p, d, omega, dx, neg_inv, parity)
     return p
@@ -103,7 +103,7 @@ def sor_solve(d: torch.Tensor, dx: float = 1.0, iters: int = 10,
 def poisson_residual(p: torch.Tensor, d: torch.Tensor,
                      dx: float = 1.0) -> torch.Tensor:
     """Pointwise residual: nbr_sum - a_ii*p - dx*d."""
-    a = neighbor_count(p.shape, p.dtype, p.device)
+    a = neighbor_count(p.shape, p.dtype, device=p.device)
     return neighbor_sum(p) - a * p - dx * d
 
 

@@ -3,7 +3,8 @@
 
 Layout is channels-first (``[C, H, W]``), as in the JAX package, so the
 tests compare like with like.  Every constructor takes the ``device`` the
-tensors live on; nothing here reads a global default device.
+tensors live on, the card (``"cuda"``) unless the caller names another;
+nothing here reads a global default device.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ class Impulses(NamedTuple):
     active: torch.Tensor    # bool  [K]
 
     @classmethod
-    def none(cls, cfg: SimConfig, device="cpu") -> "Impulses":
+    def none(cls, cfg: SimConfig, device="cuda") -> "Impulses":
         k, nd = cfg.max_impulses, cfg.ndim
         return cls(
             pos=torch.zeros((k, nd), dtype=torch.int32, device=device),
@@ -52,7 +53,7 @@ class Impulses(NamedTuple):
         )
 
     @classmethod
-    def from_lists(cls, cfg: SimConfig, pos, vel, device="cpu") -> "Impulses":
+    def from_lists(cls, cfg: SimConfig, pos, vel, device="cuda") -> "Impulses":
         """Build a padded batch from Python lists of (pos, velocity) tuples.
 
         Padding happens host-side in numpy; the batch then crosses to

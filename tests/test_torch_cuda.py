@@ -20,12 +20,22 @@ from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
     advect_kernel, advect_reference)
 from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
     project_fused, project_fused_reference)
+from esp32_fluid_simulation_tpu_torch.ops.cuda.advect3d import (
+    advect3d_kernel, advect3d_reference)
+from esp32_fluid_simulation_tpu_torch.ops.cuda.fd3d import (
+    divergence3d, divergence3d_reference, subtract_gradient3d,
+    subtract_gradient3d_reference)
+from esp32_fluid_simulation_tpu_torch.ops.cuda.sor3d import (
+    sor3d_solve, sor3d_reference)
+from esp32_fluid_simulation_tpu_torch.render.cuda_smoke import (
+    render_smoke_mip_kernel, render_smoke_mip_reference)
 from esp32_fluid_simulation_tpu_torch.render.cuda_upscale import (
     render_rgb565_kernel, render_rgb565_reference)
 
 pytestmark = pytest.mark.gpu
 
 SHAPE = (61, 81)
+SHAPE3 = (9, 33, 130)
 
 
 @pytest.fixture
@@ -93,3 +103,50 @@ def test_render_kernel_bit_equal(cuda, rng, dtype):
                 got = render_rgb565_kernel(color, s, bswap, unit_range)
                 want = render_rgb565_reference(color, s, bswap, unit_range)
                 assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("vel_dtype", [torch.float32, torch.bfloat16])
+def test_advect3d_kernel_bit_equal(cuda, rng, vel_dtype):
+    # sigma 60 cells/s at max_disp=1: the CFL clamp binds on most cells
+    vel = _on((60 * rng.standard_normal((3,) + SHAPE3)).astype(np.float32),
+              cuda).to(vel_dtype)
+    before = advect3d_kernel.launches
+    for md in (1, 2):
+        got = advect3d_kernel(vel, vel, 1 / 30, True, max_disp=md)
+        want = advect3d_reference(vel, vel, 1 / 30, True, max_disp=md)
+        assert torch.equal(_bits(got), _bits(want))
+    pair = _on(rng.random((2,) + SHAPE3, dtype=np.float32),
+               cuda).to(torch.bfloat16)
+    got = advect3d_kernel(pair, vel, 1 / 30, False, max_disp=2)
+    want = advect3d_reference(pair, vel, 1 / 30, False, max_disp=2)
+    assert torch.equal(_bits(got), _bits(want))
+    assert advect3d_kernel.launches == before + 3
+
+
+def test_fd3d_kernels_bit_equal(cuda, rng):
+    vel = _on(rng.standard_normal((3,) + SHAPE3).astype(np.float32), cuda)
+    p = _on(rng.standard_normal(SHAPE3).astype(np.float32), cuda)
+    for dx in (1.0, 0.7):
+        assert torch.equal(divergence3d(vel, dx),
+                           divergence3d_reference(vel, dx))
+        assert torch.equal(subtract_gradient3d(vel, p, dx),
+                           subtract_gradient3d_reference(vel, p, dx))
+
+
+@pytest.mark.parametrize("iters", [1, 10])
+def test_sor3d_kernel_bit_equal(cuda, rng, iters):
+    d = _on(rng.standard_normal(SHAPE3).astype(np.float32), cuda)
+    assert torch.equal(sor3d_solve(d, 1.0, iters, 1.5, chunk=3),
+                       sor3d_reference(d, 1.0, iters, 1.5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_smoke_mip_kernel_bit_equal(cuda, rng, dtype):
+    rho = 1.2 * rng.random(SHAPE3, dtype=np.float32)
+    rho[4, 7, 9] = np.nan        # the NaN rule: the column packs to 0
+    rho = _on(rho, cuda).to(dtype)
+    for bswap in (True, False):
+        got = render_smoke_mip_kernel(rho, bswap=bswap)
+        want = render_smoke_mip_reference(rho, bswap=bswap)
+        assert torch.equal(_bits(got), _bits(want))
+        assert int(_bits(got)[7, 9]) == 0

@@ -43,7 +43,7 @@ def interpret_pallas(monkeypatch):
 
 
 def _t(x):
-    return tensor_from_numpy(np.asarray(x))
+    return tensor_from_numpy(np.asarray(x), device="cpu")
 
 
 @pytest.mark.parametrize("shape,no_slip", [((61, 81), False),
@@ -135,7 +135,8 @@ def test_project_plain_matches_pallas(rng, with_impulses):
     jimp = timp = None
     if with_impulses:
         jimp = JImp.from_lists(JConfig(shape=shape), pos, val)
-        timp = Impulses.from_lists(SimConfig(shape=shape), pos, val)
+        timp = Impulses.from_lists(SimConfig(shape=shape), pos, val,
+                                    device="cpu")
     want_v, want_p = project_fused_pallas(jnp.asarray(vel), 1.0, 3, 1.96,
                                           impulses=jimp)
     got_v, got_p = project_fused(_t(vel), 1.0, 3, 1.96, impulses=timp)

@@ -98,13 +98,53 @@ def test_subtract_gradient_matches_jax(rng):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
+SHAPE3 = (6, 9, 11)
+
+
+@pytest.mark.parametrize("no_slip", [False, True])
+def test_advect_3d_matches_jax(rng, no_slip):
+    """The composed 3D path of the smoke plume: velocity self-advect and a
+    bf16 scalar (lerped in bf16 by both packages)."""
+    v = (20 * rng.standard_normal((3,) + SHAPE3)).astype(F)
+    got = t_advect.advect(_t(v), _t(v), 1 / 30, no_slip).numpy()
+    want = _j(j_advect.advect(jnp.asarray(v), jnp.asarray(v), 1 / 30,
+                              no_slip))
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6)
+    rho = rng.random(SHAPE3, dtype=F)
+    got = t_advect.advect(_t(rho).to(torch.bfloat16), _t(v), 1 / 30,
+                          no_slip).float().numpy()
+    want = _j(j_advect.advect(jnp.asarray(rho, jnp.bfloat16), jnp.asarray(v),
+                              1 / 30, no_slip).astype(jnp.float32))
+    np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=1e-6)
+
+
+def test_divergence_and_gradient_3d_match_jax(rng):
+    v = (3 * rng.standard_normal((3,) + SHAPE3)).astype(F)
+    p = rng.standard_normal(SHAPE3).astype(F)
+    for dx in (1.0, 0.7):
+        np.testing.assert_allclose(
+            t_fd.divergence(_t(v), dx).numpy(),
+            _j(j_fd.divergence(jnp.asarray(v), dx)), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(
+            t_fd.subtract_gradient(_t(v), _t(p), dx).numpy(),
+            _j(j_fd.subtract_gradient(jnp.asarray(v), jnp.asarray(p), dx)),
+            rtol=1e-6, atol=1e-6)
+
+
+def test_sor_solve_3d_matches_jax(rng):
+    d = rng.standard_normal(SHAPE3).astype(F)
+    got = t_poisson.sor_solve(_t(d), 1.0, iters=10, omega=1.5).numpy()
+    want = _j(j_poisson.sor_solve(jnp.asarray(d), 1.0, iters=10, omega=1.5))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
 @pytest.mark.parametrize("shape", [(9, 12), (4, 5, 6)])
 def test_neighbor_count_and_diag_match_jax(shape):
     np.testing.assert_array_equal(
-        t_poisson.neighbor_count(shape, torch.int32).numpy(),
+        t_poisson.neighbor_count(shape, torch.int32, device="cpu").numpy(),
         _j(j_poisson.neighbor_count(shape, jnp.int32)))
     np.testing.assert_array_equal(
-        t_poisson._neg_inv_diag(shape).numpy(),
+        t_poisson._neg_inv_diag(shape, device="cpu").numpy(),
         _j(j_poisson._neg_inv_diag(shape)))
 
 

@@ -54,8 +54,9 @@ def _schedule(t):
 
 def _imps(pkg, cfg, t):
     sched = _schedule(t)
+    kw = {"device": "cpu"} if pkg is T else {}
     return pkg.Impulses.from_lists(cfg, [p for p, _ in sched],
-                                   [v for _, v in sched])
+                                   [v for _, v in sched], **kw)
 
 
 @pytest.mark.parametrize("kw", [{}, dict(solver="fused_pallas",
@@ -64,7 +65,7 @@ def test_port_matches_golden(kw):
     with np.load(GOLDEN) as z:
         want_v, want_c = z["velocity"], z["color"]
     cfg = T.SimConfig(**kw)
-    st = T.init_state(cfg)
+    st = T.init_state(cfg, device="cpu")
     fn = T.make_step(cfg)
     for t in range(4):
         st = fn(st, _imps(T, cfg, t))
@@ -83,7 +84,8 @@ def test_render_of_jax_state_is_pixel_equal():
     fn = J.make_step(cfg, donate=False)
     for t in range(4):
         st = fn(st, _imps(J, cfg, t))
-    ported = state_from_numpy(*jax.tree_util.tree_map(np.asarray, st))
+    ported = state_from_numpy(*jax.tree_util.tree_map(np.asarray, st),
+                               device="cpu")
     for s in (4, 1):
         want = np.asarray(J.render_rgb565(st.color, s=s))
         got = T.render_rgb565(ported.color, s=s)
@@ -101,14 +103,14 @@ def test_step_render_kernel_config_follows_jax(monkeypatch):
               advect_impl="pallas", color_dtype="bfloat16",
               advect_max_disp=8)
     jcfg, tcfg = J.SimConfig(**kw), T.SimConfig(**kw)
-    jst, tst = jsf.init_state(jcfg), tsf.init_state(tcfg)
+    jst, tst = jsf.init_state(jcfg), tsf.init_state(tcfg, device="cpu")
     pos = [(5, 7), (20, 40), (20, 40), (99, -3)]
     for t in range(3):
         val = [(30.0, -12.0 + t), (-8.0, 25.0), (99.0, 1.0), (5.0, 5.0)]
         jst, jframe = jsf.step_render(jst, J.Impulses.from_lists(
             jcfg, pos, val), jcfg)
         tst, tframe = T.step_render(tst, T.Impulses.from_lists(
-            tcfg, pos, val), tcfg)
+            tcfg, pos, val, device="cpu"), tcfg)
     assert tst.step == 3 and tframe.dtype == torch.uint16
     assert tframe.shape == (63, 127)
     np.testing.assert_allclose(tst.velocity.numpy(), np.asarray(jst.velocity),
@@ -128,9 +130,9 @@ def test_fused_step_render_equals_step_then_render():
     cfg = T.SimConfig(shape=(64, 128), scaling=1, solver="fused_pallas",
                       advect_impl="pallas", color_dtype="bfloat16",
                       advect_max_disp=8)
-    st = T.init_state(cfg)
+    st = T.init_state(cfg, device="cpu")
     imp = T.Impulses.from_lists(cfg, [(5, 7), (20, 40)],
-                                [(30.0, -12.0), (-8.0, 25.0)])
+                                [(30.0, -12.0), (-8.0, 25.0)], device="cpu")
     st2, frame = T.step_render(st, imp, cfg)
     ref = T.step(st, imp, cfg)
     assert torch.equal(st2.velocity, ref.velocity)
@@ -150,7 +152,7 @@ def test_apply_impulses_matches_jax(rng):
     jimp = J.Impulses.from_lists(J.SimConfig(shape=shape, max_impulses=8),
                                  pos, val)
     jimp = jimp._replace(active=jimp.active.at[4].set(False))
-    timp = impulses_from_numpy(*(np.asarray(x) for x in jimp))
+    timp = impulses_from_numpy(*(np.asarray(x) for x in jimp), device="cpu")
     want = np.asarray(jsf.apply_impulses(jnp.asarray(vel), jimp))
     got = tsf.apply_impulses(torch.from_numpy(vel), timp).numpy()
     np.testing.assert_array_equal(got, want)
@@ -159,7 +161,7 @@ def test_apply_impulses_matches_jax(rng):
 def test_multi_step_equals_step_loop():
     cfg = T.SimConfig(shape=(24, 32))
     imps = [_imps(T, cfg, t) for t in range(3)]
-    st = T.init_state(cfg)
+    st = T.init_state(cfg, device="cpu")
     ref = st
     for imp in imps:
         ref = T.step(ref, imp, cfg)
@@ -177,9 +179,9 @@ def test_multi_step_equals_step_loop():
 def test_unported_features_raise(kw, item):
     cfg = T.SimConfig(**kw)
     st = T.init_state(dataclasses.replace(cfg, domain_tile=None,
-                                          vorticity_eps=0.0))
+                                          vorticity_eps=0.0), device="cpu")
     with pytest.raises(NotImplementedError, match=item):
-        T.step(st, T.Impulses.none(cfg), cfg)
+        T.step(st, T.Impulses.none(cfg, device="cpu"), cfg)
     with pytest.raises(NotImplementedError, match="item 6"):
         T.make_step_with_metrics(cfg)
 
@@ -202,14 +204,14 @@ def test_interop_bf16_round_trip_is_bitwise(rng):
     bits = rng.integers(0, 1 << 16, size=(3, 7, 9), dtype=np.uint16)
     bits[0, 0, :4] = [0x7FC0, 0xFF80, 0x0001, 0x8000]  # nan, -inf, subnormal, -0
     arr = bits.view(jnp.bfloat16)
-    t = tensor_from_numpy(arr)
+    t = tensor_from_numpy(arr, device="cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(tensor_to_numpy(t), bits)
     # a JAX state crosses both ways untouched
     cfg = J.SimConfig(shape=(12, 10), color_dtype="bfloat16")
     st = J.init_state(cfg)
     v, c, step = state_to_numpy(state_from_numpy(
-        *jax.tree_util.tree_map(np.asarray, st)))
+        *jax.tree_util.tree_map(np.asarray, st), device="cpu"))
     np.testing.assert_array_equal(v, np.asarray(st.velocity))
     np.testing.assert_array_equal(c, np.asarray(st.color).view(np.uint16))
     assert step == 0
