@@ -9,9 +9,11 @@ file; it exits non-zero on any failure and imports nothing of JAX.
 
 1. Builds the kernels from ``esp32_fluid_simulation_tpu_torch/csrc/*.cu``
    (one ``nvcc`` per source, all at once) and holds each 2D kernel (K1
-   projection, K2 advection, K3 RGB565 upscale) against its plain PyTorch
-   version on the card, at a small odd shape and at the production shapes;
-   bit-equality is expected (``--fmad=false``).
+   projection, K2 advection with and without its corner extrema, K3 RGB565
+   upscale, K4 SOR solve, K5 MacCormack advection) against its plain
+   PyTorch version on the card, at small odd shapes and at the production
+   shapes (K4 at 4096^2, K5 at config 3's 2048^2); bit-equality is expected
+   (``--fmad=false``).
 1b. The same for the 3D smoke kernels (K7 advection, K8 divergence and
    gradient subtract, K9 SOR, K10 MIP render) at (9, 33, 130) and 256^3.
 2. The reference workload ``SimConfig()`` against the golden trajectory
@@ -30,9 +32,24 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    counters proving K7 ran twice, K8 (each) and K9 once per step and K10
    once per frame; the plume checked and held against the same steps on
    the plain path on the card.
+8. Config 3: ``examples/config3_2048_maccormack_multigrid.json`` through
+   ``make_step_render`` for 20 steps (K5 forward = K5 backward = 2 per
+   step, no K2 launch), bit-identical to the plain path on the card.
+9. Config 0 with ``solver="sor_pallas"`` through ``make_step`` for 10
+   steps at 4096^2 (K4 once and K2 twice per step, K1 never), bit-identical
+   to the plain path.
+10. Config 2: ``examples/config2_512_vorticity_ab.json`` through
+   ``make_step_render`` for 20 steps (K2 twice and K3 once per step, the
+   confinement and SOR eager), bit-identical to the plain path.
+11. The 2D golden trajectories ``tests/golden/path_{maccormack,rk2,
+   vorticity,multigrid}.npz`` (rtol 1e-4; atol 1e-4, 3e-4 for vorticity and
+   multigrid, see ``GOLDEN_ATOL``), MacCormack also through K5.
+12. ``step_with_metrics`` on config 0 for 5 steps (its state bit-equal to
+   ``step_render``'s, the divergence reduced by the projection), and a 64^3
+   smoke plume with vorticity confinement against the plain path.
 5. Times (CUDA events), last: ms/step of the kernel and plain paths at
-   4096^2 and at 256^3, and ms per call of each kernel and its plain
-   version.
+   4096^2, at 256^3, of config 3, of the ``sor_pallas`` step and of config
+   2, and ms per call of each kernel and its plain version.
 
 Each kernel's entry in the summary carries its bound: the larger of the
 bytes it must move (each input read once, each output written once) over
@@ -57,12 +74,31 @@ import torch
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "ref_61x81_4steps.npz"
 CONFIG0 = ROOT / "examples" / "config0_4096_production.json"
+CONFIG2 = ROOT / "examples" / "config2_512_vorticity_ab.json"
+CONFIG3 = ROOT / "examples" / "config3_2048_maccormack_multigrid.json"
 SMOKE_GOLDEN = ROOT / "tests" / "golden" / "path_smoke3d.npz"
 MAIN_STEPS = 30
 RENDER_STEPS = 3
 SMOKE_STEPS = 20
+CONFIG3_STEPS = 20
+SOR_STEPS = 10
+CONFIG2_STEPS = 20
+METRIC_STEPS = 5
 SMALL = (61, 81)
 PROD = (4096, 4096)
+MC_PROD = (2048, 2048)
+# The 2D path goldens (tools/gen_golden_paths.py): 48x64 (multigrid 49x65),
+# 5 steps.  They come from the jitted JAX step, whose XLA fusions contract
+# multiply-adds into FMAs; an eager step (JAX's own under jax.disable_jit,
+# or this port) misses the vorticity and multigrid goldens by up to 2.2e-4
+# beyond rtol 1e-4 / atol 1e-4 on one velocity cell, hence their atol.
+PATH_GOLDENS = {
+    "maccormack": dict(shape=(48, 64), advector="maccormack", sor_iters=6),
+    "rk2": dict(shape=(48, 64), advector="rk2", sor_iters=6),
+    "vorticity": dict(shape=(48, 64), vorticity_eps=2.0, sor_iters=6),
+    "multigrid": dict(shape=(49, 65), solver="multigrid", omega=1.3),
+}
+GOLDEN_ATOL = {"vorticity": 3e-4, "multigrid": 3e-4}
 SMALL3 = (9, 33, 130)
 SMOKE = (256, 256, 256)
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -77,6 +113,10 @@ KERNELS = {
                          f"{TPU}/ops/pallas/advect.py:715"),
     "K3 render_rgb565_kernel": (f"{PKG}/csrc/upscale.cu",
                                 f"{TPU}/render/pallas_upscale.py:171"),
+    "K4 sor_solve_kernel": (f"{PKG}/csrc/sor.cu",
+                            f"{TPU}/ops/pallas/sor.py:93"),
+    "K5 advect_maccormack_kernel": (f"{PKG}/csrc/advect.cu",
+                                    f"{TPU}/ops/pallas/advect.py:965"),
     "K7 advect3d_kernel": (f"{PKG}/csrc/advect3d.cu",
                            f"{TPU}/ops/pallas/advect3d.py:255"),
     "K8 divergence3d": (f"{PKG}/csrc/fd3d.cu",
@@ -151,9 +191,12 @@ def phase1_kernels(dev):
     """Each kernel against its plain version, small and production shapes."""
     from esp32_fluid_simulation_tpu_torch import SimConfig, Impulses
     from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
-        advect_kernel, advect_reference)
+        advect_kernel, advect_maccormack_kernel, advect_maccormack_reference,
+        advect_reference)
     from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
         project_fused, project_fused_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import (
+        sor_solve_kernel, sor_solve_reference)
     from esp32_fluid_simulation_tpu_torch.render.cuda_upscale import (
         render_rgb565_kernel, render_rgb565_reference)
 
@@ -201,6 +244,19 @@ def phase1_kernels(dev):
             compare("K1 velocity (impulses)", got_v, want_v),
             compare("K1 pressure (impulses)", got_p, want_p))
 
+        vel = 200.0 * torch.randn((2, h, w), generator=gen, device=dev)
+        for field, label in ((vel, "f32 2ch no_slip"),
+                             (dye[0].contiguous(), "bf16 1ch")):
+            got = advect_kernel(field, vel, dt, True, max_disp=12,
+                                return_minmax=True)
+            want = advect_reference(field, vel, dt, True, max_disp=12,
+                                    return_minmax=True)
+            for g, w_, part in zip(got, want, ("out", "cmin", "cmax")):
+                err["K2 advect_kernel"] = max(err["K2 advect_kernel"],
+                                              compare(f"K2 return_minmax "
+                                                      f"{label} {part}",
+                                                      g, w_))
+
         color = torch.rand((3, h, w), generator=gen, device=dev)
         color[:, ::7, ::5] = 1.0
         color[:, 1::9, ::3] = 0.0
@@ -214,6 +270,30 @@ def phase1_kernels(dev):
                         err["K3 render_rgb565_kernel"],
                         compare(f"K3 s=4 {str(dtype)[6:]} bswap={bswap} "
                                 f"unit_range={unit_range}", got, want))
+
+    for shape in (SMALL, (130, 200), PROD):
+        d = torch.randn(shape, generator=gen, device=dev)
+        for iters, dx in ((10, 1.0), (1, 0.7)):
+            err["K4 sor_solve_kernel"] = max(
+                err["K4 sor_solve_kernel"],
+                compare(f"K4 {shape[0]}x{shape[1]} iters={iters} dx={dx}",
+                        sor_solve_kernel(d, dx, iters, 1.96),
+                        sor_solve_reference(d, dx, iters, 1.96)))
+    for shape in (SMALL, MC_PROD):
+        h, w = shape
+        print(f"phase 1 K5 vs plain at {h}x{w}")
+        # sigma 200 cells/s: the CFL clamp binds on ~7% of the cells
+        vel = 200.0 * torch.randn((2, h, w), generator=gen, device=dev)
+        dye = torch.rand((3, h, w), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        for field, no_slip, label in ((vel, True, "f32 2ch no_slip"),
+                                      (dye, False, "bf16 3ch")):
+            err["K5 advect_maccormack_kernel"] = max(
+                err["K5 advect_maccormack_kernel"],
+                compare(f"K5 {label}",
+                        advect_maccormack_kernel(field, vel, dt, no_slip, 12),
+                        advect_maccormack_reference(field, vel, dt, no_slip,
+                                                    12)))
     return err
 
 
@@ -296,26 +376,10 @@ def phase2_golden(dev):
               "(rtol 1e-4, atol 2e-4) ok")
 
 
-def plain_step_render(state, imp, cfg):
-    """The production step + s=1 frame through the kernels' plain versions
-    (the same arithmetic in PyTorch ops), on any device."""
-    from esp32_fluid_simulation_tpu_torch import SimState
-    from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
-        advect_reference)
-    from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
-        project_fused_reference)
-    md = cfg.advect_max_disp
-    vel = advect_reference(state.velocity, state.velocity, cfg.dt, True,
-                           max_disp=md)
-    vel, _ = project_fused_reference(vel, cfg.dx, cfg.sor_iters, cfg.omega,
-                                     impulses=imp)
-    color, frame = advect_reference(state.color, vel, cfg.dt, False,
-                                    max_disp=md, clip01=True, rgb565=True)
-    return SimState(velocity=vel, color=color, step=state.step + 1), frame
-
-
 def reset_counts():
-    from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import advect_kernel
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
+        advect_kernel, maccormack_backward, maccormack_forward)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import sor_solve_kernel
     from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
         project_fused)
     from esp32_fluid_simulation_tpu_torch.render.cuda_upscale import (
@@ -330,6 +394,10 @@ def reset_counts():
     fns = {"K1 project_fused": project_fused,
            "K2 advect_kernel": advect_kernel,
            "K3 render_rgb565_kernel": render_rgb565_kernel,
+           "K4 sor_solve_kernel": sor_solve_kernel,
+           # K5's two launches: the forward pass counts as the kernel's
+           "K5 advect_maccormack_kernel": maccormack_forward,
+           "K5 backward": maccormack_backward,
            "K7 advect3d_kernel": advect3d_kernel,
            "K8 divergence3d": divergence3d,
            "K8 subtract_gradient3d": subtract_gradient3d,
@@ -412,6 +480,226 @@ def phase3_4_main_path(dev, cfg):
     print(f"phase 4 scaling=4: {RENDER_STEPS} step_render calls, frame "
           f"{tuple(frame4.shape)}, launches {n}")
     return {k: n[k] for k in list(KERNELS)[:3]}, state0
+
+
+def plain_step(state, imp, cfg):
+    """A 2D step of a kernel-advect config (K2 or K5; K1, K4 or an eager
+    solver; optional confinement) through the kernels' plain versions (the
+    same arithmetic in PyTorch ops), on any device."""
+    from esp32_fluid_simulation_tpu_torch import SimState
+    from esp32_fluid_simulation_tpu_torch.models.stable_fluids import (
+        apply_impulses)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
+        advect_maccormack_reference, advect_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
+        project_fused_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import (
+        sor_solve_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.fd import (
+        divergence, subtract_gradient, vorticity_confinement)
+    from esp32_fluid_simulation_tpu_torch.ops.poisson import poisson_solve
+    md, dt = cfg.advect_max_disp, cfg.dt
+    if cfg.advector == "maccormack":
+        def adv(f, v, no_slip, clip01=False):
+            return advect_maccormack_reference(f, v, dt, no_slip, md)
+    else:
+        def adv(f, v, no_slip, clip01=False):
+            return advect_reference(f, v, dt, no_slip, md, clip01=clip01)
+    vel = apply_impulses(adv(state.velocity, state.velocity, True), imp)
+    if cfg.vorticity_eps > 0.0:
+        vel = vorticity_confinement(vel, cfg.vorticity_eps, dt, cfg.dx)
+    if cfg.solver == "fused_pallas":
+        vel, _ = project_fused_reference(vel, cfg.dx, cfg.sor_iters,
+                                         cfg.omega)
+    else:
+        div = divergence(vel, cfg.dx)
+        p = (sor_solve_reference(div, cfg.dx, cfg.sor_iters, cfg.omega)
+             if cfg.solver == "sor_pallas" else poisson_solve(div, cfg))
+        vel = subtract_gradient(vel, p, cfg.dx)
+    color = adv(state.color, vel, False, clip01=cfg.clamps_dye)
+    return SimState(velocity=vel, color=color, step=state.step + 1)
+
+
+def plain_step_render(state, imp, cfg):
+    """``plain_step`` and its frame through plain PyTorch ops (at s=1 the
+    frame the K2 dye store packs, at s > 1 K3's)."""
+    from esp32_fluid_simulation_tpu_torch.render.cuda_upscale import (
+        render_rgb565_reference)
+    st = plain_step(state, imp, cfg)
+    return st, render_rgb565_reference(st.color, cfg.scaling)
+
+
+def check_against_plain(phase, dev, cfg, state0, fn, steps, want_counts,
+                        render):
+    """Drive ``fn`` (the entry point) for ``steps`` steps of
+    ``scripted_swirl`` with the counters reset just before; check the
+    counts, the state, and bit-identity with the plain path on the card.
+    Returns the counts and the last state."""
+    from esp32_fluid_simulation_tpu_torch import SimState
+    from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
+    imps = [scripted_swirl(cfg, t, device=dev) for t in range(steps)]
+    torch.cuda.synchronize()
+    counts = reset_counts()
+    st, frame = state0, None
+    for imp in imps:
+        if render:
+            st, frame = fn(st, imp)
+        else:
+            st = fn(st, imp)
+    torch.cuda.synchronize()
+    n = counts()
+    bad = {k: (n[k], v) for k, v in want_counts.items() if n[k] != v}
+    if bad:
+        raise AssertionError(f"phase {phase}: launch counts (got, want) "
+                             f"{bad}; all {n}")
+    if not (torch.isfinite(st.velocity).all()
+            and torch.isfinite(st.color.float()).all()):
+        raise AssertionError(f"phase {phase}: non-finite state")
+    lo, hi = float(st.color.min()), float(st.color.max())
+    if lo < -0.5 or hi > 1.5 or (cfg.clamps_dye and (lo < 0 or hi > 1)):
+        raise AssertionError(f"phase {phase}: dye in [{lo}, {hi}]")
+    ps = SimState(state0.velocity.clone(), state0.color.clone(), 0)
+    for imp in imps:
+        ps, pframe = plain_step_render(ps, imp, cfg)
+    same = (torch.equal(ps.velocity, st.velocity)
+            and torch.equal(ps.color, st.color))
+    dv = float((ps.velocity - st.velocity).abs().max())
+    dc = float((ps.color.float() - st.color.float()).abs().max())
+    msg = (f"phase {phase} {cfg.shape[0]}x{cfg.shape[1]} {steps} steps: "
+           f"launches {n}; dye in [{lo:.4g}, {hi:.4g}], max |v| "
+           f"{float(st.velocity.norm(dim=0).max()):.4g}; plain path on the "
+           f"card: max|dv|={dv:.3g} max|dc|={dc:.3g}")
+    if render:
+        same = same and torch.equal(pframe.view(torch.int16),
+                                    frame.view(torch.int16))
+        msg += f", frame {tuple(frame.shape)}"
+    print(f"{msg} bit-identical={same}")
+    # stated tolerance: each kernel is bit-equal to its plain version and
+    # the eager ops are shared, so the two paths must agree to the bit
+    if not same:
+        raise AssertionError(f"phase {phase}: the kernel path differs from "
+                             "the plain path")
+    return n, st
+
+
+def phase8_config3(dev):
+    from esp32_fluid_simulation_tpu_torch import (SimConfig, init_state,
+                                                  make_step_render)
+    cfg = SimConfig.from_json(CONFIG3.read_text())
+    s2 = 2 * CONFIG3_STEPS
+    n, st = check_against_plain(
+        8, dev, cfg, init_state(cfg, device=dev), make_step_render(cfg),
+        CONFIG3_STEPS, {"K5 advect_maccormack_kernel": s2, "K5 backward": s2,
+                        "K2 advect_kernel": 0, "K1 project_fused": 0}, True)
+    return n["K5 advect_maccormack_kernel"], cfg, st
+
+
+def phase9_sor_pallas(dev):
+    from esp32_fluid_simulation_tpu_torch import (SimConfig, init_state,
+                                                  make_step)
+    cfg = dataclasses.replace(SimConfig.from_json(CONFIG0.read_text()),
+                              solver="sor_pallas")
+    n, st = check_against_plain(
+        9, dev, cfg, init_state(cfg, device=dev), make_step(cfg), SOR_STEPS,
+        {"K4 sor_solve_kernel": SOR_STEPS, "K2 advect_kernel": 2 * SOR_STEPS,
+         "K1 project_fused": 0}, False)
+    return n["K4 sor_solve_kernel"], cfg, st
+
+
+def phase10_config2(dev):
+    from esp32_fluid_simulation_tpu_torch import (SimConfig, init_state,
+                                                  make_step_render)
+    cfg = SimConfig.from_json(CONFIG2.read_text())
+    _, st = check_against_plain(
+        10, dev, cfg, init_state(cfg, device=dev), make_step_render(cfg),
+        CONFIG2_STEPS, {"K2 advect_kernel": 2 * CONFIG2_STEPS,
+                        "K3 render_rgb565_kernel": CONFIG2_STEPS,
+                        "K1 project_fused": 0}, True)
+    return cfg, st
+
+
+def phase11_path_goldens(dev):
+    from esp32_fluid_simulation_tpu_torch import (SimConfig, Impulses,
+                                                  init_state, make_step)
+    runs = [(name, kw, {}) for name, kw in PATH_GOLDENS.items()]
+    runs.append(("maccormack", PATH_GOLDENS["maccormack"],
+                 dict(advect_impl="pallas")))
+    for name, kw, extra in runs:
+        cfg = SimConfig(**kw, **extra)
+        st = init_state(cfg, device=dev)
+        fn = make_step(cfg)
+        max_step = 0.0
+        for t in range(5):
+            max_step = max(max_step, float(st.velocity.abs().max()) * cfg.dt)
+            st = fn(st, Impulses.from_lists(
+                cfg, [(10 + t, 12), (30, 40 + t), (20, 55)],
+                [(130.0, -70.0), (-80.0, 140.0), (60.0, 60.0)], device=dev))
+        if extra and not max_step < cfg.advect_max_disp:
+            raise AssertionError(f"phase 11: backtrace {max_step} cells "
+                                 f"beyond max_disp {cfg.advect_max_disp}")
+        atol = GOLDEN_ATOL.get(name, 1e-4)
+        with np.load(ROOT / "tests" / "golden" / f"path_{name}.npz") as z:
+            v = st.velocity.cpu().numpy()
+            c = st.color.float().cpu().numpy()
+            np.testing.assert_allclose(v, z["velocity"], rtol=1e-4,
+                                       atol=atol)
+            np.testing.assert_allclose(c, z["color"], rtol=1e-4, atol=1e-4)
+            print(f"phase 11 golden path_{name} {extra or 'composed'}: "
+                  f"max|dv|={np.abs(v - z['velocity']).max():.3g} "
+                  f"max|dc|={np.abs(c - z['color']).max():.3g} (rtol 1e-4, "
+                  f"atol {atol:g}; max backtrace {max_step:.3g} cells) ok")
+
+
+def phase12_metrics(dev, cfg0, state0):
+    from esp32_fluid_simulation_tpu_torch import (SmokeConfig, SmokeState,
+                                                  init_smoke, make_smoke_step,
+                                                  make_step_render,
+                                                  make_step_with_metrics)
+    from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
+    from esp32_fluid_simulation_tpu_torch.models.smoke3d import (
+        source_tensor)
+    metrics_fn = make_step_with_metrics(cfg0)
+    render_fn = make_step_render(cfg0)
+    a = b = state0
+    for t in range(METRIC_STEPS):
+        imp = scripted_swirl(cfg0, t, device=dev)
+        a, m = metrics_fn(a, imp)
+        b, _ = render_fn(b, imp)
+        if not float(m["div_post_max"]) < float(m["div_pre_max"]):
+            raise AssertionError(f"phase 12: divergence not reduced: {m}")
+        if not bool(m["finite"]):
+            raise AssertionError(f"phase 12: non-finite state: {m}")
+    torch.cuda.synchronize()
+    same = (torch.equal(a.velocity, b.velocity)
+            and torch.equal(a.color, b.color))
+    print(f"phase 12 step_with_metrics at {cfg0.shape[0]}x{cfg0.shape[1]}, "
+          "last step: "
+          + ", ".join(f"{k} {float(v):.4g}" for k, v in m.items())
+          + f"; state equal to step_render's: {same}")
+    if not same:
+        raise AssertionError("phase 12: the metrics step's state differs "
+                             "from step_render's")
+
+    # K7 advects (forced, as "auto" picks it at 64^3 on the card); the
+    # divergence, solve and gradient are eager below 128^3
+    scfg = SmokeConfig(shape=(64, 64, 64), vorticity_eps=2.0,
+                       advect_impl="pallas")
+    st = init_smoke(scfg, device=dev)
+    ps = SmokeState(st.velocity.clone(), st.density.clone(),
+                    st.temperature.clone(), 0)
+    step = make_smoke_step(scfg)
+    src = source_tensor(scfg, dev)
+    for _ in range(METRIC_STEPS):
+        st = step(st)
+        ps = plain_smoke_step(ps, scfg, src)
+    same = all(torch.equal(getattr(st, k), getattr(ps, k))
+               for k in ("velocity", "density", "temperature"))
+    dv = float((st.velocity - ps.velocity).abs().max())
+    print(f"phase 12 smoke 64^3 vorticity_eps=2.0 {METRIC_STEPS} steps vs "
+          f"plain path: max|dv|={dv:.3g} bit-identical={same}")
+    if not same:
+        raise AssertionError("phase 12: the smoke step with confinement "
+                             "differs from the plain path")
 
 
 def phase5_timing(dev, cfg, state0, card):
@@ -500,6 +788,105 @@ def phase5_timing(dev, cfg, state0, card):
     }
 
 
+def time_pair(kern, plain, n_kern=20, n_plain=3):
+    """(kernel ms, plain ms) per call: kernel, plain, plain, kernel, so the
+    two sides see the same card state."""
+    k1 = cuda_ms(kern, n_kern, warmup=2)
+    p1 = cuda_ms(plain, n_plain, warmup=1)
+    p2 = cuda_ms(plain, n_plain, warmup=0)
+    k2 = cuda_ms(kern, n_kern, warmup=0)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def phase5_k4_k5_timing(dev, card, paths):
+    """Times of the config 3, sor_pallas and config 2 steps (kernel and
+    plain paths) and of K4 and K5; returns K4's and K5's work."""
+    from esp32_fluid_simulation_tpu_torch import make_step, make_step_render
+    from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
+        advect_maccormack_kernel, advect_maccormack_reference,
+        maccormack_backward, maccormack_forward)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import (
+        sor_solve_kernel, sor_solve_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.fd import (
+        divergence, vorticity_confinement)
+    from esp32_fluid_simulation_tpu_torch.ops.poisson import poisson_solve
+
+    res = {}
+    for label, (cfg, state, render) in paths.items():
+        imps = [scripted_swirl(cfg, t, device=dev) for t in range(8)]
+        box = {"st": state, "t": 0}
+
+        def stepper(fn, render=render, box=box, imps=imps):
+            def one():
+                out = fn(box["st"], imps[box["t"] % 8])
+                box["st"] = out[0] if render else out
+                box["t"] += 1
+            return one
+
+        kern = (make_step_render if render else make_step)(cfg)
+
+        def plain(s, i, cfg=cfg, render=render):
+            return plain_step_render(s, i, cfg) if render else plain_step(
+                s, i, cfg)
+
+        res[f"{label} kernel"] = cuda_ms(stepper(kern), 10, warmup=2)
+        box["st"] = state
+        res[f"{label} plain"] = cuda_ms(stepper(plain), 3, warmup=1)
+
+    # what the eager solvers take of the config 3 and config 2 steps
+    cfg3, st3, _ = paths["config3 step_render"]
+    cfg2, st2, _ = paths["config2 step_render"]
+    d3 = divergence(st3.velocity, cfg3.dx)
+    d2 = divergence(st2.velocity, cfg2.dx)
+    res["config3 multigrid solve"] = cuda_ms(
+        lambda: poisson_solve(d3, cfg3), 5, warmup=1)
+    res["config2 SOR solve"] = cuda_ms(lambda: poisson_solve(d2, cfg2), 10,
+                                       warmup=2)
+    res["config2 vorticity_confinement"] = cuda_ms(
+        lambda: vorticity_confinement(st2.velocity, cfg2.vorticity_eps,
+                                      cfg2.dt, cfg2.dx), 10, warmup=2)
+
+    cfg0, st0, _ = paths["sor_pallas step"]
+    d = divergence(st0.velocity, cfg0.dx)
+    it, om = cfg0.sor_iters, cfg0.omega
+    res["K4"], res["K4 plain"] = time_pair(
+        lambda: sor_solve_kernel(d, cfg0.dx, it, om),
+        lambda: sor_solve_reference(d, cfg0.dx, it, om))
+
+    vel, dye = st3.velocity, st3.color
+    md, dt = cfg3.advect_max_disp, cfg3.dt
+    for name, field, no_slip in (("K5 velocity", vel, True),
+                                 ("K5 dye", dye, False)):
+        res[name], res[name + " plain"] = time_pair(
+            lambda: advect_maccormack_kernel(field, vel, dt, no_slip, md),
+            lambda: advect_maccormack_reference(field, vel, dt, no_slip, md))
+        fwd = maccormack_forward(field, vel, dt, no_slip, md)
+        res[name + " forward"] = cuda_ms(
+            lambda: maccormack_forward(field, vel, dt, no_slip, md), 20,
+            warmup=2)
+        res[name + " backward"] = cuda_ms(
+            lambda: maccormack_backward(field, *fwd, vel, dt, no_slip, md),
+            20, warmup=2)
+    print(f"phase 5 timing of K4, K5 and their paths on {card} (CUDA "
+          "events, ms per call):")
+    for k, v in res.items():
+        print(f"  {k}: {v:.4f} ms")
+
+    n3 = vel[0].numel()
+    n0 = d.numel()
+    return {
+        "K4 sor_solve_kernel": (res["K4"], res["K4 plain"],
+                                2 * nbytes(d), n0 * (1 + 8 * it)),
+        # the velocity's field is vel itself: read once
+        "K5 advect_maccormack_kernel": (
+            res["K5 velocity"] + res["K5 dye"],
+            res["K5 velocity plain"] + res["K5 dye plain"],
+            2 * nbytes(vel) + nbytes(vel) + 2 * nbytes(dye),
+            n3 * ((40 + 2 * 25) + (40 + 3 * 25))),
+    }
+
+
 def phase6_smoke_golden(dev):
     from esp32_fluid_simulation_tpu_torch import (SmokeConfig, init_smoke,
                                                   make_smoke_step)
@@ -530,12 +917,15 @@ def plain_smoke_step(state, cfg, src):
         divergence3d_reference, subtract_gradient3d_reference)
     from esp32_fluid_simulation_tpu_torch.ops.cuda.sor3d import (
         sor3d_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.fd import vorticity_confinement
     md, dt = cfg.advect_max_disp, cfg.dt
     vel = advect3d_reference(state.velocity, state.velocity, dt, True, md)
     scal = advect3d_reference(torch.stack([state.density,
                                            state.temperature]), vel, dt,
                               False, md)
     vel, rho, temp = inject_and_buoy(vel, scal[0], scal[1], src, cfg)
+    if cfg.vorticity_eps > 0:
+        vel = vorticity_confinement(vel, cfg.vorticity_eps, dt, cfg.dx)
     p = sor3d_reference(divergence3d_reference(vel, cfg.dx), cfg.dx,
                         cfg.sor_iters, cfg.omega)
     vel = subtract_gradient3d_reference(vel, p, cfg.dx)
@@ -741,8 +1131,17 @@ def main():
     scfg = SmokeConfig(shape=SMOKE)
     counts3, smoke = phase7_smoke_main_path(dev, scfg)
     counts.update(counts3)
+    counts["K5 advect_maccormack_kernel"], cfg3, st3 = phase8_config3(dev)
+    counts["K4 sor_solve_kernel"], cfg_sor, st_sor = phase9_sor_pallas(dev)
+    cfg2, st2 = phase10_config2(dev)
+    phase11_path_goldens(dev)
+    phase12_metrics(dev, cfg, state0)
     work = phase5_timing(dev, cfg, state0, card)
     work.update(phase5_smoke_timing(dev, scfg, smoke, card))
+    work.update(phase5_k4_k5_timing(dev, card, {
+        "config3 step_render": (cfg3, st3, True),
+        "sor_pallas step": (cfg_sor, st_sor, False),
+        "config2 step_render": (cfg2, st2, True)}))
 
     for name, n in counts.items():
         if n == 0:

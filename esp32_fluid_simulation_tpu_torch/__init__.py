@@ -19,7 +19,8 @@ unless the caller names another device.  Layout:
 from .config import SimConfig, reference_config
 from .state import SimState, Impulses
 from .models import (init_state, step, make_step, step_render,
-                     make_step_render, make_step_with_metrics,
+                     make_step_render, step_with_metrics,
+                     make_step_with_metrics,
                      make_multi_step, stack_schedule, SmokeConfig,
                      SmokeState, init_smoke, smoke_step, make_smoke_step)
 from .render import render_rgb565, render_rgb8, render_smoke
@@ -36,6 +37,7 @@ __all__ = [
     "make_step",
     "step_render",
     "make_step_render",
+    "step_with_metrics",
     "make_step_with_metrics",
     "make_multi_step",
     "stack_schedule",

@@ -1,5 +1,6 @@
 // 2D semi-Lagrangian advection with the CFL clamp, the no-slip discount, the
-// fused dye clamp and the RGB565 frame riding the store.
+// fused dye clamp and the RGB565 frame riding the store (K2), and the
+// MacCormack advection built on it (K5).
 //
 // Replaces the TPU kernel esp32_fluid_simulation_tpu/ops/pallas/advect.py
 // (advect_pallas, production variant _advect_kernel_panel_sloop).  It
@@ -22,6 +23,24 @@
 // store in the field dtype (bf16: round to nearest even).  Built with
 // --fmad=false so every product and sum rounds on its own, which makes the
 // kernel bit-equal to its plain PyTorch version.
+//
+// K5 replaces esp32_fluid_simulation_tpu/ops/pallas/advect.py
+// (advect_maccormack_pallas): a forward pass with the extrema of the four
+// bilinear taps (the sloop kernel's return_minmax), a backward pass through
+// -vel, then the limiter.  The backward pass samples phi_hat at points that
+// other blocks write, so K5 takes two launches:
+//   1. the advect kernel with MM = kCombined: phi_hat and the bounds
+//      lo = min(cmin, phi_hat), hi = max(cmax, phi_hat) (min and max are
+//      exact, so folding phi_hat in here equals doing it later);
+//   2. maccormack_correct_kernel: backtrace through -vel, bilinear sample of
+//      phi_hat, no-slip factor, phi_back rounded to the field dtype (as the
+//      stored intermediate is), then phi_hat + 0.5 (field - phi_back)
+//      clamped to [lo, hi], rounding to the field dtype after each op as
+//      PyTorch's bf16 ops do.
+// Bound: device-memory bytes.  The function needs the field and vel read
+// once and the output written once; the two launches also write and re-read
+// phi_hat, lo and hi (about 5x the field bytes in all).  Recomputing the
+// extrema inside launch 2 instead of storing them is a later change.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -56,54 +75,117 @@ __device__ __forceinline__ float noslip_factor(float raw, int n) {
   return overshoot < 0.5f ? 1.f - 2.f * overshoot : 0.f;
 }
 
+// min / max that propagate NaN like torch.minimum / torch.maximum (fminf
+// and fmaxf would drop it)
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// Round to the storage dtype T and back: identity for float32.
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// What the advect kernel writes beside the field: nothing, the raw extrema
+// of the four taps (return_minmax), or those combined with the stored value
+// (K5's forward pass).
+enum MinMax { kNone = 0, kRaw = 1, kCombined = 2 };
+
 __device__ __forceinline__ int quant_unit(float v, int bits) {
   // clip01 bounds v to [0, 1], so min() alone bounds the code
   return min((int)(v * (float)(1 << bits)), (1 << bits) - 1);
 }
 
-template <typename T, int C>
-__global__ void advect_kernel(const T* __restrict__ field,
-                              const float* __restrict__ vel,
-                              T* __restrict__ out,
-                              uint16_t* __restrict__ frame, int H, int W,
-                              float dt, float max_disp, int no_slip,
-                              int clip01, int bswap) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= H || j >= W) return;
-  const long plane = (long)H * W;
-  const long c = (long)i * W + j;
+// The bilinear stencil of one backtraced point: the base tap, the weights
+// and the no-slip factor (advect.py:81-167).
+struct Stencil {
+  long base;
+  float di, dj, w_i0, one_m_dj, ns;
+};
 
+// From the unclamped source (si_raw, sj_raw) of node (i, j): the CFL clamp
+// to max_disp cells, then the domain clamp (edge lerp); the no-slip factor
+// from the unclamped coordinate.
+__device__ __forceinline__ Stencil stencil(int i, int j, float si_raw,
+                                           float sj_raw, int H, int W,
+                                           float max_disp, int no_slip) {
   const float fi = (float)i;
   const float fj = (float)j;
-  const float si_raw = fi - vel[c] * dt;
-  const float sj_raw = fj - vel[plane + c] * dt;
-  // CFL clamp to max_disp cells, then the domain clamp (edge lerp)
   float si = fminf(fmaxf(si_raw, fi - max_disp), fi + max_disp);
   float sj = fminf(fmaxf(sj_raw, fj - max_disp), fj + max_disp);
   si = fminf(fmaxf(si, 0.f), (float)(H - 1));
   sj = fminf(fmaxf(sj, 0.f), (float)(W - 1));
   const float i0f = fminf(fmaxf(floorf(si), 0.f), (float)(H - 2));
   const float j0f = fminf(fmaxf(floorf(sj), 0.f), (float)(W - 2));
-  const float di = si - i0f;
-  const float dj = sj - j0f;
-  const float w_i0 = 1.f - di;
-  const float one_m_dj = 1.f - dj;
-  const long base = (long)i0f * W + (long)j0f;
-  const float ns = no_slip ? noslip_factor(si_raw, H) * noslip_factor(sj_raw, W)
-                           : 1.f;
+  Stencil s;
+  s.di = si - i0f;
+  s.dj = sj - j0f;
+  s.w_i0 = 1.f - s.di;
+  s.one_m_dj = 1.f - s.dj;
+  s.base = (long)i0f * W + (long)j0f;
+  s.ns = no_slip ? noslip_factor(si_raw, H) * noslip_factor(sj_raw, W) : 1.f;
+  return s;
+}
+
+// Column lerps, then the row lerp, then the no-slip factor.
+__device__ __forceinline__ float bilerp(const Stencil& s, float t00,
+                                        float t01, float t10, float t11,
+                                        int no_slip) {
+  const float colv0 = t00 * s.one_m_dj + t01 * s.dj;
+  const float colv1 = t10 * s.one_m_dj + t11 * s.dj;
+  const float a = colv0 * s.w_i0 + colv1 * s.di;
+  return no_slip ? a * s.ns : a;
+}
+
+template <typename T, int C, int MM>
+__global__ void advect_kernel(const T* __restrict__ field,
+                              const float* __restrict__ vel,
+                              T* __restrict__ out,
+                              uint16_t* __restrict__ frame,
+                              T* __restrict__ lo, T* __restrict__ hi, int H,
+                              int W, float dt, float max_disp, int no_slip,
+                              int clip01, int bswap) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= H || j >= W) return;
+  const long plane = (long)H * W;
+  const long c = (long)i * W + j;
+  const Stencil s = stencil(i, j, (float)i - vel[c] * dt,
+                            (float)j - vel[plane + c] * dt, H, W, max_disp,
+                            no_slip);
 
   float stored[C];
 #pragma unroll
   for (int ch = 0; ch < C; ++ch) {
     const T* f = field + ch * plane;
-    const float colv0 = load(f, base) * one_m_dj + load(f, base + 1) * dj;
-    const float colv1 =
-        load(f, base + W) * one_m_dj + load(f, base + W + 1) * dj;
-    float a = colv0 * w_i0 + colv1 * di;
-    if (no_slip) a = a * ns;
+    const float t00 = load(f, s.base);
+    const float t01 = load(f, s.base + 1);
+    const float t10 = load(f, s.base + W);
+    const float t11 = load(f, s.base + W + 1);
+    float a = bilerp(s, t00, t01, t10, t11, no_slip);
     if (clip01) a = fminf(fmaxf(a, 0.f), 1.f);
     stored[ch] = store(out + ch * plane, c, a);
+    if (MM != kNone) {
+      // extrema of the undiscounted taps, exact in the field dtype
+      float mn = min_nan(min_nan(t00, t01), min_nan(t10, t11));
+      float mx = max_nan(max_nan(t00, t01), max_nan(t10, t11));
+      if (MM == kCombined) {
+        mn = min_nan(mn, stored[ch]);
+        mx = max_nan(mx, stored[ch]);
+      }
+      store(lo + ch * plane, c, mn);
+      store(hi + ch * plane, c, mx);
+    }
   }
 
   if (C == 3 && frame != nullptr && i < H - 1 && j < W - 1) {
@@ -115,34 +197,132 @@ __global__ void advect_kernel(const T* __restrict__ field,
   }
 }
 
-template <typename T, int C>
+template <typename T, int C, int MM>
 cudaError_t launch(const void* field, const void* vel, void* out,
-                   void* frame, int H, int W, float dt, float max_disp,
-                   int no_slip, int clip01, int bswap, cudaStream_t stream) {
+                   void* frame, void* lo, void* hi, int H, int W, float dt,
+                   float max_disp, int no_slip, int clip01, int bswap,
+                   cudaStream_t stream) {
   const dim3 block(32, 8);
   const dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
-  advect_kernel<T, C><<<grid, block, 0, stream>>>(
+  advect_kernel<T, C, MM><<<grid, block, 0, stream>>>(
       static_cast<const T*>(field), static_cast<const float*>(vel),
-      static_cast<T*>(out), static_cast<uint16_t*>(frame), H, W, dt,
-      max_disp, no_slip, clip01, bswap);
+      static_cast<T*>(out), static_cast<uint16_t*>(frame),
+      static_cast<T*>(lo), static_cast<T*>(hi), H, W, dt, max_disp, no_slip,
+      clip01, bswap);
   return cudaGetLastError();
 }
 
+template <typename T, int C>
+cudaError_t dispatch_minmax(int minmax, const void* field, const void* vel,
+                            void* out, void* frame, void* lo, void* hi, int H,
+                            int W, float dt, float max_disp, int no_slip,
+                            int clip01, int bswap, cudaStream_t stream) {
+  switch (minmax) {
+    case kNone:
+      return launch<T, C, kNone>(field, vel, out, frame, nullptr, nullptr, H,
+                                 W, dt, max_disp, no_slip, clip01, bswap,
+                                 stream);
+    case kRaw:
+      return launch<T, C, kRaw>(field, vel, out, nullptr, lo, hi, H, W, dt,
+                                max_disp, no_slip, clip01, bswap, stream);
+    case kCombined:
+      return launch<T, C, kCombined>(field, vel, out, nullptr, lo, hi, H, W,
+                                     dt, max_disp, no_slip, clip01, bswap,
+                                     stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
-cudaError_t dispatch_channels(int C, const void* field, const void* vel,
-                              void* out, void* frame, int H, int W, float dt,
+cudaError_t dispatch_channels(int C, int minmax, const void* field,
+                              const void* vel, void* out, void* frame,
+                              void* lo, void* hi, int H, int W, float dt,
                               float max_disp, int no_slip, int clip01,
                               int bswap, cudaStream_t stream) {
   switch (C) {
     case 1:
-      return launch<T, 1>(field, vel, out, nullptr, H, W, dt, max_disp,
-                          no_slip, clip01, bswap, stream);
+      return dispatch_minmax<T, 1>(minmax, field, vel, out, nullptr, lo, hi,
+                                   H, W, dt, max_disp, no_slip, clip01, bswap,
+                                   stream);
     case 2:
-      return launch<T, 2>(field, vel, out, nullptr, H, W, dt, max_disp,
-                          no_slip, clip01, bswap, stream);
+      return dispatch_minmax<T, 2>(minmax, field, vel, out, nullptr, lo, hi,
+                                   H, W, dt, max_disp, no_slip, clip01, bswap,
+                                   stream);
     case 3:
-      return launch<T, 3>(field, vel, out, frame, H, W, dt, max_disp,
-                          no_slip, clip01, bswap, stream);
+      return dispatch_minmax<T, 3>(minmax, field, vel, out, frame, lo, hi, H,
+                                   W, dt, max_disp, no_slip, clip01, bswap,
+                                   stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// K5 launch 2: phi_back = advect(phi_hat, -vel), then the limiter.  The
+// backtrace x - dt*(-v) is written x + v*dt: negation is exact, so the two
+// are bit-equal.
+template <typename T, int C>
+__global__ void maccormack_correct_kernel(
+    const T* __restrict__ field, const T* __restrict__ phi_hat,
+    const T* __restrict__ lo, const T* __restrict__ hi,
+    const float* __restrict__ vel, T* __restrict__ out, int H, int W,
+    float dt, float max_disp, int no_slip) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= H || j >= W) return;
+  const long plane = (long)H * W;
+  const long c = (long)i * W + j;
+
+  const Stencil s = stencil(i, j, (float)i + vel[c] * dt,
+                            (float)j + vel[plane + c] * dt, H, W, max_disp,
+                            no_slip);
+
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) {
+    const T* f = phi_hat + ch * plane;
+    const long k = ch * plane + c;
+    const float back = round_to<T>(
+        bilerp(s, load(f, s.base), load(f, s.base + 1), load(f, s.base + W),
+               load(f, s.base + W + 1), no_slip));
+    // phi_hat + 0.5 * (field - phi_back), rounded after each op
+    const float diff = round_to<T>(load(field, k) - back);
+    const float half = round_to<T>(0.5f * diff);
+    const float corr = round_to<T>(load(phi_hat, k) + half);
+    store(out, k, min_nan(max_nan(corr, load(lo, k)), load(hi, k)));
+  }
+}
+
+template <typename T, int C>
+cudaError_t launch_correct(const void* field, const void* phi_hat,
+                           const void* lo, const void* hi, const void* vel,
+                           void* out, int H, int W, float dt, float max_disp,
+                           int no_slip, cudaStream_t stream) {
+  const dim3 block(32, 8);
+  const dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
+  maccormack_correct_kernel<T, C><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(field), static_cast<const T*>(phi_hat),
+      static_cast<const T*>(lo), static_cast<const T*>(hi),
+      static_cast<const float*>(vel), static_cast<T*>(out), H, W, dt,
+      max_disp, no_slip);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_correct(int C, const void* field, const void* phi_hat,
+                             const void* lo, const void* hi, const void* vel,
+                             void* out, int H, int W, float dt,
+                             float max_disp, int no_slip,
+                             cudaStream_t stream) {
+  switch (C) {
+    case 1:
+      return launch_correct<T, 1>(field, phi_hat, lo, hi, vel, out, H, W, dt,
+                                  max_disp, no_slip, stream);
+    case 2:
+      return launch_correct<T, 2>(field, phi_hat, lo, hi, vel, out, H, W, dt,
+                                  max_disp, no_slip, stream);
+    case 3:
+      return launch_correct<T, 3>(field, phi_hat, lo, hi, vel, out, H, W, dt,
+                                  max_disp, no_slip, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -151,16 +331,40 @@ cudaError_t dispatch_channels(int C, const void* field, const void* vel,
 }  // namespace
 
 // field, out: [C, H, W] float32 (field_bf16 = 0) or bfloat16 (= 1);
-// vel: [2, H, W] float32; frame: [H-1, W-1] uint16 or null (C == 3 only).
+// vel: [2, H, W] float32; frame: [H-1, W-1] uint16 or null (C == 3 only);
+// lo, hi: [C, H, W] in the field dtype, written when minmax is 1 (the raw
+// tap extrema) or 2 (combined with the stored value), else null.
 extern "C" int fluid_advect(const void* field, const void* vel, void* out,
-                            void* frame, int C, int H, int W, int field_bf16,
-                            float dt, int max_disp, int no_slip, int clip01,
-                            int bswap, void* stream) {
+                            void* frame, void* lo, void* hi, int C, int H,
+                            int W, int field_bf16, float dt, int max_disp,
+                            int no_slip, int clip01, int bswap, int minmax,
+                            void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float md = (float)max_disp;
   if (field_bf16)
     return (int)dispatch_channels<__nv_bfloat16>(
-        C, field, vel, out, frame, H, W, dt, md, no_slip, clip01, bswap, s);
-  return (int)dispatch_channels<float>(C, field, vel, out, frame, H, W, dt,
-                                       md, no_slip, clip01, bswap, s);
+        C, minmax, field, vel, out, frame, lo, hi, H, W, dt, md, no_slip,
+        clip01, bswap, s);
+  return (int)dispatch_channels<float>(C, minmax, field, vel, out, frame, lo,
+                                       hi, H, W, dt, md, no_slip, clip01,
+                                       bswap, s);
+}
+
+// K5 launch 2.  field, phi_hat, lo, hi, out: [C, H, W] in the field dtype
+// (phi_hat, lo, hi from fluid_advect with minmax = 2); vel: [2, H, W]
+// float32, the forward velocity (the kernel backtraces through -vel).
+extern "C" int fluid_maccormack_correct(const void* field,
+                                        const void* phi_hat, const void* lo,
+                                        const void* hi, const void* vel,
+                                        void* out, int C, int H, int W,
+                                        int field_bf16, float dt,
+                                        int max_disp, int no_slip,
+                                        void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float md = (float)max_disp;
+  if (field_bf16)
+    return (int)dispatch_correct<__nv_bfloat16>(
+        C, field, phi_hat, lo, hi, vel, out, H, W, dt, md, no_slip, s);
+  return (int)dispatch_correct<float>(C, field, phi_hat, lo, hi, vel, out, H,
+                                      W, dt, md, no_slip, s);
 }

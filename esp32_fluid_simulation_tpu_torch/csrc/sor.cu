@@ -1,0 +1,59 @@
+// 2D red-black SOR pressure solve from zero, given the divergence: a fill,
+// then 2*iters in-place parity half-sweeps.
+//
+// Replaces the TPU kernel esp32_fluid_simulation_tpu/ops/pallas/sor.py
+// (sor_solve_pallas / _sor_kernel, with the packed red-black solve of
+// ops/pallas/rb_common.py:packed_rb_solve_full, whose semantics only are
+// taken: a plain parity-masked update).  The TPU kernel DMAs a tile of d
+// with a 2*iters halo and runs all half-sweeps in VMEM on a packed
+// half-width checkerboard.  A Hopper block has far less fast memory and
+// blocks cannot wait for each other, so this first version launches:
+//   1. a fill: dxd = dx * d, p = 0 (the solve starts from zero pressure,
+//      poisson.cpp:117-119);
+//   2. 2*iters in-place half-sweeps, even parity first: the same kernel K1
+//      runs (csrc/rb2d.cuh), so K1 and K4 cannot drift apart.
+//
+// Bound on the H100: device-memory bytes.  The solve needs d read once and
+// p written once (8 B per cell, 134 MB at 4096^2: 0.040 ms at 3.35 TB/s),
+// but each half-sweep reads the pressure field and half of dxd and writes
+// half of p; at 4096^2 the 64 MiB fields do not stay in the 50 MB L2, so
+// the 20 half-sweeps stream ~2.7 GB.  Keeping several sweeps on chip
+// (temporal blocking in shared memory, the TPU kernel's trapezoid) is a
+// later change, as for K1 and K9.
+//
+// Built with --fmad=false, bit-equal to the plain PyTorch version
+// (ops.poisson.sor_solve: dx * d, then ((up + dn) + lf) + rt and
+// (1-w) p + w (neg_inv (dx d - nb))).
+
+#include <cuda_runtime.h>
+
+#include "rb2d.cuh"
+
+namespace {
+
+__global__ void sor_fill_kernel(const float* __restrict__ d,
+                                float* __restrict__ dxd,
+                                float* __restrict__ p, long n, float dx) {
+  const long c = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= n) return;
+  dxd[c] = dx * d[c];
+  p[c] = 0.f;
+}
+
+}  // namespace
+
+// d, p, dxd: [H, W] float32 (p is the output, dxd scratch; H, W >= 2).
+extern "C" int fluid_sor(const void* d, void* p, void* dxd, int H, int W,
+                         float dx, int iters, float omega, float one_m_w,
+                         void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pp = static_cast<float*>(p);
+  float* dd = static_cast<float*>(dxd);
+  const long n = (long)H * W;
+  const int threads = 256;
+  sor_fill_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0, s>>>(
+      static_cast<const float*>(d), dd, pp, n, dx);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)sor_half_sweeps(pp, dd, H, W, iters, omega, one_m_w, s);
+}

@@ -5,6 +5,7 @@ from .stable_fluids import (
     make_step,
     step_render,
     make_step_render,
+    step_with_metrics,
     make_step_with_metrics,
     make_multi_step,
     stack_schedule,
@@ -24,6 +25,7 @@ __all__ = [
     "make_step",
     "step_render",
     "make_step_render",
+    "step_with_metrics",
     "make_step_with_metrics",
     "make_multi_step",
     "stack_schedule",

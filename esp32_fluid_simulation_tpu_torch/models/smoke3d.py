@@ -24,7 +24,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..ops.advect import advect
-from ..ops.fd import divergence, subtract_gradient
+from ..ops.fd import divergence, subtract_gradient, vorticity_confinement
 from ..ops.poisson import sor_solve
 from ..ops.multigrid import multigrid_solve
 from ..ops.cuda.advect3d import advect3d_kernel
@@ -158,13 +158,10 @@ def inject_and_buoy(vel, rho, temp, src, cfg: SmokeConfig):
 
 def smoke_step(state: SmokeState, cfg: SmokeConfig,
                src: torch.Tensor | None = None) -> SmokeState:
-    """One plume step: advect, inject, buoyancy, project, dissipate.
-    ``src`` is the source mask (``source_tensor``); ``make_smoke_step``
-    builds it once instead of every step."""
-    if cfg.vorticity_eps > 0:
-        raise NotImplementedError("vorticity_eps > 0 (3D curl and vorticity "
-                                  "confinement) is not ported yet "
-                                  "(ROADMAP.md queue 1, item 6)")
+    """One plume step: advect, inject, buoyancy, optional vorticity
+    confinement, project, dissipate.  ``src`` is the source mask
+    (``source_tensor``); ``make_smoke_step`` builds it once instead of
+    every step."""
     dt = cfg.dt
     vel, rho, temp = state.velocity, state.density, state.temperature
     if src is None:
@@ -185,6 +182,8 @@ def smoke_step(state: SmokeState, cfg: SmokeConfig,
 
     # 2-3. plume source, buoyancy along -axis 0 (low indices are up)
     vel, rho, temp = inject_and_buoy(vel, rho, temp, src, cfg)
+    if cfg.vorticity_eps > 0:   # smoke3d.py:180-182
+        vel = vorticity_confinement(vel, cfg.vorticity_eps, dt, cfg.dx)
 
     # 4. pressure projection
     fd_kernel = _use_fd3d_kernel(cfg, vel)

@@ -14,9 +14,12 @@ With ``solver="fused_pallas"`` the drain and the projection run in the K1
 kernel (``ops/cuda/project.py``); with the kernel advect
 (``_use_pallas_advect``) both advections run in K2 (``ops/cuda/advect.py``),
 the dye clamp and, in ``step_render`` at ``scaling == 1``, the RGB565 frame
-riding the dye store.  The kernel wrappers run their plain PyTorch versions
-on CPU tensors.  PyTorch runs eagerly: ``make_step`` and friends return
-plain closures.
+riding the dye store, or in K5 for ``advector="maccormack"``.
+``solver="sor_pallas"`` solves in K4 (``ops/cuda/sor.py``).  Vorticity
+confinement (``vorticity_eps > 0``) sits between the impulses and the
+projection, as in the JAX step (``stable_fluids.py:294-317``).  The kernel
+wrappers run their plain PyTorch versions on CPU tensors.  PyTorch runs
+eagerly: ``make_step`` and friends return plain closures.
 """
 
 from __future__ import annotations
@@ -28,11 +31,11 @@ import torch
 
 from ..config import SimConfig
 from ..state import SimState, Impulses
-from ..ops.advect import advect
+from ..ops.advect import advect, advect_maccormack, advect_rk2
 from ..ops.blur import triangular_blur_inplace
-from ..ops.fd import divergence, subtract_gradient
-from ..ops.poisson import poisson_solve
-from ..ops.cuda.advect import advect_kernel
+from ..ops.fd import divergence, subtract_gradient, vorticity_confinement
+from ..ops.poisson import poisson_solve, poisson_residual
+from ..ops.cuda.advect import advect_kernel, advect_maccormack_kernel
 from ..ops.cuda.project import project_fused
 from ..render.upscale import render_rgb565
 
@@ -41,12 +44,6 @@ def _check_ported(cfg: SimConfig) -> None:
     if cfg.domain_tile is not None:
         raise NotImplementedError("domain_tile is not ported yet (ROADMAP.md "
                                   "queue 1, item 8)")
-    if cfg.vorticity_eps > 0.0:
-        raise NotImplementedError("vorticity_eps > 0 is not ported yet "
-                                  "(ROADMAP.md queue 1, item 6)")
-    if cfg.advector != "semilag":
-        raise NotImplementedError(f"advector={cfg.advector!r} is not ported "
-                                  "yet (ROADMAP.md queue 1, item 6)")
 
 
 def init_color(cfg: SimConfig, device="cuda") -> torch.Tensor:
@@ -133,12 +130,26 @@ def _use_pallas_advect(cfg: SimConfig, vel: torch.Tensor) -> bool:
 
 
 def _advect_by(cfg: SimConfig, vel: torch.Tensor):
-    if not _use_pallas_advect(cfg, vel):
-        return advect
-    if cfg.advect_sample_dtype != "float32":
+    """The advection for ``cfg`` (``stable_fluids.py:157-183``): K5 or the
+    eager MacCormack, the eager RK2 (never a kernel), K2 or the eager
+    semi-Lagrangian advect."""
+    use_kernel = _use_pallas_advect(cfg, vel)
+    if use_kernel and cfg.advect_sample_dtype != "float32":
         raise NotImplementedError(
             "advect_sample_dtype='bfloat16' is not ported (ROADMAP.md queue "
             "1, 'Not to port')")
+    if cfg.advector == "maccormack":
+        if not use_kernel:
+            return advect_maccormack
+
+        def adv_mc(field, vel, dt, no_slip):
+            return advect_maccormack_kernel(field, vel, dt, no_slip,
+                                            max_disp=cfg.advect_max_disp)
+        return adv_mc
+    if cfg.advector == "rk2":
+        return advect_rk2
+    if not use_kernel:
+        return advect
 
     def adv(field, vel, dt, no_slip, clip01=False, self_advect=False):
         return advect_kernel(field, vel, dt, no_slip,
@@ -182,6 +193,16 @@ def _on_device(imp: Impulses, device) -> Impulses:
     return Impulses(*(t.to(device) for t in imp))
 
 
+def _impulses_and_forces(vel: torch.Tensor, impulses: Impulses,
+                         cfg: SimConfig) -> torch.Tensor:
+    """The drained drag queue, then vorticity confinement when enabled
+    (rank-polymorphic: the 2D curl or the 3D one)."""
+    vel = apply_impulses(vel, impulses)
+    if cfg.vorticity_eps > 0.0:
+        vel = vorticity_confinement(vel, cfg.vorticity_eps, cfg.dt, cfg.dx)
+    return vel
+
+
 def step(state: SimState, impulses: Impulses, cfg: SimConfig) -> SimState:
     """One simulation step — the reference's ``loop()`` (``.ino:249-289``).
     ``impulses`` may lie on the CPU; they follow the state's device."""
@@ -189,11 +210,13 @@ def step(state: SimState, impulses: Impulses, cfg: SimConfig) -> SimState:
     impulses = _on_device(impulses, state.velocity.device)
     adv = _advect_by(cfg, state.velocity)
     vel = _self_advect(adv, state.velocity, cfg.dt)
-    if cfg.solver == "fused_pallas":
+    if cfg.solver == "fused_pallas" and cfg.vorticity_eps == 0.0:
         # K1 drains the queue itself (same .ino:258-278 order)
         vel = _project(vel, cfg, impulses=impulses)
     else:
-        vel = _project(apply_impulses(vel, impulses), cfg)
+        # confinement sits between the impulses and the projection, so
+        # this order keeps the drain out of K1
+        vel = _project(_impulses_and_forces(vel, impulses, cfg), cfg)
     color = _advect_color(adv, state.color, vel, cfg)
     return SimState(velocity=vel, color=color, step=state.step + 1)
 
@@ -207,6 +230,7 @@ def step_render(state: SimState, impulses: Impulses, cfg: SimConfig,
     the render follows the step."""
     _check_ported(cfg)
     fused = (cfg.ndim == 2 and cfg.scaling == 1 and cfg.clamps_dye
+             and cfg.advector == "semilag" and cfg.vorticity_eps == 0.0
              and cfg.solver == "fused_pallas"
              and _use_pallas_advect(cfg, state.velocity))
     if not fused:
@@ -235,13 +259,48 @@ def make_step_render(cfg: SimConfig, bswap: bool = True):
 
 
 def step_with_metrics(state: SimState, impulses: Impulses, cfg: SimConfig):
-    raise NotImplementedError("step_with_metrics is not ported yet "
-                              "(ROADMAP.md queue 1, item 6)")
+    """Step plus on-device observability (``stable_fluids.py:391-424``):
+    ``(state, metrics)`` with the pre/post-projection divergence maxima,
+    the Poisson residual norm, the max speed and a finiteness flag, each a
+    0-dim tensor on the state's device (nothing is read back here).
+
+    As in the JAX package, the impulses are scattered before the
+    projection (K1 runs without them) and the dye advects without the
+    fused clamp, clipped after for ``semilag``/``rk2``."""
+    _check_ported(cfg)
+    impulses = _on_device(impulses, state.velocity.device)
+    adv = _advect_by(cfg, state.velocity)
+    vel = _self_advect(adv, state.velocity, cfg.dt)
+    vel = _impulses_and_forces(vel, impulses, cfg)
+
+    div = divergence(vel, cfg.dx)
+    if cfg.solver == "fused_pallas":
+        vel, p = project_fused(vel, cfg.dx, cfg.sor_iters, cfg.omega)
+    else:
+        p = poisson_solve(div, cfg)
+        vel = subtract_gradient(vel, p, cfg.dx)
+    div_post = divergence(vel, cfg.dx)
+
+    color = adv(state.color, vel, cfg.dt, no_slip=False)
+    if cfg.advector in ("semilag", "rk2"):
+        color = torch.clamp(color, 0.0, 1.0)
+
+    res = poisson_residual(p, div, cfg.dx)
+    metrics = {
+        "div_pre_max": torch.max(torch.abs(div)),
+        "div_post_max": torch.max(torch.abs(div_post)),
+        "poisson_residual_l2": torch.sqrt(torch.mean(res * res)),
+        "max_speed": torch.sqrt(torch.max(torch.sum(vel * vel, dim=0))),
+        "finite": (torch.isfinite(vel).all()
+                   & torch.isfinite(color).all()),
+    }
+    return SimState(velocity=vel, color=color, step=state.step + 1), metrics
 
 
 def make_step_with_metrics(cfg: SimConfig):
-    raise NotImplementedError("make_step_with_metrics is not ported yet "
-                              "(ROADMAP.md queue 1, item 6)")
+    """``(state, impulses) -> (state, metrics)`` — see
+    :func:`step_with_metrics`."""
+    return functools.partial(step_with_metrics, cfg=cfg)
 
 
 def make_multi_step(cfg: SimConfig):

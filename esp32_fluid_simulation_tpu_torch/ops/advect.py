@@ -8,6 +8,9 @@ and sample the old field there with the reference sampler's semantics
 *unclamped* coordinate.  Rank-polymorphic (2D and 3D grids, any number of
 leading channel axes).  This path does not clamp the displacement; the
 kernel path (``ops/cuda/advect.py``) does.
+
+Also the midpoint (RK2) backtrace and MacCormack advection with its
+monotonic limiter (``ops/advect.py:166-206``), built from the same gather.
 """
 
 from __future__ import annotations
@@ -38,12 +41,15 @@ def noslip_axis_factor(raw_coord: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def sample_linear(field: torch.Tensor, coords: Sequence[torch.Tensor],
-                  no_slip: bool = False) -> torch.Tensor:
+                  no_slip: bool = False, return_minmax: bool = False):
     """Multilinear sample of ``field`` at fractional ``coords`` with the
-    reference's edge-collapse + no-slip-discount semantics.
+    reference's edge-collapse + no-slip-discount semantics
+    (``ops/advect.py:61-127``).
 
     field:  ``[*channels, *shape]``; coords: one float tensor per spatial
-    axis, each of shape ``shape``.
+    axis, each of shape ``shape``.  With ``return_minmax`` also the min and
+    max of the 2^nd corner values, taken from the undiscounted taps:
+    ``(val, cmin, cmax)``.
     """
     nd = len(coords)
     shape = field.shape[field.dim() - nd:]
@@ -60,9 +66,12 @@ def sample_linear(field: torch.Tensor, coords: Sequence[torch.Tensor],
         if no_slip:
             factors.append(noslip_axis_factor(c, n).to(dtype))
 
+    corners = []
+
     def gather(offsets):
         idx = tuple(i0s[k] + offsets[k] for k in range(nd))
-        return field[(Ellipsis,) + idx]
+        corners.append(field[(Ellipsis,) + idx])
+        return corners[-1]
 
     def reduce_lerp(axis, offsets):
         # the first axis nests outermost (advect.h:19-22)
@@ -78,21 +87,29 @@ def sample_linear(field: torch.Tensor, coords: Sequence[torch.Tensor],
         for f in factors[1:]:
             total = total * f
         val = val * total
-    return val
+    if not return_minmax:
+        return val
+    cmin = cmax = corners[0]
+    for corner in corners[1:]:
+        cmin = torch.minimum(cmin, corner)
+        cmax = torch.maximum(cmax, corner)
+    return val, cmin, cmax
+
+
+def _index(vel: torch.Tensor, k: int) -> torch.Tensor:
+    """The node index along spatial axis ``k``, broadcast over the grid."""
+    nd = vel.shape[0]
+    shape = tuple(vel.shape[1:])
+    view = [1] * nd
+    view[k] = shape[k]
+    return torch.arange(shape[k], dtype=vel.dtype,
+                        device=vel.device).view(view).expand(shape)
 
 
 def _backtrace_coords(vel: torch.Tensor, dt, sign=1.0):
     """source_k = idx_k - sign * vel_k * dt  (advect.h:81)."""
-    nd = vel.shape[0]
-    shape = tuple(vel.shape[1:])
-    coords = []
-    for k in range(nd):
-        view = [1] * nd
-        view[k] = shape[k]
-        idx = torch.arange(shape[k], dtype=vel.dtype,
-                           device=vel.device).view(view).expand(shape)
-        coords.append(idx - sign * vel[k] * dt)
-    return coords
+    return [_index(vel, k) - sign * vel[k] * dt
+            for k in range(vel.shape[0])]
 
 
 def advect(field: torch.Tensor, vel: torch.Tensor, dt: float,
@@ -102,3 +119,31 @@ def advect(field: torch.Tensor, vel: torch.Tensor, dt: float,
     with ``no_slip=False``."""
     coords = _backtrace_coords(vel, dt)
     return sample_linear(field, coords, no_slip=no_slip)
+
+
+def advect_rk2(field: torch.Tensor, vel: torch.Tensor, dt: float,
+               no_slip: bool) -> torch.Tensor:
+    """Second-order (midpoint) backtrace (``ops/advect.py:166-181``):
+    sample the velocity at ``x - dt/2 * v(x)`` and trace the full step
+    through it.  Sampling semantics are those of ``advect``."""
+    v_mid = sample_linear(vel, _backtrace_coords(vel, dt * 0.5),
+                          no_slip=False)
+    coords = [_index(vel, k) - v_mid[k] * dt for k in range(vel.shape[0])]
+    return sample_linear(field, coords, no_slip=no_slip)
+
+
+def advect_maccormack(field: torch.Tensor, vel: torch.Tensor, dt: float,
+                      no_slip: bool) -> torch.Tensor:
+    """MacCormack advection with the monotonic clamp
+    (``ops/advect.py:184-206``): forward predictor, backward corrector,
+    error-compensated result clamped to the stencil extrema at the
+    backtraced point.  The bounds include the predictor, so the clamp
+    keeps the no-slip wall discount baked into ``phi_hat``."""
+    phi_hat, cmin, cmax = sample_linear(field, _backtrace_coords(vel, dt),
+                                        no_slip=no_slip, return_minmax=True)
+    phi_back = sample_linear(phi_hat, _backtrace_coords(vel, dt, sign=-1.0),
+                             no_slip=no_slip)
+    corrected = phi_hat + 0.5 * (field - phi_back)
+    cmin = torch.minimum(cmin, phi_hat)
+    cmax = torch.maximum(cmax, phi_hat)
+    return torch.clamp(corrected, cmin, cmax)

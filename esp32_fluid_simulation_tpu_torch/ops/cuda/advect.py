@@ -1,16 +1,27 @@
-"""K2: 2D semi-Lagrangian advection on the GPU (``csrc/advect.cu``).
+"""K2: 2D semi-Lagrangian advection, and K5: MacCormack advection, on the
+GPU (``csrc/advect.cu``).
 
-Replaces ``esp32_fluid_simulation_tpu/ops/pallas/advect.py:advect_pallas``
-(the "sloop" kernel).  ``advect_kernel`` launches the CUDA kernel for CUDA
-tensors and runs ``advect_reference``, its plain PyTorch version, for CPU
-tensors — only because they lie on the CPU.  Any other device raises.
+K2 replaces ``esp32_fluid_simulation_tpu/ops/pallas/advect.py:
+advect_pallas`` (the "sloop" kernel), K5 ``advect.py:
+advect_maccormack_pallas``.  ``advect_kernel`` and
+``advect_maccormack_kernel`` launch the CUDA kernels for CUDA tensors and
+run ``advect_reference`` / ``advect_maccormack_reference``, their plain
+PyTorch versions, for CPU tensors — only because they lie on the CPU.  Any
+other device raises.
 
-Semantics (both versions): backtrace ``x - dt*v``; the displacement is
+K2 semantics (both versions): backtrace ``x - dt*v``; the displacement is
 clamped to ``max_disp`` cells per axis (a CFL clamp that the unclamped
 ``ops.advect.advect`` does not apply); bilinear sample at the domain-clamped
 coordinate, computed in float32; the no-slip factor from the unclamped
 coordinate; the optional [0, 1] clip; the store in the field dtype; with
-``rgb565`` also the ``[H-1, W-1]`` RGB565 frame of the *stored* dye.
+``rgb565`` also the ``[H-1, W-1]`` RGB565 frame of the *stored* dye; with
+``return_minmax`` also the min and max of the four undiscounted taps.
+
+K5 (both versions): ``phi_hat, cmin, cmax = K2(field, vel, return_minmax)``,
+``phi_back = K2(phi_hat, -vel)``, then ``phi_hat + 0.5*(field - phi_back)``
+clamped to ``[min(cmin, phi_hat), max(cmax, phi_hat)]``, each op rounding
+to the field dtype.  The kernel takes two launches, ``maccormack_forward``
+and ``maccormack_backward``, each with its own launch counter.
 """
 
 from __future__ import annotations
@@ -21,12 +32,25 @@ from ...render.upscale import pack_rgb565
 from ..advect import noslip_axis_factor
 from .build import load, stream_of
 
-_UNPORTED = ("return_minmax", "overlay", "member", "global_offset",
-             "global_shape", "halo", "sample_bf16")
+_UNPORTED = ("overlay", "member", "global_offset", "global_shape", "halo",
+             "sample_bf16")
+_NONE, _RAW, _COMBINED = 0, 1, 2   # enum MinMax in csrc/advect.cu
+
+
+def _check_unported(name, unported):
+    for key in unported:
+        if key not in _UNPORTED:
+            raise TypeError(f"{name} got an unexpected argument {key!r}")
+    # None, False and the JAX default halo=0 mean "not asked for"
+    if any(not (v is None or (isinstance(v, int) and not v))
+           for v in unported.values()):
+        raise NotImplementedError(
+            f"{name}: {sorted(unported)} not ported yet (ROADMAP.md queue "
+            "2, K6/K11)")
 
 
 def advect_reference(field, vel, dt, no_slip, max_disp=12, clip01=False,
-                     rgb565=False, bswap=True):
+                     rgb565=False, bswap=True, return_minmax=False):
     """Plain PyTorch version of the kernel (same arithmetic, same order)."""
     squeeze = field.dim() == 2
     f = (field[None] if squeeze else field).to(torch.float32)
@@ -48,8 +72,10 @@ def advect_reference(field, vel, dt, no_slip, max_disp=12, clip01=False,
     one_m_dj = 1.0 - dj
     ii = i0.long()
     jj = j0.long()
-    colv0 = f[:, ii, jj] * one_m_dj + f[:, ii, jj + 1] * dj
-    colv1 = f[:, ii + 1, jj] * one_m_dj + f[:, ii + 1, jj + 1] * dj
+    t00, t01 = f[:, ii, jj], f[:, ii, jj + 1]
+    t10, t11 = f[:, ii + 1, jj], f[:, ii + 1, jj + 1]
+    colv0 = t00 * one_m_dj + t01 * dj
+    colv1 = t10 * one_m_dj + t11 * dj
     acc = colv0 * (1.0 - di) + colv1 * di
     if no_slip:
         acc = acc * (noslip_axis_factor(si_raw, h)
@@ -60,27 +86,94 @@ def advect_reference(field, vel, dt, no_slip, max_disp=12, clip01=False,
     if rgb565:
         # the frame packs the stored values: clip01 keeps them in [0, 1]
         return out, pack_rgb565(out[:, :-1, :-1], bswap=bswap)
+    if return_minmax:
+        # extrema of the undiscounted taps, exact in the field dtype
+        cmin = torch.minimum(torch.minimum(t00, t01),
+                             torch.minimum(t10, t11)).to(field.dtype)
+        cmax = torch.maximum(torch.maximum(t00, t01),
+                             torch.maximum(t10, t11)).to(field.dtype)
+        if squeeze:
+            return out[0], cmin[0], cmax[0]
+        return out, cmin, cmax
     return out[0] if squeeze else out
+
+
+def advect_maccormack_reference(field, vel, dt, no_slip, max_disp=12):
+    """Plain PyTorch version of K5 (``advect.py:965-987``): two plain K2
+    passes and the limiter, each op in the field dtype."""
+    phi_hat, cmin, cmax = advect_reference(field, vel, dt, no_slip,
+                                           max_disp=max_disp,
+                                           return_minmax=True)
+    phi_back = advect_reference(phi_hat, -vel, dt, no_slip,
+                                max_disp=max_disp)
+    corrected = phi_hat + 0.5 * (field - phi_back)
+    lo = torch.minimum(cmin, phi_hat)
+    hi = torch.maximum(cmax, phi_hat)
+    return torch.clamp(corrected, lo, hi)
+
+
+def _checked_3d(name, field, vel, max_disp):
+    """Validate a CUDA launch's inputs; the field as ``[C, H, W]``."""
+    if not field.is_cuda:
+        raise ValueError(f"{name}: unsupported device {field.device}")
+    f3 = field[None] if field.dim() == 2 else field
+    c, h, w = f3.shape
+    # the launch puts rows on grid.y, 8 a block, at most 65535 blocks
+    if c not in (1, 2, 3) or h < 2 or w < 2 or h > 8 * 65535:
+        raise ValueError(f"{name}: field shape {tuple(field.shape)} not "
+                         "supported (C <= 3, 2 <= H <= 524280, W >= 2)")
+    if f3.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: field dtype {f3.dtype} not supported "
+                         "(float32, bfloat16)")
+    if vel.shape != (2, h, w) or vel.dtype != torch.float32:
+        raise ValueError(f"{name}: vel must be float32 [2, H, W]")
+    if vel.device != field.device:
+        raise ValueError(f"{name}: field and vel on different devices")
+    if not (f3.is_contiguous() and vel.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if not 0 <= max_disp < 2 ** 24:
+        raise ValueError(f"{name}: max_disp={max_disp} out of range")
+    return f3
+
+
+def _launch_advect(f3, vel, dt, no_slip, max_disp, clip01=False,
+                   rgb565=False, bswap=True, minmax=_NONE):
+    """One launch of the advect kernel: ``out``, plus the frame or the
+    bounds as asked."""
+    c, h, w = f3.shape
+    out = torch.empty_like(f3)
+    frame = (torch.empty((h - 1, w - 1), dtype=torch.uint16,
+                         device=f3.device) if rgb565 else None)
+    lo = torch.empty_like(f3) if minmax else None
+    hi = torch.empty_like(f3) if minmax else None
+    lib = load()
+    with torch.cuda.device(f3.device):
+        lib.call("fluid_advect", f3.data_ptr(), vel.data_ptr(),
+                 out.data_ptr(), frame.data_ptr() if rgb565 else None,
+                 lo.data_ptr() if minmax else None,
+                 hi.data_ptr() if minmax else None,
+                 c, h, w, int(f3.dtype == torch.bfloat16), float(dt),
+                 int(max_disp), int(no_slip), int(clip01), int(bswap),
+                 int(minmax), stream_of(f3))
+    return out, frame, lo, hi
 
 
 def advect_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
                   no_slip: bool, max_disp: int = 12, clip01: bool = False,
                   rgb565: bool = False, bswap: bool = True,
-                  self_advect: bool = False, **unported):
+                  self_advect: bool = False, return_minmax: bool = False,
+                  **unported):
     """Advect ``field`` (``[C, H, W]`` or ``[H, W]``, float32 or bfloat16)
-    through ``vel`` (``[2, H, W]`` float32).  Returns the new field, or
+    through ``vel`` (``[2, H, W]`` float32).  Returns the new field,
     ``(field, frame)`` with ``rgb565=True`` (a 3-channel field with
-    ``clip01``).  ``self_advect=True`` advects the velocity by itself
-    (``field`` is the velocity; ``vel`` is ignored) into a fresh tensor."""
-    for key in unported:
-        if key not in _UNPORTED:
-            raise TypeError(f"advect_kernel got an unexpected argument {key!r}")
-    if any(v is not None and v is not False for v in unported.values()):
-        raise NotImplementedError(
-            f"advect_kernel: {sorted(unported)} not ported yet (ROADMAP.md "
-            "queue 2, K5/K6/K11)")
-    if rgb565 and (not clip01 or field.dim() != 3 or field.shape[0] != 3):
-        raise ValueError("rgb565 needs clip01 on a 3-channel field")
+    ``clip01``), or ``(field, cmin, cmax)`` with ``return_minmax=True``.
+    ``self_advect=True`` advects the velocity by itself (``field`` is the
+    velocity; ``vel`` is ignored) into a fresh tensor."""
+    _check_unported("advect_kernel", unported)
+    if rgb565 and (not clip01 or field.dim() != 3 or field.shape[0] != 3
+                   or return_minmax):
+        raise ValueError("rgb565 needs clip01 on a 3-channel field (and no "
+                         "return_minmax)")
     if self_advect:
         if field.dim() != 3 or field.shape[0] != 2:
             raise ValueError("self_advect needs the [2, H, W] velocity as "
@@ -88,42 +181,67 @@ def advect_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
         vel = field
     if field.device.type == "cpu":
         return advect_reference(field, vel, dt, no_slip, max_disp=max_disp,
-                                clip01=clip01, rgb565=rgb565, bswap=bswap)
-    if not field.is_cuda:
-        raise ValueError(f"advect_kernel: unsupported device {field.device}")
+                                clip01=clip01, rgb565=rgb565, bswap=bswap,
+                                return_minmax=return_minmax)
 
-    f3 = field[None] if field.dim() == 2 else field
-    c, h, w = f3.shape
-    # the launch puts rows on grid.y, 8 a block, at most 65535 blocks
-    if c not in (1, 2, 3) or h < 2 or w < 2 or h > 8 * 65535:
-        raise ValueError(f"advect_kernel: field shape {tuple(field.shape)} "
-                         "not supported (C <= 3, 2 <= H <= 524280, W >= 2)")
-    if f3.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"advect_kernel: field dtype {f3.dtype} not "
-                         "supported (float32, bfloat16)")
-    if vel.shape != (2, h, w) or vel.dtype != torch.float32:
-        raise ValueError("advect_kernel: vel must be float32 [2, H, W]")
-    if vel.device != field.device:
-        raise ValueError("advect_kernel: field and vel on different devices")
-    if not (f3.is_contiguous() and vel.is_contiguous()):
-        raise ValueError("advect_kernel: inputs must be contiguous")
-    if not 0 <= max_disp < 2 ** 24:
-        raise ValueError(f"advect_kernel: max_disp={max_disp} out of range")
-
-    out = torch.empty_like(f3)
-    frame = (torch.empty((h - 1, w - 1), dtype=torch.uint16,
-                         device=field.device) if rgb565 else None)
-    lib = load()
-    with torch.cuda.device(field.device):
-        lib.call("fluid_advect", f3.data_ptr(), vel.data_ptr(),
-                 out.data_ptr(), frame.data_ptr() if rgb565 else None,
-                 c, h, w, int(f3.dtype == torch.bfloat16), float(dt),
-                 int(max_disp), int(no_slip), int(clip01), int(bswap),
-                 stream_of(field))
+    f3 = _checked_3d("advect_kernel", field, vel, max_disp)
+    out, frame, lo, hi = _launch_advect(
+        f3, vel, dt, no_slip, max_disp, clip01=clip01, rgb565=rgb565,
+        bswap=bswap, minmax=_RAW if return_minmax else _NONE)
     advect_kernel.launches += 1
     if rgb565:
         return out, frame
-    return out[0] if field.dim() == 2 else out
+    if field.dim() == 2:
+        return (out[0], lo[0], hi[0]) if return_minmax else out[0]
+    return (out, lo, hi) if return_minmax else out
 
 
 advect_kernel.launches = 0
+
+
+def maccormack_forward(f3, vel, dt, no_slip, max_disp=12):
+    """K5 launch 1: ``(phi_hat, lo, hi)`` with the bounds already combined
+    with ``phi_hat``, for a checked ``[C, H, W]`` CUDA field."""
+    out, _, lo, hi = _launch_advect(f3, vel, dt, no_slip, max_disp,
+                                    minmax=_COMBINED)
+    maccormack_forward.launches += 1
+    return out, lo, hi
+
+
+maccormack_forward.launches = 0
+
+
+def maccormack_backward(f3, phi_hat, lo, hi, vel, dt, no_slip, max_disp=12):
+    """K5 launch 2: the backward pass through ``-vel`` and the limiter."""
+    c, h, w = f3.shape
+    out = torch.empty_like(f3)
+    lib = load()
+    with torch.cuda.device(f3.device):
+        lib.call("fluid_maccormack_correct", f3.data_ptr(),
+                 phi_hat.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                 vel.data_ptr(), out.data_ptr(), c, h, w,
+                 int(f3.dtype == torch.bfloat16), float(dt), int(max_disp),
+                 int(no_slip), stream_of(f3))
+    maccormack_backward.launches += 1
+    return out
+
+
+maccormack_backward.launches = 0
+
+
+def advect_maccormack_kernel(field: torch.Tensor, vel: torch.Tensor,
+                             dt: float, no_slip: bool, max_disp: int = 12,
+                             **unported):
+    """MacCormack advection of ``field`` (``[C, H, W]`` or ``[H, W]``,
+    float32 or bfloat16) through ``vel`` (``[2, H, W]`` float32), with the
+    CFL clamp of K2.  The velocity advects as ``field = vel`` with
+    ``no_slip=True``; the dye with ``no_slip=False``."""
+    _check_unported("advect_maccormack_kernel", unported)
+    if field.device.type == "cpu":
+        return advect_maccormack_reference(field, vel, dt, no_slip,
+                                           max_disp=max_disp)
+    f3 = _checked_3d("advect_maccormack_kernel", field, vel, max_disp)
+    phi_hat, lo, hi = maccormack_forward(f3, vel, dt, no_slip, max_disp)
+    out = maccormack_backward(f3, phi_hat, lo, hi, vel, dt, no_slip,
+                              max_disp)
+    return out[0] if field.dim() == 2 else out

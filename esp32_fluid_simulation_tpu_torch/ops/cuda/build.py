@@ -5,8 +5,9 @@ plain C interface and loaded with ``ctypes`` — no PyTorch headers, so a
 build takes seconds.  Each source compiles in its own ``nvcc`` process, all
 started together, and one more links the objects.  The build happens at first use, never on import, into
 ``build/kernels/`` beside the package (git-ignored).  The library's file
-name carries a hash of the sources and flags, so an edited source builds
-anew and an unchanged one is reused.  The compiler writes to a temporary
+name carries a hash of the sources, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited file builds anew and an unchanged tree is
+reused.  The compiler writes to a temporary
 file that is then renamed into place, so processes building at once do not
 see each other's half-written output.
 
@@ -41,9 +42,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # field, vel, out, frame, C, H, W, field_bf16, dt, max_disp, no_slip,
-    # clip01, bswap, stream
-    "fluid_advect": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P),
+    # field, vel, out, frame, lo, hi, C, H, W, field_bf16, dt, max_disp,
+    # no_slip, clip01, bswap, minmax, stream
+    "fluid_advect": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+                     _I, _I, _P),
+    # field, phi_hat, lo, hi, vel, out, C, H, W, field_bf16, dt, max_disp,
+    # no_slip, stream
+    "fluid_maccormack_correct": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                 _I, _I, _P),
     # vel, vel_out, p, dxd, ipos, ivel, iact, n_imp, H, W, dx, inv2dx,
     # iters, omega, one_m_w, stream
     "fluid_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I,
@@ -59,6 +65,8 @@ _SIGNATURES = {
     "fluid_subtract_gradient3d": (_P, _P, _P, _I, _I, _I, _F, _P),
     # d, p, D, H, W, dx, iters, omega, one_m_w, stream
     "fluid_sor3d": (_P, _P, _I, _I, _I, _F, _I, _F, _F, _P),
+    # d, p, dxd, H, W, dx, iters, omega, one_m_w, stream
+    "fluid_sor": (_P, _P, _P, _I, _I, _F, _I, _F, _F, _P),
     # density, out, D, H, W, density_bf16, inv_vmax, bswap, stream
     "fluid_smoke_mip": (_P, _P, _I, _I, _I, _I, _F, _I, _P),
 }
@@ -99,7 +107,7 @@ def _nvcc() -> str:
 
 def _source_key(srcs) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in list(srcs) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -7,10 +7,9 @@ Every level solves the reference's unit-stencil system
 The unit stencil at spacing 2h is 4x the one at h, so the restricted
 residual is scaled by 4 when descending.  Coarsening averages 2^nd blocks
 (edge-padded to even sizes); prolongation is cell-centred linear
-interpolation.  Rank-polymorphic (2D and 3D).
-
-The port serves ``SmokeConfig(solver="multigrid")`` with it; the 2D
-``poisson_solve`` does not dispatch here yet (ROADMAP.md queue 1, item 6).
+interpolation.  Rank-polymorphic (2D and 3D): it serves the 2D
+``poisson_solve(solver="multigrid")`` and ``SmokeConfig(solver=
+"multigrid")``.
 """
 
 from __future__ import annotations

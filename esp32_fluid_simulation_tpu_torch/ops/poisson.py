@@ -1,4 +1,5 @@
-"""Poisson pressure solve: checkerboard red-black SOR and its residual
+"""Poisson pressure solvers: checkerboard red-black SOR, Jacobi, the
+residual-targeted adaptive SOR, residuals, and the solver dispatch
 (counterpart of ``esp32_fluid_simulation_tpu/ops/poisson.py``).
 
 Semantics reproduced exactly:
@@ -100,6 +101,52 @@ def sor_solve(d: torch.Tensor, dx: float = 1.0, iters: int = 10,
     return p
 
 
+def jacobi_solve(d: torch.Tensor, dx: float = 1.0, iters: int = 20,
+                 omega: float = 1.0, p0: torch.Tensor | None = None):
+    """Order-free (damped) Jacobi (``poisson.py:132-142``): every cell
+    updates from the previous iterate, ``p <- (1-w)p + w*p_gs``."""
+    p = torch.zeros_like(d) if p0 is None else p0
+    neg_inv = _neg_inv_diag(d.shape, d.dtype, device=d.device)
+    for _ in range(iters):
+        gs = neg_inv * (dx * d - neighbor_sum(p))
+        p = (1.0 - omega) * p + omega * gs
+    return p
+
+
+def sor_solve_adaptive(d: torch.Tensor, dx: float = 1.0, max_iters: int = 50,
+                       omega: float = 1.96, tol: float = 1e-3,
+                       check_every: int = 2,
+                       p0: torch.Tensor | None = None):
+    """Residual-targeted RB-SOR (``poisson.py:145-189``): sweep in chunks of
+    ``check_every`` (clamped to at least 1, as the JAX contract does) and
+    stop once the residual L2 norm drops below ``tol`` or ``max_iters``
+    sweeps ran.  Returns ``(p, iters_done, residual_l2)``: ``iters_done`` a
+    Python int, ``residual_l2`` a 0-dim float32 tensor on ``d``'s device.
+
+    The JAX version is one ``lax.while_loop`` on the device.  This eager
+    loop reads the residual on the host once per chunk (one device sync per
+    ``check_every`` sweeps), which the JAX version does not."""
+    check_every = max(1, int(check_every))
+    p = torch.zeros_like(d) if p0 is None else p0
+    neg_inv = _neg_inv_diag(d.shape, d.dtype, device=d.device)
+    parity = _parity(d.shape, device=d.device)
+    tol2 = torch.tensor(tol, dtype=torch.float32, device=d.device) ** 2
+
+    def res2(p):
+        r = poisson_residual(p, d, dx).to(torch.float32)
+        return torch.mean(r * r)
+
+    it = 0
+    r2 = res2(p)
+    while it < max_iters and bool(r2 > tol2):
+        n = min(check_every, max_iters - it)
+        for _ in range(n):
+            p = sor_sweep(p, d, omega, dx, neg_inv, parity)
+        it += n
+        r2 = res2(p)
+    return p, it, torch.sqrt(r2)
+
+
 def poisson_residual(p: torch.Tensor, d: torch.Tensor,
                      dx: float = 1.0) -> torch.Tensor:
     """Pointwise residual: nbr_sum - a_ii*p - dx*d."""
@@ -108,11 +155,23 @@ def poisson_residual(p: torch.Tensor, d: torch.Tensor,
 
 
 def poisson_solve(d: torch.Tensor, cfg) -> torch.Tensor:
-    """Solver dispatch by ``cfg.solver``."""
+    """Solver dispatch by ``cfg.solver`` (``poisson.py:199-219``)."""
     if cfg.solver == "sor":
         return sor_solve(d, cfg.dx, cfg.sor_iters, cfg.omega)
-    if cfg.solver in ("sor_adaptive", "jacobi", "sor_pallas", "multigrid"):
-        raise NotImplementedError(
-            f"solver={cfg.solver!r} is not ported yet (ROADMAP.md queue 1, "
-            "item 6)")
+    if cfg.solver == "sor_adaptive":
+        p, _, _ = sor_solve_adaptive(d, cfg.dx, cfg.sor_iters, cfg.omega,
+                                     tol=cfg.sor_tol,
+                                     check_every=cfg.sor_check_every)
+        return p
+    if cfg.solver == "jacobi":
+        # Jacobi diverges for omega > 1 (no Gauss-Seidel coupling to damp
+        # the over-relaxation), so the SOR omega is capped at 1 here
+        return jacobi_solve(d, cfg.dx, cfg.sor_iters, min(cfg.omega, 1.0))
+    if cfg.solver == "sor_pallas":
+        from .cuda.sor import sor_solve_kernel
+        return sor_solve_kernel(d, cfg.dx, cfg.sor_iters, cfg.omega)
+    if cfg.solver == "multigrid":
+        from .multigrid import multigrid_solve
+        return multigrid_solve(d, cfg.dx, cycles=cfg.mg_cycles,
+                               levels=cfg.mg_levels, omega=cfg.omega)
     raise ValueError(f"unknown solver {cfg.solver!r}")

@@ -17,7 +17,8 @@ import torch
 
 from esp32_fluid_simulation_tpu_torch import SimConfig, Impulses
 from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
-    advect_kernel, advect_reference)
+    advect_kernel, advect_maccormack_kernel, advect_maccormack_reference,
+    advect_reference, maccormack_backward, maccormack_forward)
 from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
     project_fused, project_fused_reference)
 from esp32_fluid_simulation_tpu_torch.ops.cuda.advect3d import (
@@ -25,6 +26,8 @@ from esp32_fluid_simulation_tpu_torch.ops.cuda.advect3d import (
 from esp32_fluid_simulation_tpu_torch.ops.cuda.fd3d import (
     divergence3d, divergence3d_reference, subtract_gradient3d,
     subtract_gradient3d_reference)
+from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import (
+    sor_solve_kernel, sor_solve_reference)
 from esp32_fluid_simulation_tpu_torch.ops.cuda.sor3d import (
     sor3d_solve, sor3d_reference)
 from esp32_fluid_simulation_tpu_torch.render.cuda_smoke import (
@@ -76,6 +79,48 @@ def test_advect_kernel_bit_equal(cuda, rng, dtype):
                                   rgb565=True, bswap=bswap)
         assert torch.equal(_bits(c), _bits(rc))
         assert torch.equal(_bits(f), _bits(rf))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_advect_minmax_kernel_bit_equal(cuda, rng, dtype):
+    vel = _on((60 * rng.standard_normal((2,) + SHAPE)).astype(np.float32),
+              cuda)
+    f = _on(rng.random((3,) + SHAPE, dtype=np.float32), cuda).to(dtype)
+    for field in (f, f[0].contiguous()):
+        got = advect_kernel(field, vel, 1 / 30, True, return_minmax=True)
+        want = advect_reference(field, vel, 1 / 30, True,
+                                return_minmax=True)
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("dtype,channels,no_slip", [
+    (torch.float32, 2, True), (torch.bfloat16, 3, False),
+    (torch.float32, 1, True)])
+def test_maccormack_kernel_bit_equal(cuda, rng, dtype, channels, no_slip):
+    # sigma 200 cells/s: the CFL clamp binds on some cells
+    vel = _on((200 * rng.standard_normal((2,) + SHAPE)).astype(np.float32),
+              cuda)
+    field = vel if channels == 2 else _on(
+        rng.random((channels,) + SHAPE, dtype=np.float32) * 2 - 0.5,
+        cuda).to(dtype)
+    before = (maccormack_forward.launches, maccormack_backward.launches)
+    got = advect_maccormack_kernel(field, vel, 1 / 30, no_slip)
+    assert (maccormack_forward.launches, maccormack_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = advect_maccormack_reference(field, vel, 1 / 30, no_slip)
+    assert got.dtype == field.dtype
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("iters", [0, 1, 10])
+def test_sor_kernel_bit_equal(cuda, rng, iters):
+    for shape in (SHAPE, (130, 200)):
+        d = _on(rng.standard_normal(shape).astype(np.float32), cuda)
+        before = sor_solve_kernel.launches
+        got = sor_solve_kernel(d, 0.7, iters, 1.96)
+        assert sor_solve_kernel.launches == before + 1
+        assert torch.equal(got, sor_solve_reference(d, 0.7, iters, 1.96))
 
 
 def test_project_kernel_bit_equal(cuda, rng):

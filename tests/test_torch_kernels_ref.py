@@ -118,8 +118,8 @@ def test_advect_plain_rgb565_matches_pallas(rng, dtype, bswap):
 
 def test_advect_kernel_rejects_unported_flags(rng):
     f = torch.zeros((2, 8, 8))
-    with pytest.raises(NotImplementedError, match="return_minmax"):
-        advect_kernel(f, f, 0.1, False, return_minmax=True)
+    with pytest.raises(NotImplementedError, match="overlay"):
+        advect_kernel(f, f, 0.1, False, overlay=torch.zeros((3, 8, 8)))
     with pytest.raises(TypeError):
         advect_kernel(f, f, 0.1, False, no_such_flag=True)
 

@@ -165,10 +165,22 @@ def test_sor_sweep_and_solve_match_jax(rng):
 
 
 def test_poisson_solve_unported_solver_raises():
-    from esp32_fluid_simulation_tpu_torch import SimConfig
+    """Every solver name of the config is ported; the K4 kernel's tiled
+    ``member=`` mode is not, and a name outside the config's list is
+    refused as JAX refuses it."""
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import (
+        sor_solve_kernel)
     d = torch.zeros((9, 12))
     with pytest.raises(NotImplementedError, match="queue 1"):
-        t_poisson.poisson_solve(d, SimConfig(shape=(9, 12), solver="jacobi"))
+        sor_solve_kernel(d, member=(3, 4))
+
+    class Cfg:
+        solver, dx, sor_iters, omega = "fused_pallas", 1.0, 10, 1.96
+
+    with pytest.raises(ValueError, match="unknown solver"):
+        t_poisson.poisson_solve(d, Cfg())
+    with pytest.raises(ValueError, match="unknown solver"):
+        j_poisson.poisson_solve(jnp.asarray(d.numpy()), Cfg())
 
 
 @pytest.mark.parametrize("shape,s", [((61, 81), 4), ((17, 129), 2),

@@ -172,18 +172,40 @@ def test_multi_step_equals_step_loop():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(vorticity_eps=0.5), "item 6"),
-    (dict(advector="maccormack"), "item 6"),
     (dict(shape=(16, 16), domain_tile=(8, 8)), "item 8"),
+    (dict(shape=(16, 16), advect_impl="pallas",
+          advect_sample_dtype="bfloat16"), "Not to port"),
 ])
 def test_unported_features_raise(kw, item):
     cfg = T.SimConfig(**kw)
-    st = T.init_state(dataclasses.replace(cfg, domain_tile=None,
-                                          vorticity_eps=0.0), device="cpu")
+    st = T.init_state(dataclasses.replace(cfg, domain_tile=None),
+                      device="cpu")
+    imp = T.Impulses.none(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
-        T.step(st, T.Impulses.none(cfg, device="cpu"), cfg)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        T.make_step_with_metrics(cfg)
+        T.step(st, imp, cfg)
+    with pytest.raises(NotImplementedError, match=item):
+        T.make_step_with_metrics(cfg)(st, imp)
+
+
+@pytest.mark.parametrize("kw", [dict(vorticity_eps=0.5),
+                                dict(advector="maccormack")],
+                         ids=["vorticity_eps", "maccormack"])
+def test_ported_features_follow_jax(kw):
+    """Features ported from raising: the step and the metrics step follow
+    the JAX package on the reference workload (rtol 1e-4 / atol 2e-4, as
+    test_port_matches_golden)."""
+    jcfg, tcfg = J.SimConfig(**kw), T.SimConfig(**kw)
+    jst, tst = J.init_state(jcfg), T.init_state(tcfg, device="cpu")
+    jstep = J.make_step(jcfg, donate=False)
+    for t in range(3):
+        jst = jstep(jst, _imps(J, jcfg, t))
+        tst = T.step(tst, _imps(T, tcfg, t), tcfg)
+    np.testing.assert_allclose(tst.velocity.numpy(), np.asarray(jst.velocity),
+                               rtol=1e-4, atol=2e-4)
+    np.testing.assert_allclose(tst.color.numpy(), np.asarray(jst.color),
+                               rtol=1e-4, atol=2e-4)
+    st, metrics = T.make_step_with_metrics(tcfg)(tst, _imps(T, tcfg, 3))
+    assert st.step == 4 and bool(metrics["finite"])
 
 
 def test_config_json_round_trip_both_ways():

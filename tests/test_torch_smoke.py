@@ -162,11 +162,14 @@ def test_source_mask_built_once_per_device(monkeypatch):
             js._source_mask(js.SmokeConfig(**kw)))
 
 
-def test_smoke_unported_and_bad_configs_raise():
-    cfg = T.SmokeConfig(shape=(8, 8, 8), vorticity_eps=0.5)
+def test_smoke_unported_and_bad_configs_raise(jax_runs):
+    """``vorticity_eps > 0`` is ported: it follows the JAX step (rtol 1e-4
+    / atol 1e-4, as the composed step above); a solver the smoke does not
+    have is refused."""
+    kw = dict(shape=(8, 8, 8), vorticity_eps=0.5)
+    cfg = T.SmokeConfig(**kw)
+    _assert_close(_port_run(kw), jax_runs(**kw), rtol=1e-4, atol=1e-4)
     st = T.init_smoke(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        T.smoke_step(st, cfg)
     with pytest.raises(ValueError, match="solver"):
         T.smoke_step(st, dataclasses.replace(cfg, vorticity_eps=0.0,
                                              solver="jacobi"))
