@@ -47,9 +47,23 @@ file; it exits non-zero on any failure and imports nothing of JAX.
 12. ``step_with_metrics`` on config 0 for 5 steps (its state bit-equal to
    ``step_render``'s, the divergence reduced by the projection), and a 64^3
    smoke plume with vorticity confinement against the plain path.
+13. The tiled-domain modes (K6: ``member=`` of K1, K2, K4 and K5, K2's
+   ``overlay=``) against their plain versions on a 2x3 grid of odd 17x21
+   members, a 2x2 grid of 32x64 members and config 4's 4096^2 supergrid of
+   256^2 members; bit-equality is expected.
+14. Config 4 (``examples/config4_ensemble_256.json``, 256 members of 256^2
+   on one 4096^2 supergrid): 10 steps through ``make_ensemble_step`` (launch
+   counters: K2 member = 2*steps, K2 overlay = steps, K1 member = steps),
+   the same schedule through ``make_ensemble_multi_step``, and 10 steps of
+   the tiled ``make_step_render``, each bit-identical to the plain path on
+   the card; member 0 also equals the member stepped alone through
+   ``make_step`` on the non-member kernels, bit for bit.
 5. Times (CUDA events), last: ms/step of the kernel and plain paths at
-   4096^2, at 256^3, of config 3, of the ``sor_pallas`` step and of config
-   2, and ms per call of each kernel and its plain version.
+   4096^2, at 256^3, of config 3, of the ``sor_pallas`` step, of config 2
+   and of config 4 (whole-ensemble step, member-steps/s, the rollout's step,
+   the tiled ``step_render``, and the step's split into kernels, overlay
+   build and layout permutes), and ms per call of each kernel and mode and
+   its plain version.
 
 Each kernel's entry in the summary carries its bound: the larger of the
 bytes it must move (each input read once, each output written once) over
@@ -76,6 +90,7 @@ GOLDEN = ROOT / "tests" / "golden" / "ref_61x81_4steps.npz"
 CONFIG0 = ROOT / "examples" / "config0_4096_production.json"
 CONFIG2 = ROOT / "examples" / "config2_512_vorticity_ab.json"
 CONFIG3 = ROOT / "examples" / "config3_2048_maccormack_multigrid.json"
+CONFIG4 = ROOT / "examples" / "config4_ensemble_256.json"
 SMOKE_GOLDEN = ROOT / "tests" / "golden" / "path_smoke3d.npz"
 MAIN_STEPS = 30
 RENDER_STEPS = 3
@@ -84,6 +99,11 @@ CONFIG3_STEPS = 20
 SOR_STEPS = 10
 CONFIG2_STEPS = 20
 METRIC_STEPS = 5
+ENSEMBLE_STEPS = 10
+ENSEMBLE_N = 256
+# (grid, member tile): odd members, even members, config 4's supergrid
+TILINGS = (((34, 63), (17, 21)), ((64, 128), (32, 64)),
+           ((4096, 4096), (256, 256)))
 SMALL = (61, 81)
 PROD = (4096, 4096)
 MC_PROD = (2048, 2048)
@@ -127,6 +147,14 @@ KERNELS = {
                        f"{TPU}/ops/pallas/sor3d.py:265"),
     "K10 render_smoke_mip_kernel": (f"{PKG}/csrc/smoke_mip.cu",
                                     f"{TPU}/render/pallas_smoke.py:46"),
+    # K6, the tiled-domain modes on config 4's path (K4's and K5's member=
+    # have no caller on any path: their checks count in K4's and K5's rows)
+    "K6 K2 advect_kernel member": (f"{PKG}/csrc/advect.cu",
+                                   f"{TPU}/ops/pallas/advect.py:112"),
+    "K6 K2 advect_kernel overlay": (f"{PKG}/csrc/advect.cu",
+                                    f"{TPU}/ops/pallas/advect.py:601"),
+    "K6 K1 project_fused member": (f"{PKG}/csrc/project.cu",
+                                   f"{TPU}/ops/pallas/project.py:121"),
 }
 
 
@@ -377,6 +405,7 @@ def phase2_golden(dev):
 
 
 def reset_counts():
+    """Set every launch counter to 0; returns a function that reads them."""
     from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
         advect_kernel, maccormack_backward, maccormack_forward)
     from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import sor_solve_kernel
@@ -391,21 +420,31 @@ def reset_counts():
     from esp32_fluid_simulation_tpu_torch.ops.cuda.sor3d import sor3d_solve
     from esp32_fluid_simulation_tpu_torch.render.cuda_smoke import (
         render_smoke_mip_kernel)
-    fns = {"K1 project_fused": project_fused,
-           "K2 advect_kernel": advect_kernel,
-           "K3 render_rgb565_kernel": render_rgb565_kernel,
-           "K4 sor_solve_kernel": sor_solve_kernel,
-           # K5's two launches: the forward pass counts as the kernel's
-           "K5 advect_maccormack_kernel": maccormack_forward,
-           "K5 backward": maccormack_backward,
-           "K7 advect3d_kernel": advect3d_kernel,
-           "K8 divergence3d": divergence3d,
-           "K8 subtract_gradient3d": subtract_gradient3d,
-           "K9 sor3d_solve": sor3d_solve,
-           "K10 render_smoke_mip_kernel": render_smoke_mip_kernel}
-    for fn in fns.values():
-        fn.launches = 0
-    return lambda: {k: fn.launches for k, fn in fns.items()}
+    counters = {
+        "K1 project_fused": (project_fused, "launches"),
+        "K2 advect_kernel": (advect_kernel, "launches"),
+        "K3 render_rgb565_kernel": (render_rgb565_kernel, "launches"),
+        "K4 sor_solve_kernel": (sor_solve_kernel, "launches"),
+        # K5's two launches: the forward pass counts as the kernel's
+        "K5 advect_maccormack_kernel": (maccormack_forward, "launches"),
+        "K5 backward": (maccormack_backward, "launches"),
+        "K7 advect3d_kernel": (advect3d_kernel, "launches"),
+        "K8 divergence3d": (divergence3d, "launches"),
+        "K8 subtract_gradient3d": (subtract_gradient3d, "launches"),
+        "K9 sor3d_solve": (sor3d_solve, "launches"),
+        "K10 render_smoke_mip_kernel": (render_smoke_mip_kernel, "launches"),
+        # the tiled-domain modes (K6), counted beside their kernels' own
+        "K6 K2 advect_kernel member": (advect_kernel, "member_launches"),
+        "K6 K2 advect_kernel overlay": (advect_kernel, "overlay_launches"),
+        "K6 K1 project_fused member": (project_fused, "member_launches"),
+        "K6 K4 member": (sor_solve_kernel, "member_launches"),
+        "K6 K5 member": (maccormack_forward, "member_launches"),
+        "K6 K5 backward member": (maccormack_backward, "member_launches"),
+    }
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    return lambda: {k: getattr(fn, attr)
+                    for k, (fn, attr) in counters.items()}
 
 
 def phase3_4_main_path(dev, cfg):
@@ -700,6 +739,402 @@ def phase12_metrics(dev, cfg0, state0):
     if not same:
         raise AssertionError("phase 12: the smoke step with confinement "
                              "differs from the plain path")
+
+
+def phase13_k6_kernels(dev):
+    """The tiled-domain modes (K6) against their plain versions, at odd and
+    even member tiles and at config 4's supergrid.  Returns the largest
+    difference per summary row."""
+    from esp32_fluid_simulation_tpu_torch import SimConfig, Impulses
+    from esp32_fluid_simulation_tpu_torch.models.stable_fluids import (
+        impulse_overlay)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
+        advect_kernel, advect_maccormack_kernel, advect_maccormack_reference,
+        advect_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
+        project_fused, project_fused_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import (
+        sor_solve_kernel, sor_solve_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    err = {}
+
+    def check(name, label, got, want):
+        err[name] = max(err.get(name, 0.0), compare(label, got, want))
+
+    dt = 1.0 / 30.0
+    for shape, member in TILINGS:
+        h, w = shape
+        print(f"phase 13 K6 modes vs plain at {h}x{w}, members "
+              f"{member[0]}x{member[1]}")
+        cfg = SimConfig(shape=shape, max_impulses=8)
+        # a duplicated cell (the last active slot wins), a zero-velocity
+        # write, a cell on a member wall and an out-of-range position
+        imp = Impulses.from_lists(
+            cfg, [(5, 7), (h // 3, w // 2), (5, 7), (member[0], 9),
+                  (h + 50, -3)],
+            [(30.0, -12.0), (-8.0, 25.0), (99.0, 1.0), (0.0, 0.0),
+             (7.0, 8.0)], device=dev)
+        ov = impulse_overlay(imp, shape)
+        # sigma 200 cells/s: |v|*dt > max_disp=12 on ~7% of the cells
+        vel = 200.0 * torch.randn((2, h, w), generator=gen, device=dev)
+        check("K6 K2 advect_kernel member", "K2 member self-advect f32",
+              advect_kernel(vel, vel, dt, True, 12, self_advect=True,
+                            member=member),
+              advect_reference(vel, vel, dt, True, 12, member=member))
+        check("K6 K2 advect_kernel overlay",
+              "K2 member+overlay self-advect f32",
+              advect_kernel(vel, vel, dt, True, 12, self_advect=True,
+                            member=member, overlay=ov),
+              advect_reference(vel, vel, dt, True, 12, member=member,
+                               overlay=ov))
+        check("K6 K2 advect_kernel overlay", "K2 overlay (no member) f32",
+              advect_kernel(vel, vel, dt, True, 12, self_advect=True,
+                            overlay=ov),
+              advect_reference(vel, vel, dt, True, 12, overlay=ov))
+        vel = 60.0 * torch.randn((2, h, w), generator=gen, device=dev)
+        dye = 2.0 * torch.rand((3, h, w), generator=gen, device=dev) - 0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            c = dye.to(dtype)
+            got_c, got_f = advect_kernel(c, vel, dt, False, 12, clip01=True,
+                                         rgb565=True, member=member)
+            want_c, want_f = advect_reference(c, vel, dt, False, 12,
+                                              clip01=True, rgb565=True,
+                                              member=member)
+            label = f"K2 member dye {str(dtype)[6:]} clip01"
+            check("K6 K2 advect_kernel member", label, got_c, want_c)
+            check("K6 K2 advect_kernel member", label + " frame", got_f,
+                  want_f)
+            ov4 = torch.cat([ov[:2], ov[1:2], ov[2:]])    # [4, H, W]
+            check("K6 K2 advect_kernel overlay",
+                  f"K2 member+overlay dye {str(dtype)[6:]}",
+                  advect_kernel(c, vel, dt, False, 12, clip01=True,
+                                member=member, overlay=ov4),
+                  advect_reference(c, vel, dt, False, 12, clip01=True,
+                                   member=member, overlay=ov4))
+        got = advect_kernel(vel, vel, dt, True, 12, return_minmax=True,
+                            member=member)
+        want = advect_reference(vel, vel, dt, True, 12, return_minmax=True,
+                                member=member)
+        for g, w_, part in zip(got, want, ("out", "cmin", "cmax")):
+            check("K6 K2 advect_kernel member", f"K2 member minmax {part}",
+                  g, w_)
+
+        vel = 40.0 * torch.randn((2, h, w), generator=gen, device=dev)
+        for impulses in (imp, None):
+            label = "impulses" if impulses is not None else "no impulses"
+            got_v, got_p = project_fused(vel, 1.0, 10, 1.96,
+                                         impulses=impulses, member=member)
+            want_v, want_p = project_fused_reference(vel, 1.0, 10, 1.96,
+                                                     impulses, member)
+            check("K6 K1 project_fused member", f"K1 member velocity "
+                  f"({label})", got_v, want_v)
+            check("K6 K1 project_fused member", f"K1 member pressure "
+                  f"({label})", got_p, want_p)
+        d = torch.randn(shape, generator=gen, device=dev)
+        for iters, dx in ((10, 1.0), (1, 0.7)):
+            check("K4 sor_solve_kernel", f"K4 member iters={iters} dx={dx}",
+                  sor_solve_kernel(d, dx, iters, 1.96, member=member),
+                  sor_solve_reference(d, dx, iters, 1.96, member))
+        vel = 200.0 * torch.randn((2, h, w), generator=gen, device=dev)
+        dye_bf16 = torch.rand((3, h, w), generator=gen,
+                              device=dev).to(torch.bfloat16)
+        for field, no_slip, label in ((vel, True, "f32 2ch no_slip"),
+                                      (dye_bf16, False, "bf16 3ch")):
+            check("K5 advect_maccormack_kernel", f"K5 member {label}",
+                  advect_maccormack_kernel(field, vel, dt, no_slip, 12,
+                                           member=member),
+                  advect_maccormack_reference(field, vel, dt, no_slip, 12,
+                                              member=member))
+    return err
+
+
+def config4_schedule(member_cfg, n, steps, dev):
+    """Per-step batched member impulses: member m's ``scripted_swirl`` at
+    step ``7*m + t``, built on the host and copied once per step."""
+    from esp32_fluid_simulation_tpu_torch import Impulses, stack_impulses
+    from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
+    return [Impulses(*(x.to(dev) for x in stack_impulses(
+        [scripted_swirl(member_cfg, 7 * m + t, device="cpu")
+         for m in range(n)]))) for t in range(steps)]
+
+
+def plain_tiled_step(state, cfg_super, overlay, rgb565=False):
+    """``_step_tiled``'s kernel path through the plain versions: K2 with
+    ``member=`` and the overlay, K1 with ``member=``, K2 with ``member=`` on
+    the dye (and its frame)."""
+    from esp32_fluid_simulation_tpu_torch import SimState
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
+        advect_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
+        project_fused_reference)
+    m, md, dt = cfg_super.domain_tile, cfg_super.advect_max_disp, cfg_super.dt
+    vel = advect_reference(state.velocity, state.velocity, dt, True, md,
+                           member=m, overlay=overlay)
+    vel, _ = project_fused_reference(vel, cfg_super.dx, cfg_super.sor_iters,
+                                     cfg_super.omega, member=m)
+    out = advect_reference(state.color, vel, dt, False, md, clip01=True,
+                           rgb565=rgb565, member=m)
+    color, frame = out if rgb565 else (out, None)
+    st = SimState(velocity=vel, color=color, step=state.step + 1)
+    return (st, frame) if rgb565 else st
+
+
+def phase14_config4(dev):
+    """Config 4 through the ensemble entry points and the tiled
+    ``step_render``; returns the launch counts of the ensemble run, the
+    member config, the ensemble's first state and schedule."""
+    from esp32_fluid_simulation_tpu_torch import (
+        Impulses, SimConfig, SimState, init_ensemble, init_state,
+        make_ensemble_step,
+        make_ensemble_multi_step, make_step, make_step_render,
+        stack_schedule, tiled_ensemble_config)
+    from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
+    from esp32_fluid_simulation_tpu_torch.models.ensemble import (
+        _member_impulse_overlay)
+    from esp32_fluid_simulation_tpu_torch.models.stable_fluids import (
+        _from_members, _to_members, impulse_overlay)
+
+    member_cfg = SimConfig.from_json(CONFIG4.read_text())
+    n, steps = ENSEMBLE_N, ENSEMBLE_STEPS
+    cfg_super, gh, gw = tiled_ensemble_config(member_cfg, n)
+    h, w = cfg_super.shape
+    mh, mw = member_cfg.shape
+    state0 = init_ensemble(member_cfg, n, device=dev)
+    sched = config4_schedule(member_cfg, n, steps, dev)
+    ens_step = make_ensemble_step(member_cfg)
+    torch.cuda.synchronize()
+    counts = reset_counts()
+    st = state0
+    for imps in sched:
+        st = ens_step(st, imps)
+    torch.cuda.synchronize()
+    nc = counts()
+    want = {"K2 advect_kernel": 2 * steps, "K1 project_fused": steps,
+            "K6 K2 advect_kernel member": 2 * steps,
+            "K6 K2 advect_kernel overlay": steps,
+            "K6 K1 project_fused member": steps, "K3 render_rgb565_kernel": 0,
+            "K4 sor_solve_kernel": 0, "K5 advect_maccormack_kernel": 0}
+    bad = {k: (nc[k], v) for k, v in want.items() if nc[k] != v}
+    if bad:
+        raise AssertionError(f"phase 14: launch counts (got, want) {bad}")
+    if tuple(st.velocity.shape) != (n, 2, mh, mw) or st.step != steps:
+        raise AssertionError(f"phase 14: state {tuple(st.velocity.shape)} "
+                             f"at step {st.step}")
+    if not (torch.isfinite(st.velocity).all()
+            and torch.isfinite(st.color).all()):
+        raise AssertionError("phase 14: non-finite ensemble state")
+    lo, hi = float(st.color.min()), float(st.color.max())
+    if lo < 0.0 or hi > 1.0:
+        raise AssertionError(f"phase 14: dye outside [0, 1]: [{lo}, {hi}]")
+    if torch.equal(st.velocity[0], st.velocity[1]):
+        raise AssertionError("phase 14: members 0 and 1 did not diverge")
+    print(f"phase 14 config 4: {n} members of {mh}x{mw} on a {h}x{w} "
+          f"supergrid, {steps} make_ensemble_step steps: launches "
+          f"{ {k: nc[k] for k in want} }; finite, dye in [{lo}, {hi}], "
+          f"max |v| {float(st.velocity.norm(dim=1).max()):.4g}")
+
+    # the same steps through the plain versions on the card
+    ps = SimState(_from_members(state0.velocity, h, w),
+                  _from_members(state0.color, h, w), 0)
+    for imps in sched:
+        ps = plain_tiled_step(ps, cfg_super, _member_impulse_overlay(
+            imps, gh, gw, mh, mw))
+    same = (torch.equal(_to_members(ps.velocity, mh, mw), st.velocity)
+            and torch.equal(_to_members(ps.color, mh, mw), st.color))
+    print(f"phase 14 ensemble vs plain path on the card: bit-identical="
+          f"{same}")
+    if not same:
+        raise AssertionError("phase 14: the ensemble step differs from the "
+                             "plain path")
+
+    run = make_ensemble_multi_step(member_cfg)(state0, stack_schedule(sched))
+    same = (torch.equal(run.velocity, st.velocity)
+            and torch.equal(run.color, st.color) and run.step == steps)
+    print(f"phase 14 make_ensemble_multi_step over the {steps}-step schedule "
+          f"equals stepping: {same}")
+    if not same:
+        raise AssertionError("phase 14: the rollout differs from stepping")
+
+    # member 0 sits at the supergrid's origin: alone on the non-member
+    # kernels it steps bit for bit as in the ensemble
+    alone_cfg = dataclasses.replace(member_cfg, solver="fused_pallas",
+                                    advect_impl="pallas")
+    alone = SimState(state0.velocity[0].clone(), state0.color[0].clone(), 0)
+    alone_step = make_step(alone_cfg)
+    for imps in sched:
+        alone = alone_step(alone, Impulses(*(x[0] for x in imps)))
+    same = (torch.equal(alone.velocity, st.velocity[0])
+            and torch.equal(alone.color, st.color[0]))
+    print(f"phase 14 member 0 stepped alone through make_step equals the "
+          f"ensemble's: {same}")
+    if not same:
+        raise AssertionError("phase 14: member 0 differs from its run alone")
+
+    # the tiled step_render on the supergrid config
+    state_s = init_state(cfg_super, device=dev)
+    render = make_step_render(cfg_super)
+    imps_s = [scripted_swirl(cfg_super, t, device=dev) for t in range(steps)]
+    torch.cuda.synchronize()
+    counts = reset_counts()
+    ss = state_s
+    for imp in imps_s:
+        ss, frame = render(ss, imp)
+    torch.cuda.synchronize()
+    nr = counts()
+    want_r = {"K6 K2 advect_kernel member": 2 * steps,
+              "K6 K2 advect_kernel overlay": steps,
+              "K6 K1 project_fused member": steps,
+              "K3 render_rgb565_kernel": 0}
+    bad = {k: (nr[k], v) for k, v in want_r.items() if nr[k] != v}
+    if bad:
+        raise AssertionError(f"phase 14 step_render: launch counts (got, "
+                             f"want) {bad}")
+    if frame.dtype != torch.uint16 or tuple(frame.shape) != (h - 1, w - 1):
+        raise AssertionError(f"phase 14: frame {frame.dtype} "
+                             f"{tuple(frame.shape)}")
+    ps = SimState(state_s.velocity.clone(), state_s.color.clone(), 0)
+    for imp in imps_s:
+        ps, pframe = plain_tiled_step(ps, cfg_super,
+                                      impulse_overlay(imp, (h, w)),
+                                      rgb565=True)
+    same = (torch.equal(ps.velocity, ss.velocity)
+            and torch.equal(ps.color, ss.color)
+            and torch.equal(pframe.view(torch.int16), frame.view(torch.int16)))
+    print(f"phase 14 tiled step_render {h}x{w} {steps} steps: launches "
+          f"{ {k: nr[k] for k in want_r} }, frame {tuple(frame.shape)}; "
+          f"plain path on the card bit-identical={same}")
+    if not same:
+        raise AssertionError("phase 14: the tiled step_render differs from "
+                             "the plain path")
+    return ({k: nc[k] for k in list(KERNELS) if k.startswith("K6")},
+            member_cfg, state0, sched)
+
+
+def phase5_config4_timing(dev, card, member_cfg, state0, sched):
+    """Times of config 4: the whole-ensemble step, the rollout's step, the
+    tiled step_render, the step's split, and each K6 mode (K4's and K5's
+    too) against its plain version; returns the K6 rows' work."""
+    from esp32_fluid_simulation_tpu_torch import (
+        init_state, make_ensemble_multi_step, make_ensemble_step,
+        make_step_render, stack_schedule, tiled_ensemble_config)
+    from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
+    from esp32_fluid_simulation_tpu_torch.models.ensemble import (
+        _member_impulse_overlay)
+    from esp32_fluid_simulation_tpu_torch.models.stable_fluids import (
+        _from_members, _to_members)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
+        advect_kernel, advect_maccormack_kernel, advect_maccormack_reference,
+        advect_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
+        project_fused, project_fused_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import (
+        sor_solve_kernel, sor_solve_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.fd import divergence
+
+    n, steps = ENSEMBLE_N, len(sched)
+    cfg_super, gh, gw = tiled_ensemble_config(member_cfg, n)
+    h, w = cfg_super.shape
+    m = member_cfg.shape
+    res = {}
+    box = {"st": state0, "t": 0}
+
+    def ens_one():
+        box["st"] = ens_step(box["st"], sched[box["t"] % steps])
+        box["t"] += 1
+
+    ens_step = make_ensemble_step(member_cfg)
+    res["ensemble step"] = cuda_ms(ens_one, 10, warmup=2)
+    rollout = make_ensemble_multi_step(member_cfg)
+    schedule = stack_schedule(sched)
+    res["ensemble rollout step"] = cuda_ms(
+        lambda: rollout(state0, schedule), 2, warmup=1) / steps
+    render = make_step_render(cfg_super)
+    imps_s = [scripted_swirl(cfg_super, t, device=dev) for t in range(8)]
+    rbox = {"st": init_state(cfg_super, device=dev), "t": 0}
+
+    def render_one():
+        rbox["st"], _ = render(rbox["st"], imps_s[rbox["t"] % 8])
+        rbox["t"] += 1
+
+    res["tiled step_render"] = cuda_ms(render_one, 10, warmup=2)
+
+    # the step's parts at the state the chain reached
+    st = box["st"]
+    imps = sched[0]
+    vel = _from_members(st.velocity, h, w)
+    color = _from_members(st.color, h, w)
+    ov = _member_impulse_overlay(imps, gh, gw, *m)
+    md, dt = cfg_super.advect_max_disp, cfg_super.dt
+    res["to supergrid (velocity + dye)"] = cuda_ms(
+        lambda: (_from_members(st.velocity, h, w),
+                 _from_members(st.color, h, w)), 10, warmup=2)
+    res["from supergrid (velocity + dye)"] = cuda_ms(
+        lambda: (_to_members(vel, *m), _to_members(color, *m)), 10, warmup=2)
+    res["overlay build"] = cuda_ms(
+        lambda: _member_impulse_overlay(imps, gh, gw, *m), 10, warmup=2)
+    res["K2 member+overlay"], res["K2 member+overlay plain"] = time_pair(
+        lambda: advect_kernel(vel, vel, dt, True, md, self_advect=True,
+                              member=m, overlay=ov),
+        lambda: advect_reference(vel, vel, dt, True, md, member=m,
+                                 overlay=ov))
+    res["K2 member dye"], res["K2 member dye plain"] = time_pair(
+        lambda: advect_kernel(color, vel, dt, False, md, clip01=True,
+                              member=m),
+        lambda: advect_reference(color, vel, dt, False, md, clip01=True,
+                                 member=m))
+    it, om, dx = cfg_super.sor_iters, cfg_super.omega, cfg_super.dx
+    res["K1 member"], res["K1 member plain"] = time_pair(
+        lambda: project_fused(vel, dx, it, om, member=m),
+        lambda: project_fused_reference(vel, dx, it, om, member=m))
+    # K4's and K5's member= have no caller on any path: timed at config 4's
+    # shapes for the kernel table only
+    d = divergence(vel, dx)
+    res["K4 member"], res["K4 member plain"] = time_pair(
+        lambda: sor_solve_kernel(d, dx, it, om, member=m),
+        lambda: sor_solve_reference(d, dx, it, om, member=m))
+    for name, field, no_slip in (("K5 member velocity", vel, True),
+                                 ("K5 member dye", color, False)):
+        res[name], res[name + " plain"] = time_pair(
+            lambda: advect_maccormack_kernel(field, vel, dt, no_slip, md,
+                                             member=m),
+            lambda: advect_maccormack_reference(field, vel, dt, no_slip, md,
+                                                member=m))
+    print(f"phase 5 timing of config 4 ({n} members of {m[0]}x{m[1]}, "
+          f"{h}x{w} supergrid) on {card} (CUDA events, ms per call):")
+    for k, v in res.items():
+        print(f"  {k}: {v:.4f} ms")
+    print(f"  member-steps/s: {1e3 * n / res['ensemble step']:.1f} "
+          f"(ensemble step), {1e3 * n / res['ensemble rollout step']:.1f} "
+          "(rollout)")
+
+    cells = h * w
+    # the kernel reads the overlay's flag channel at every cell and its
+    # value channels only where the flag is set: this run's flagged cells
+    flag = ov[-1]
+    flagged = int((flag > 0).sum())
+    ov_bytes = nbytes(flag) + (ov.shape[0] - 1) * flag.element_size() * flagged
+    self_bytes = 2 * nbytes(vel) + ov_bytes             # ~20 B per cell
+    dye_bytes = 2 * nbytes(color) + nbytes(vel)         # 32 B per cell
+    # K4's and K5's member modes have no row of their own: their bounds at
+    # config 4's shapes, for the kernel table (K5: the velocity is read once)
+    k4_bound, _ = bound(2 * nbytes(d), cells * (1 + 8 * it))
+    k5_bound, _ = bound(3 * nbytes(vel) + 2 * nbytes(color),
+                        cells * ((40 + 2 * 25) + (40 + 3 * 25)))
+    print(f"  bounds: K4 member {k4_bound:.4f} ms, K5 member velocity + dye "
+          f"{k5_bound:.4f} ms; overlay flagged cells {flagged}")
+    return {
+        "K6 K2 advect_kernel member": (
+            res["K2 member+overlay"] + res["K2 member dye"],
+            res["K2 member+overlay plain"] + res["K2 member dye plain"],
+            self_bytes + dye_bytes, cells * (49 + 60)),
+        "K6 K2 advect_kernel overlay": (
+            res["K2 member+overlay"], res["K2 member+overlay plain"],
+            self_bytes, cells * 49),
+        "K6 K1 project_fused member": (
+            res["K1 member"], res["K1 member plain"],
+            2 * nbytes(vel) + 4 * cells, cells * (13 + 8 * it)),
+    }
 
 
 def phase5_timing(dev, cfg, state0, card):
@@ -1124,6 +1559,8 @@ def main():
 
     err = phase1_kernels(dev)
     err.update(phase1b_kernels3d(dev))
+    for name, e in phase13_k6_kernels(dev).items():
+        err[name] = max(err.get(name, 0.0), e)
     phase2_golden(dev)
     cfg = SimConfig.from_json(CONFIG0.read_text())
     counts, state0 = phase3_4_main_path(dev, cfg)
@@ -1136,12 +1573,15 @@ def main():
     cfg2, st2 = phase10_config2(dev)
     phase11_path_goldens(dev)
     phase12_metrics(dev, cfg, state0)
+    counts4, member_cfg, ens0, sched = phase14_config4(dev)
+    counts.update(counts4)
     work = phase5_timing(dev, cfg, state0, card)
     work.update(phase5_smoke_timing(dev, scfg, smoke, card))
     work.update(phase5_k4_k5_timing(dev, card, {
         "config3 step_render": (cfg3, st3, True),
         "sor_pallas step": (cfg_sor, st_sor, False),
         "config2 step_render": (cfg2, st2, True)}))
+    work.update(phase5_config4_timing(dev, card, member_cfg, ens0, sched))
 
     for name, n in counts.items():
         if n == 0:

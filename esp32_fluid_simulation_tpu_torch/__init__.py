@@ -12,7 +12,8 @@ unless the caller names another device.  Layout:
   L0  array conventions      channels-first tensors (``state.py``)
   L2  numerical ops          ``ops/`` (advect, fd, poisson, cuda kernels)
   L3  application runtime    ``models/`` step functions (the 2D dye bed,
-                             the 3D smoke plume), ``render/``,
+                             its ensembles and tiled domains, the 3D smoke
+                             plume), ``render/``,
                              ``io_host/`` touch input
 """
 
@@ -21,8 +22,11 @@ from .state import SimState, Impulses
 from .models import (init_state, step, make_step, step_render,
                      make_step_render, step_with_metrics,
                      make_step_with_metrics,
-                     make_multi_step, stack_schedule, SmokeConfig,
-                     SmokeState, init_smoke, smoke_step, make_smoke_step)
+                     make_multi_step, stack_schedule, init_ensemble,
+                     stack_impulses, make_ensemble_step,
+                     make_ensemble_multi_step, tiled_ensemble_config,
+                     tiled_member_impulses, SmokeConfig, SmokeState,
+                     init_smoke, smoke_step, make_smoke_step)
 from .render import render_rgb565, render_rgb8, render_smoke
 
 __version__ = "0.1.0"
@@ -41,6 +45,12 @@ __all__ = [
     "make_step_with_metrics",
     "make_multi_step",
     "stack_schedule",
+    "init_ensemble",
+    "stack_impulses",
+    "make_ensemble_step",
+    "make_ensemble_multi_step",
+    "tiled_ensemble_config",
+    "tiled_member_impulses",
     "render_rgb565",
     "render_rgb8",
     "SmokeConfig",

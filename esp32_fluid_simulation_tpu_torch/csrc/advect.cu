@@ -41,6 +41,24 @@
 // once and the output written once; the two launches also write and re-read
 // phi_hat, lo and hi (about 5x the field bytes in all).  Recomputing the
 // extrema inside launch 2 instead of storing them is a later change.
+//
+// Tiled-domain mode (K6, the member= argument of advect_pallas,
+// advect.py:112-165): the grid is a supergrid of independent mh x mw member
+// tiles, and every domain clamp and the no-slip test act per tile.  The
+// member origin lo = (i / mh) * mh is computed in integers (exact in float
+// below 2^24); after the CFL clamp the sample is clamped to [lo, lo+mh-1],
+// the base tap to [lo, lo+mh-2], and the no-slip factor is taken from
+// si_raw - lo against mh.  The mode is a template flag, so the kernel
+// without a member compiles to the code it had before.  It costs one
+// integer division per axis and cell and no bytes.
+//
+// The overlay (K6, advect.py:601-607) is the drag queue's drain riding the
+// store: a dense [C+1, H, W] float32 array whose channel C flags (> 0) the
+// cells where channel ch replaces the advected value, after the no-slip
+// factor and the clip and before the store in the field dtype.  It adds
+// 4 B per cell of reads (the flag channel), and C x 4 B more only at the
+// flagged cells.  Also a template flag; it combines with
+// neither the extrema nor the frame, as in the TPU kernel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -114,26 +132,45 @@ struct Stencil {
 };
 
 // From the unclamped source (si_raw, sj_raw) of node (i, j): the CFL clamp
-// to max_disp cells, then the domain clamp (edge lerp); the no-slip factor
-// from the unclamped coordinate.
+// to max_disp cells, then the domain clamp (edge lerp) of the whole grid or,
+// with MEMBER, of the node's mh x mw member tile; the no-slip factor from
+// the unclamped coordinate (member-relative with MEMBER).
+template <bool MEMBER>
 __device__ __forceinline__ Stencil stencil(int i, int j, float si_raw,
                                            float sj_raw, int H, int W,
-                                           float max_disp, int no_slip) {
+                                           float max_disp, int no_slip,
+                                           int mh, int mw) {
   const float fi = (float)i;
   const float fj = (float)j;
   float si = fminf(fmaxf(si_raw, fi - max_disp), fi + max_disp);
   float sj = fminf(fmaxf(sj_raw, fj - max_disp), fj + max_disp);
-  si = fminf(fmaxf(si, 0.f), (float)(H - 1));
-  sj = fminf(fmaxf(sj, 0.f), (float)(W - 1));
-  const float i0f = fminf(fmaxf(floorf(si), 0.f), (float)(H - 2));
-  const float j0f = fminf(fmaxf(floorf(sj), 0.f), (float)(W - 2));
+  float i0f, j0f, ns;
+  if constexpr (MEMBER) {
+    const int oi = (i / mh) * mh;
+    const int oj = (j / mw) * mw;
+    const float lo_i = (float)oi;
+    const float lo_j = (float)oj;
+    si = fminf(fmaxf(si, lo_i), (float)(oi + mh - 1));
+    sj = fminf(fmaxf(sj, lo_j), (float)(oj + mw - 1));
+    i0f = fminf(fmaxf(floorf(si), lo_i), (float)(oi + mh - 2));
+    j0f = fminf(fmaxf(floorf(sj), lo_j), (float)(oj + mw - 2));
+    ns = no_slip ? noslip_factor(si_raw - lo_i, mh) *
+                       noslip_factor(sj_raw - lo_j, mw)
+                 : 1.f;
+  } else {
+    si = fminf(fmaxf(si, 0.f), (float)(H - 1));
+    sj = fminf(fmaxf(sj, 0.f), (float)(W - 1));
+    i0f = fminf(fmaxf(floorf(si), 0.f), (float)(H - 2));
+    j0f = fminf(fmaxf(floorf(sj), 0.f), (float)(W - 2));
+    ns = no_slip ? noslip_factor(si_raw, H) * noslip_factor(sj_raw, W) : 1.f;
+  }
   Stencil s;
   s.di = si - i0f;
   s.dj = sj - j0f;
   s.w_i0 = 1.f - s.di;
   s.one_m_dj = 1.f - s.dj;
   s.base = (long)i0f * W + (long)j0f;
-  s.ns = no_slip ? noslip_factor(si_raw, H) * noslip_factor(sj_raw, W) : 1.f;
+  s.ns = ns;
   return s;
 }
 
@@ -147,22 +184,42 @@ __device__ __forceinline__ float bilerp(const Stencil& s, float t00,
   return no_slip ? a * s.ns : a;
 }
 
-template <typename T, int C, int MM>
+// Everything one launch of the advect kernel takes.  field, out (and lo,
+// hi) are [C, H, W] in the field dtype; overlay is [C+1, H, W] float32 or
+// null; mh = 0 means no member tiling.
+struct AdvectArgs {
+  const void* field;
+  const float* vel;
+  const float* overlay;
+  void* out;
+  uint16_t* frame;
+  void* lo;
+  void* hi;
+  int H, W, mh, mw;
+  float dt, max_disp;
+  int no_slip, clip01, bswap;
+  cudaStream_t stream;
+};
+
+template <typename T, int C, int MM, bool MEMBER, bool OVERLAY>
 __global__ void advect_kernel(const T* __restrict__ field,
                               const float* __restrict__ vel,
+                              const float* __restrict__ overlay,
                               T* __restrict__ out,
                               uint16_t* __restrict__ frame,
                               T* __restrict__ lo, T* __restrict__ hi, int H,
-                              int W, float dt, float max_disp, int no_slip,
-                              int clip01, int bswap) {
+                              int W, int mh, int mw, float dt, float max_disp,
+                              int no_slip, int clip01, int bswap) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= H || j >= W) return;
   const long plane = (long)H * W;
   const long c = (long)i * W + j;
-  const Stencil s = stencil(i, j, (float)i - vel[c] * dt,
-                            (float)j - vel[plane + c] * dt, H, W, max_disp,
-                            no_slip);
+  const Stencil s = stencil<MEMBER>(i, j, (float)i - vel[c] * dt,
+                                    (float)j - vel[plane + c] * dt, H, W,
+                                    max_disp, no_slip, mh, mw);
+  // the drain flag of the overlay (a NaN flag writes nothing)
+  const bool drain = OVERLAY && overlay[C * plane + c] > 0.f;
 
   float stored[C];
 #pragma unroll
@@ -174,6 +231,7 @@ __global__ void advect_kernel(const T* __restrict__ field,
     const float t11 = load(f, s.base + W + 1);
     float a = bilerp(s, t00, t01, t10, t11, no_slip);
     if (clip01) a = fminf(fmaxf(a, 0.f), 1.f);
+    if (drain) a = overlay[ch * plane + c];
     stored[ch] = store(out + ch * plane, c, a);
     if (MM != kNone) {
       // extrema of the undiscounted taps, exact in the field dtype
@@ -197,62 +255,58 @@ __global__ void advect_kernel(const T* __restrict__ field,
   }
 }
 
-template <typename T, int C, int MM>
-cudaError_t launch(const void* field, const void* vel, void* out,
-                   void* frame, void* lo, void* hi, int H, int W, float dt,
-                   float max_disp, int no_slip, int clip01, int bswap,
-                   cudaStream_t stream) {
+template <typename T, int C, int MM, bool MEMBER, bool OVERLAY>
+cudaError_t launch(const AdvectArgs& a) {
   const dim3 block(32, 8);
-  const dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
-  advect_kernel<T, C, MM><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(field), static_cast<const float*>(vel),
-      static_cast<T*>(out), static_cast<uint16_t*>(frame),
-      static_cast<T*>(lo), static_cast<T*>(hi), H, W, dt, max_disp, no_slip,
-      clip01, bswap);
+  const dim3 grid((a.W + block.x - 1) / block.x,
+                  (a.H + block.y - 1) / block.y);
+  advect_kernel<T, C, MM, MEMBER, OVERLAY><<<grid, block, 0, a.stream>>>(
+      static_cast<const T*>(a.field), a.vel, a.overlay, static_cast<T*>(a.out),
+      C == 3 ? a.frame : nullptr, static_cast<T*>(a.lo),
+      static_cast<T*>(a.hi), a.H, a.W, a.mh, a.mw, a.dt, a.max_disp,
+      a.no_slip, a.clip01, a.bswap);
   return cudaGetLastError();
 }
 
+// The member and overlay modes; the overlay only without extrema.
+template <typename T, int C, int MM>
+cudaError_t dispatch_mode(const AdvectArgs& a) {
+  const bool member = a.mh > 0;
+  if (a.overlay != nullptr) {
+    if constexpr (MM == kNone) {
+      return member ? launch<T, C, MM, true, true>(a)
+                    : launch<T, C, MM, false, true>(a);
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
+  return member ? launch<T, C, MM, true, false>(a)
+                : launch<T, C, MM, false, false>(a);
+}
+
 template <typename T, int C>
-cudaError_t dispatch_minmax(int minmax, const void* field, const void* vel,
-                            void* out, void* frame, void* lo, void* hi, int H,
-                            int W, float dt, float max_disp, int no_slip,
-                            int clip01, int bswap, cudaStream_t stream) {
+cudaError_t dispatch_minmax(int minmax, const AdvectArgs& a) {
   switch (minmax) {
     case kNone:
-      return launch<T, C, kNone>(field, vel, out, frame, nullptr, nullptr, H,
-                                 W, dt, max_disp, no_slip, clip01, bswap,
-                                 stream);
+      return dispatch_mode<T, C, kNone>(a);
     case kRaw:
-      return launch<T, C, kRaw>(field, vel, out, nullptr, lo, hi, H, W, dt,
-                                max_disp, no_slip, clip01, bswap, stream);
+      return dispatch_mode<T, C, kRaw>(a);
     case kCombined:
-      return launch<T, C, kCombined>(field, vel, out, nullptr, lo, hi, H, W,
-                                     dt, max_disp, no_slip, clip01, bswap,
-                                     stream);
+      return dispatch_mode<T, C, kCombined>(a);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t dispatch_channels(int C, int minmax, const void* field,
-                              const void* vel, void* out, void* frame,
-                              void* lo, void* hi, int H, int W, float dt,
-                              float max_disp, int no_slip, int clip01,
-                              int bswap, cudaStream_t stream) {
+cudaError_t dispatch_channels(int C, int minmax, const AdvectArgs& a) {
   switch (C) {
     case 1:
-      return dispatch_minmax<T, 1>(minmax, field, vel, out, nullptr, lo, hi,
-                                   H, W, dt, max_disp, no_slip, clip01, bswap,
-                                   stream);
+      return dispatch_minmax<T, 1>(minmax, a);
     case 2:
-      return dispatch_minmax<T, 2>(minmax, field, vel, out, nullptr, lo, hi,
-                                   H, W, dt, max_disp, no_slip, clip01, bswap,
-                                   stream);
+      return dispatch_minmax<T, 2>(minmax, a);
     case 3:
-      return dispatch_minmax<T, 3>(minmax, field, vel, out, frame, lo, hi, H,
-                                   W, dt, max_disp, no_slip, clip01, bswap,
-                                   stream);
+      return dispatch_minmax<T, 3>(minmax, a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -261,21 +315,21 @@ cudaError_t dispatch_channels(int C, int minmax, const void* field,
 // K5 launch 2: phi_back = advect(phi_hat, -vel), then the limiter.  The
 // backtrace x - dt*(-v) is written x + v*dt: negation is exact, so the two
 // are bit-equal.
-template <typename T, int C>
+template <typename T, int C, bool MEMBER>
 __global__ void maccormack_correct_kernel(
     const T* __restrict__ field, const T* __restrict__ phi_hat,
     const T* __restrict__ lo, const T* __restrict__ hi,
-    const float* __restrict__ vel, T* __restrict__ out, int H, int W,
-    float dt, float max_disp, int no_slip) {
+    const float* __restrict__ vel, T* __restrict__ out, int H, int W, int mh,
+    int mw, float dt, float max_disp, int no_slip) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= H || j >= W) return;
   const long plane = (long)H * W;
   const long c = (long)i * W + j;
 
-  const Stencil s = stencil(i, j, (float)i + vel[c] * dt,
-                            (float)j + vel[plane + c] * dt, H, W, max_disp,
-                            no_slip);
+  const Stencil s = stencil<MEMBER>(i, j, (float)i + vel[c] * dt,
+                                    (float)j + vel[plane + c] * dt, H, W,
+                                    max_disp, no_slip, mh, mw);
 
 #pragma unroll
   for (int ch = 0; ch < C; ++ch) {
@@ -292,37 +346,53 @@ __global__ void maccormack_correct_kernel(
   }
 }
 
-template <typename T, int C>
+template <typename T, int C, bool MEMBER>
 cudaError_t launch_correct(const void* field, const void* phi_hat,
                            const void* lo, const void* hi, const void* vel,
-                           void* out, int H, int W, float dt, float max_disp,
-                           int no_slip, cudaStream_t stream) {
+                           void* out, int H, int W, int mh, int mw, float dt,
+                           float max_disp, int no_slip, cudaStream_t stream) {
   const dim3 block(32, 8);
   const dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
-  maccormack_correct_kernel<T, C><<<grid, block, 0, stream>>>(
+  maccormack_correct_kernel<T, C, MEMBER><<<grid, block, 0, stream>>>(
       static_cast<const T*>(field), static_cast<const T*>(phi_hat),
       static_cast<const T*>(lo), static_cast<const T*>(hi),
-      static_cast<const float*>(vel), static_cast<T*>(out), H, W, dt,
+      static_cast<const float*>(vel), static_cast<T*>(out), H, W, mh, mw, dt,
       max_disp, no_slip);
   return cudaGetLastError();
+}
+
+template <typename T, int C>
+cudaError_t dispatch_correct_member(const void* field, const void* phi_hat,
+                                    const void* lo, const void* hi,
+                                    const void* vel, void* out, int H, int W,
+                                    int mh, int mw, float dt, float max_disp,
+                                    int no_slip, cudaStream_t stream) {
+  if (mh > 0)
+    return launch_correct<T, C, true>(field, phi_hat, lo, hi, vel, out, H, W,
+                                      mh, mw, dt, max_disp, no_slip, stream);
+  return launch_correct<T, C, false>(field, phi_hat, lo, hi, vel, out, H, W,
+                                     mh, mw, dt, max_disp, no_slip, stream);
 }
 
 template <typename T>
 cudaError_t dispatch_correct(int C, const void* field, const void* phi_hat,
                              const void* lo, const void* hi, const void* vel,
-                             void* out, int H, int W, float dt,
-                             float max_disp, int no_slip,
+                             void* out, int H, int W, int mh, int mw,
+                             float dt, float max_disp, int no_slip,
                              cudaStream_t stream) {
   switch (C) {
     case 1:
-      return launch_correct<T, 1>(field, phi_hat, lo, hi, vel, out, H, W, dt,
-                                  max_disp, no_slip, stream);
+      return dispatch_correct_member<T, 1>(field, phi_hat, lo, hi, vel, out,
+                                           H, W, mh, mw, dt, max_disp,
+                                           no_slip, stream);
     case 2:
-      return launch_correct<T, 2>(field, phi_hat, lo, hi, vel, out, H, W, dt,
-                                  max_disp, no_slip, stream);
+      return dispatch_correct_member<T, 2>(field, phi_hat, lo, hi, vel, out,
+                                           H, W, mh, mw, dt, max_disp,
+                                           no_slip, stream);
     case 3:
-      return launch_correct<T, 3>(field, phi_hat, lo, hi, vel, out, H, W, dt,
-                                  max_disp, no_slip, stream);
+      return dispatch_correct_member<T, 3>(field, phi_hat, lo, hi, vel, out,
+                                           H, W, mh, mw, dt, max_disp,
+                                           no_slip, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -331,40 +401,43 @@ cudaError_t dispatch_correct(int C, const void* field, const void* phi_hat,
 }  // namespace
 
 // field, out: [C, H, W] float32 (field_bf16 = 0) or bfloat16 (= 1);
-// vel: [2, H, W] float32; frame: [H-1, W-1] uint16 or null (C == 3 only);
-// lo, hi: [C, H, W] in the field dtype, written when minmax is 1 (the raw
-// tap extrema) or 2 (combined with the stored value), else null.
-extern "C" int fluid_advect(const void* field, const void* vel, void* out,
-                            void* frame, void* lo, void* hi, int C, int H,
-                            int W, int field_bf16, float dt, int max_disp,
-                            int no_slip, int clip01, int bswap, int minmax,
-                            void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float md = (float)max_disp;
-  if (field_bf16)
-    return (int)dispatch_channels<__nv_bfloat16>(
-        C, minmax, field, vel, out, frame, lo, hi, H, W, dt, md, no_slip,
-        clip01, bswap, s);
-  return (int)dispatch_channels<float>(C, minmax, field, vel, out, frame, lo,
-                                       hi, H, W, dt, md, no_slip, clip01,
-                                       bswap, s);
+// vel: [2, H, W] float32; overlay: [C+1, H, W] float32 or null (only with
+// minmax = 0); frame: [H-1, W-1] uint16 or null (C == 3 only); lo, hi:
+// [C, H, W] in the field dtype, written when minmax is 1 (the raw tap
+// extrema) or 2 (combined with the stored value), else null; mh, mw: the
+// member tile (mh = 0: none; else mh, mw >= 2 dividing H, W).
+extern "C" int fluid_advect(const void* field, const void* vel,
+                            const void* overlay, void* out, void* frame,
+                            void* lo, void* hi, int C, int H, int W,
+                            int field_bf16, float dt, int max_disp, int mh,
+                            int mw, int no_slip, int clip01, int bswap,
+                            int minmax, void* stream) {
+  const AdvectArgs a{field, static_cast<const float*>(vel),
+                     static_cast<const float*>(overlay), out,
+                     static_cast<uint16_t*>(frame), lo, hi, H, W, mh, mw, dt,
+                     (float)max_disp, no_slip, clip01, bswap,
+                     static_cast<cudaStream_t>(stream)};
+  if (field_bf16) return (int)dispatch_channels<__nv_bfloat16>(C, minmax, a);
+  return (int)dispatch_channels<float>(C, minmax, a);
 }
 
 // K5 launch 2.  field, phi_hat, lo, hi, out: [C, H, W] in the field dtype
 // (phi_hat, lo, hi from fluid_advect with minmax = 2); vel: [2, H, W]
-// float32, the forward velocity (the kernel backtraces through -vel).
+// float32, the forward velocity (the kernel backtraces through -vel); mh, mw
+// as for fluid_advect.
 extern "C" int fluid_maccormack_correct(const void* field,
                                         const void* phi_hat, const void* lo,
                                         const void* hi, const void* vel,
                                         void* out, int C, int H, int W,
                                         int field_bf16, float dt,
-                                        int max_disp, int no_slip,
-                                        void* stream) {
+                                        int max_disp, int mh, int mw,
+                                        int no_slip, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float md = (float)max_disp;
   if (field_bf16)
     return (int)dispatch_correct<__nv_bfloat16>(
-        C, field, phi_hat, lo, hi, vel, out, H, W, dt, md, no_slip, s);
+        C, field, phi_hat, lo, hi, vel, out, H, W, mh, mw, dt, md, no_slip,
+        s);
   return (int)dispatch_correct<float>(C, field, phi_hat, lo, hi, vel, out, H,
-                                      W, dt, md, no_slip, s);
+                                      W, mh, mw, dt, md, no_slip, s);
 }

@@ -29,6 +29,12 @@
 // cells its threads can read) into a short list in shared memory, which is
 // almost always empty, so a cell pays one compare per listed impulse.
 //
+// Tiled-domain mode (K6, project.py:121-134): with a member tile mh x mw the
+// reflected ghosts of the divergence, the zero ghosts and a_ii of the
+// half-sweeps (csrc/rb2d.cuh) and the Neumann clamp of the gradient apply
+// at every member wall; the drain is unchanged, so impulses and members
+// combine.
+//
 // Operand orders are those of project.py:170-191 and rb_common.py:202,212:
 // divergence ((-up + dn) + (-lf + rt)) * inv2dx, neighbours
 // ((up + dn) + lf) + rt, update (1-w)p + w(neg_inv*(dxd - nb)).  Built with
@@ -98,11 +104,12 @@ __device__ __forceinline__ float drained(const Drain& d, float v, int i,
   return v;
 }
 
+template <bool MEMBER>
 __global__ void drain_divergence_kernel(
     const float* __restrict__ vel, float* __restrict__ dxd,
     float* __restrict__ p, const int* __restrict__ ipos,
     const float* __restrict__ ivel, const uint8_t* __restrict__ iact,
-    int n_imp, int H, int W, float dx, float inv2dx) {
+    int n_imp, int H, int W, int mh, int mw, float dx, float inv2dx) {
   __shared__ Drain d;
   const int i0 = blockIdx.y * blockDim.y;
   const int j0 = blockIdx.x * blockDim.x;
@@ -115,25 +122,27 @@ __global__ void drain_divergence_kernel(
   const long c = (long)i * W + j;
   const float* v0 = vel;
   const float* v1 = vel + plane;
+  const Walls w = walls<MEMBER>(i, j, H, W, mh, mw);
   const float vx = drained(d, v0[c], i, j, 0);
   const float vy = drained(d, v1[c], i, j, 1);
   // reflected ghosts at the walls: the outside neighbour is -center
-  const float t_up = i == 0 ? -vx : drained(d, v0[c - W], i - 1, j, 0);
-  const float t_dn = i == H - 1 ? -vx : drained(d, v0[c + W], i + 1, j, 0);
-  const float t_lf = j == 0 ? -vy : drained(d, v1[c - 1], i, j - 1, 1);
-  const float t_rt = j == W - 1 ? -vy : drained(d, v1[c + 1], i, j + 1, 1);
+  const float t_up = w.i_lo ? -vx : drained(d, v0[c - W], i - 1, j, 0);
+  const float t_dn = w.i_hi ? -vx : drained(d, v0[c + W], i + 1, j, 0);
+  const float t_lf = w.j_lo ? -vy : drained(d, v1[c - 1], i, j - 1, 1);
+  const float t_rt = w.j_hi ? -vy : drained(d, v1[c + 1], i, j + 1, 1);
   const float div = ((-t_up + t_dn) + (-t_lf + t_rt)) * inv2dx;
   dxd[c] = dx * div;
   p[c] = 0.f;
 }
 
+template <bool MEMBER>
 __global__ void gradient_kernel(const float* __restrict__ vel,
                                 const float* __restrict__ p,
                                 float* __restrict__ out,
                                 const int* __restrict__ ipos,
                                 const float* __restrict__ ivel,
                                 const uint8_t* __restrict__ iact, int n_imp,
-                                int H, int W, float inv2dx) {
+                                int H, int W, int mh, int mw, float inv2dx) {
   __shared__ Drain d;
   const int i0 = blockIdx.y * blockDim.y;
   const int j0 = blockIdx.x * blockDim.x;
@@ -144,27 +153,51 @@ __global__ void gradient_kernel(const float* __restrict__ vel,
   if (i >= H || j >= W) return;
   const long plane = (long)H * W;
   const long c = (long)i * W + j;
+  const Walls w = walls<MEMBER>(i, j, H, W, mh, mw);
   const float pc = p[c];
   // Neumann walls: the outside pressure is the center value
-  const float p_im1 = i == 0 ? pc : p[c - W];
-  const float p_ip1 = i == H - 1 ? pc : p[c + W];
-  const float p_jm1 = j == 0 ? pc : p[c - 1];
-  const float p_jp1 = j == W - 1 ? pc : p[c + 1];
+  const float p_im1 = w.i_lo ? pc : p[c - W];
+  const float p_ip1 = w.i_hi ? pc : p[c + W];
+  const float p_jm1 = w.j_lo ? pc : p[c - 1];
+  const float p_jp1 = w.j_hi ? pc : p[c + 1];
   const float vx = drained(d, vel[c], i, j, 0);
   const float vy = drained(d, vel[plane + c], i, j, 1);
   out[c] = vx - (p_ip1 - p_im1) * inv2dx;
   out[plane + c] = vy - (p_jp1 - p_jm1) * inv2dx;
 }
 
+template <bool MEMBER>
+cudaError_t project(const float* v, float* vo, float* pp, float* dd,
+                    const int* ip, const float* iv, const uint8_t* ia,
+                    int n_imp, int H, int W, int mh, int mw, float dx,
+                    float inv2dx, int iters, float omega, float one_m_w,
+                    cudaStream_t s) {
+  const dim3 block(32, 8);
+  const dim3 grid((W + 31) / 32, (H + 7) / 8);
+  drain_divergence_kernel<MEMBER><<<grid, block, 0, s>>>(
+      v, dd, pp, ip, iv, ia, n_imp, H, W, mh, mw, dx, inv2dx);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = sor_half_sweeps(pp, dd, H, W, mh, mw, iters, omega, one_m_w, s);
+  if (err != cudaSuccess) return err;
+
+  gradient_kernel<MEMBER><<<grid, block, 0, s>>>(v, pp, vo, ip, iv, ia,
+                                                 n_imp, H, W, mh, mw, inv2dx);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // vel, vel_out: [2, H, W] float32; p, dxd: [H, W] float32 (dxd is scratch);
-// ipos: int32 [n_imp, 2]; ivel: float32 [n_imp, 2]; iact: bool [n_imp].
+// ipos: int32 [n_imp, 2]; ivel: float32 [n_imp, 2]; iact: bool [n_imp];
+// mh, mw: the member tile (mh = 0: none; else mh, mw >= 2 dividing H, W).
 extern "C" int fluid_project(const void* vel, void* vel_out, void* p,
                              void* dxd, const void* ipos, const void* ivel,
                              const void* iact, int n_imp, int H, int W,
-                             float dx, float inv2dx, int iters, float omega,
-                             float one_m_w, void* stream) {
+                             int mh, int mw, float dx, float inv2dx,
+                             int iters, float omega, float one_m_w,
+                             void* stream) {
   if (n_imp < 0 || n_imp > kMaxImpulses) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* v = static_cast<const float*>(vel);
@@ -174,18 +207,9 @@ extern "C" int fluid_project(const void* vel, void* vel_out, void* p,
   const int* ip = static_cast<const int*>(ipos);
   const float* iv = static_cast<const float*>(ivel);
   const uint8_t* ia = static_cast<const uint8_t*>(iact);
-
-  const dim3 block(32, 8);
-  const dim3 grid((W + 31) / 32, (H + 7) / 8);
-  drain_divergence_kernel<<<grid, block, 0, s>>>(v, dd, pp, ip, iv, ia,
-                                                 n_imp, H, W, dx, inv2dx);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  err = sor_half_sweeps(pp, dd, H, W, iters, omega, one_m_w, s);
-  if (err != cudaSuccess) return (int)err;
-
-  gradient_kernel<<<grid, block, 0, s>>>(v, pp, vo, ip, iv, ia, n_imp, H, W,
-                                         inv2dx);
-  return (int)cudaGetLastError();
+  if (mh > 0)
+    return (int)project<true>(v, vo, pp, dd, ip, iv, ia, n_imp, H, W, mh, mw,
+                              dx, inv2dx, iters, omega, one_m_w, s);
+  return (int)project<false>(v, vo, pp, dd, ip, iv, ia, n_imp, H, W, mh, mw,
+                             dx, inv2dx, iters, omega, one_m_w, s);
 }

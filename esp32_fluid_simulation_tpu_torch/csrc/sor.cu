@@ -21,6 +21,9 @@
 // (temporal blocking in shared memory, the TPU kernel's trapezoid) is a
 // later change, as for K1 and K9.
 //
+// Tiled-domain mode (K6, the member= argument of sor_solve_pallas,
+// sor.py:83): the half-sweeps' member walls, as in K1 (csrc/rb2d.cuh).
+//
 // Built with --fmad=false, bit-equal to the plain PyTorch version
 // (ops.poisson.sor_solve: dx * d, then ((up + dn) + lf) + rt and
 // (1-w) p + w (neg_inv (dx d - nb))).
@@ -42,10 +45,11 @@ __global__ void sor_fill_kernel(const float* __restrict__ d,
 
 }  // namespace
 
-// d, p, dxd: [H, W] float32 (p is the output, dxd scratch; H, W >= 2).
+// d, p, dxd: [H, W] float32 (p is the output, dxd scratch; H, W >= 2);
+// mh, mw: the member tile (mh = 0: none; else mh, mw >= 2 dividing H, W).
 extern "C" int fluid_sor(const void* d, void* p, void* dxd, int H, int W,
-                         float dx, int iters, float omega, float one_m_w,
-                         void* stream) {
+                         int mh, int mw, float dx, int iters, float omega,
+                         float one_m_w, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pp = static_cast<float*>(p);
   float* dd = static_cast<float*>(dxd);
@@ -55,5 +59,6 @@ extern "C" int fluid_sor(const void* d, void* p, void* dxd, int H, int W,
       static_cast<const float*>(d), dd, pp, n, dx);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)sor_half_sweeps(pp, dd, H, W, iters, omega, one_m_w, s);
+  return (int)sor_half_sweeps(pp, dd, H, W, mh, mw, iters, omega,
+                              one_m_w, s);
 }

@@ -43,7 +43,9 @@ def state_from_numpy(velocity, color, step=0, device="cuda") -> SimState:
 
 
 def impulses_from_numpy(pos, velocity, active, device="cuda") -> Impulses:
-    """The JAX package's ``Impulses`` fields (as numpy) -> ``Impulses``."""
+    """The JAX package's ``Impulses`` fields (as numpy) -> ``Impulses``; a
+    batched ensemble's ``[n, K, nd]`` fields (``stack_impulses``) cross the
+    same way."""
     return Impulses(pos=tensor_from_numpy(pos, device),
                     velocity=tensor_from_numpy(velocity, device),
                     active=tensor_from_numpy(active, device))
@@ -53,6 +55,28 @@ def state_to_numpy(state: SimState):
     """``SimState`` -> ``(velocity, color, step)`` numpy arrays."""
     return (tensor_to_numpy(state.velocity), tensor_to_numpy(state.color),
             np.int32(state.step))
+
+
+def ensemble_state_from_numpy(velocity, color, step=0,
+                              device="cuda") -> SimState:
+    """The JAX package's ensemble state (``[n, ...]`` fields and an ``[n]``
+    step array) -> a member-stack ``SimState``.  The port steps all members
+    together, so ``step`` is one Python int; members at different steps
+    raise."""
+    steps = np.unique(np.asarray(step))
+    if steps.size != 1:
+        raise ValueError(f"ensemble members at different steps: {steps}")
+    return SimState(velocity=tensor_from_numpy(velocity, device),
+                    color=tensor_from_numpy(color, device),
+                    step=int(steps[0]))
+
+
+def ensemble_state_to_numpy(state: SimState):
+    """Member-stack ``SimState`` -> ``(velocity, color, step)`` numpy
+    arrays, ``step`` as the JAX package's ``[n]`` int32 array."""
+    n = state.velocity.shape[0]
+    return (tensor_to_numpy(state.velocity), tensor_to_numpy(state.color),
+            np.full((n,), state.step, np.int32))
 
 
 def smoke_state_from_numpy(velocity, density, temperature, step=0,

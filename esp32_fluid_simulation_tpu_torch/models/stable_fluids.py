@@ -17,14 +17,20 @@ the dye clamp and, in ``step_render`` at ``scaling == 1``, the RGB565 frame
 riding the dye store, or in K5 for ``advector="maccormack"``.
 ``solver="sor_pallas"`` solves in K4 (``ops/cuda/sor.py``).  Vorticity
 confinement (``vorticity_eps > 0``) sits between the impulses and the
-projection, as in the JAX step (``stable_fluids.py:294-317``).  The kernel
-wrappers run their plain PyTorch versions on CPU tensors.  PyTorch runs
-eagerly: ``make_step`` and friends return plain closures.
+projection, as in the JAX step (``stable_fluids.py:294-317``).  A
+``domain_tile`` config is a supergrid of independent member tiles
+(``_step_tiled``): on the kernel path K2 and K1 run in their member modes
+(K6) and the drag queue drains at the velocity advect's store; otherwise
+each member steps on its own through the eager ops.  The kernel wrappers
+run their plain PyTorch versions on CPU tensors.  PyTorch runs eagerly:
+``make_step`` and friends return plain closures.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -34,24 +40,25 @@ from ..state import SimState, Impulses
 from ..ops.advect import advect, advect_maccormack, advect_rk2
 from ..ops.blur import triangular_blur_inplace
 from ..ops.fd import divergence, subtract_gradient, vorticity_confinement
-from ..ops.poisson import poisson_solve, poisson_residual
+from ..ops.poisson import (jacobi_solve, poisson_solve, poisson_residual,
+                           sor_solve)
 from ..ops.cuda.advect import advect_kernel, advect_maccormack_kernel
 from ..ops.cuda.project import project_fused
 from ..render.upscale import render_rgb565
 
 
-def _check_ported(cfg: SimConfig) -> None:
-    if cfg.domain_tile is not None:
-        raise NotImplementedError("domain_tile is not ported yet (ROADMAP.md "
-                                  "queue 1, item 8)")
-
-
 def init_color(cfg: SimConfig, device="cuda") -> torch.Tensor:
     """Angular RGB sectors around the grid center, then two in-place
-    [1/4,1/2,1/4] blurs in the storage dtype (``.ino:203-241``)."""
+    [1/4,1/2,1/4] blurs in the storage dtype (``.ino:203-241``).
+
+    With ``domain_tile`` every member tile gets its own (identical) sector
+    init: the member pattern is built and blurred once, then tiled, so the
+    blur never smears across member walls."""
     if cfg.domain_tile is not None:
-        raise NotImplementedError("domain_tile is not ported yet (ROADMAP.md "
-                                  "queue 1, item 8)")
+        mh, mw = cfg.domain_tile
+        member = init_color(dataclasses.replace(
+            cfg, shape=(mh, mw), domain_tile=None, solver="sor"), device)
+        return member.repeat(1, cfg.shape[0] // mh, cfg.shape[1] // mw)
     h, w = cfg.shape[-2], cfg.shape[-1]
     ci, cj = h // 2, w // 2
     ii = np.arange(h, dtype=np.float32)[:, None]
@@ -113,6 +120,51 @@ def apply_impulses(vel: torch.Tensor, imp: Impulses) -> torch.Tensor:
     out = vel.clone()
     out[where] = torch.where(winner >= 0, vals, vel[where])
     return out
+
+
+def write_cells(cells, write, vals, shape, base=None):
+    """A ``[C, *shape]`` tensor: ``base`` (zeros when None, in ``vals``'
+    dtype) with ``vals`` (``[C, K]``) written at the flat cell indices
+    ``cells`` (``[K]``) where ``write``.  The other slots land in one spare
+    element past the end and are dropped (JAX's ``mode="drop"``), so nothing
+    waits on the host; the cells written must be distinct."""
+    c, n = vals.shape[0], math.prod(shape)
+    dev = vals.device
+    if base is None:
+        flat = torch.zeros(c * n + 1, dtype=vals.dtype, device=dev)
+    else:
+        flat = torch.empty(c * n + 1, dtype=base.dtype, device=dev)
+        flat[:-1].copy_(base.reshape(-1))
+        vals = vals.to(base.dtype)
+    ch = torch.arange(c, device=dev)[:, None] * n
+    idx = torch.where(write[None, :], ch + cells[None, :], c * n)
+    flat[idx.reshape(-1)] = vals.reshape(-1)
+    return flat[:-1].view((c,) + tuple(shape))
+
+
+def overlay_from_targets(cells, write, vals, shape):
+    """The dense ``[nd+1, *shape]`` float32 overlay of K2's store-time
+    drain: channels ``[0, nd)`` the values written at ``cells`` where
+    ``write``, channel ``nd`` a 1.0 write flag."""
+    k = vals.shape[1]
+    combo = torch.cat([vals.to(torch.float32),
+                       torch.ones((1, k), dtype=torch.float32,
+                                  device=vals.device)], dim=0)
+    return write_cells(cells, write, combo, shape)
+
+
+def impulse_overlay(imp: Impulses, shape) -> torch.Tensor:
+    """Impulses as the dense ``[nd+1, *shape]`` float32 overlay consumed by
+    K2's ``overlay=`` (``stable_fluids.py:119-136``): the same cells and
+    bit-identical values as ``apply_impulses``, the last active slot winning
+    at a duplicated cell."""
+    idx, winner = _resolved_impulse_targets(imp, shape)
+    slots = torch.arange(imp.pos.shape[0], device=imp.pos.device)
+    cells = idx[0]
+    for a in range(1, len(shape)):
+        cells = cells * shape[a] + idx[a]
+    return overlay_from_targets(cells, winner == slots, imp.velocity.T,
+                                shape)
 
 
 def _use_pallas_advect(cfg: SimConfig, vel: torch.Tensor) -> bool:
@@ -203,10 +255,117 @@ def _impulses_and_forces(vel: torch.Tensor, impulses: Impulses,
     return vel
 
 
+def _to_members(x: torch.Tensor, mh: int, mw: int) -> torch.Tensor:
+    """``[C, gh*mh, gw*mw]`` -> ``[gh*gw, C, mh, mw]`` (tiled domain ->
+    member stack, row-major over the tile grid)."""
+    c, h, w = x.shape
+    gh, gw = h // mh, w // mw
+    return (x.reshape(c, gh, mh, gw, mw).permute(1, 3, 0, 2, 4)
+            .reshape(gh * gw, c, mh, mw))
+
+
+def _from_members(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """``[gh*gw, C, mh, mw]`` -> ``[C, h, w]``, the inverse of
+    ``_to_members``."""
+    n, c, mh, mw = x.shape
+    gh, gw = h // mh, w // mw
+    return (x.reshape(gh, gw, c, mh, mw).permute(2, 0, 3, 1, 4)
+            .reshape(c, h, w))
+
+
+def tiled_uses_kernels(cfg: SimConfig, vel: torch.Tensor) -> bool:
+    """Whether ``_step_tiled`` takes the kernel path: the fused projection
+    and the kernel advect."""
+    return cfg.solver == "fused_pallas" and _use_pallas_advect(cfg, vel)
+
+
+def _step_tiled(state: SimState, impulses: Impulses | None, cfg: SimConfig,
+                apply_fn=None, overlay=None, rgb565: bool = False,
+                bswap: bool = True):
+    """Tiled-domain step (``stable_fluids.py:209-291``): one supergrid of
+    independent ``cfg.domain_tile`` members, every boundary condition acting
+    per member tile.
+
+    ``apply_fn(vel) -> vel`` overrides the impulse application on both
+    paths (the ensemble injects its per-member impulses there); then
+    ``impulses`` are not applied.  ``overlay`` (an ``impulse_overlay``-shaped
+    ``[3, H, W]`` tensor) is the kernel path's form of the drain: it rides
+    the velocity advect's store (K2 ``overlay=``), and is built from
+    ``impulses`` when neither it nor ``apply_fn`` is given.  ``rgb565``
+    (kernel path only) also returns the frame packed on the member-mode dye
+    store: ``(state, frame)``.
+
+    The kernel path runs K2 with ``member=`` twice and K1 with ``member=``
+    once.  The eager path steps each member on its own grid through the
+    composed ops in a loop (JAX vmaps them), then clips the dye."""
+    mh, mw = cfg.domain_tile
+    h, w = cfg.shape
+    if impulses is not None:
+        impulses = _on_device(impulses, state.velocity.device)
+    custom_apply = apply_fn is not None
+    if apply_fn is None:
+        def apply_fn(v):
+            return apply_impulses(v, impulses)
+    use_kernel = tiled_uses_kernels(cfg, state.velocity)
+    if rgb565 and not use_kernel:
+        raise ValueError("rgb565 needs the tiled kernel path "
+                         "(solver='fused_pallas' + kernel advect)")
+    if use_kernel:
+        if cfg.advect_sample_dtype != "float32":
+            raise NotImplementedError(
+                "advect_sample_dtype='bfloat16' is not ported (ROADMAP.md "
+                "queue 1, 'Not to port')")
+
+        def adv(field, vel, no_slip, **kw):
+            return advect_kernel(field, vel, cfg.dt, no_slip,
+                                 max_disp=cfg.advect_max_disp,
+                                 member=(mh, mw), **kw)
+
+        # a caller's apply_fn overrides the impulses: the overlay is built
+        # from them only when the default applier would have run
+        if overlay is None and impulses is not None and not custom_apply:
+            overlay = impulse_overlay(impulses, (h, w))
+        if overlay is not None:
+            vel = adv(state.velocity, state.velocity, True, self_advect=True,
+                      overlay=overlay)
+        else:
+            vel = apply_fn(adv(state.velocity, state.velocity, True,
+                               self_advect=True))
+        vel, _ = project_fused(vel, cfg.dx, cfg.sor_iters, cfg.omega,
+                               member=(mh, mw))
+        if rgb565:
+            color, frame = adv(state.color, vel, False, clip01=True,
+                               rgb565=True, bswap=bswap)
+            return SimState(velocity=vel, color=color,
+                            step=state.step + 1), frame
+        color = adv(state.color, vel, False, clip01=True)
+        return SimState(velocity=vel, color=color, step=state.step + 1)
+
+    def project_member(v):
+        d = divergence(v, cfg.dx)
+        if cfg.solver == "jacobi":
+            p = jacobi_solve(d, cfg.dx, cfg.sor_iters, min(cfg.omega, 1.0))
+        else:
+            p = sor_solve(d, cfg.dx, cfg.sor_iters, cfg.omega)
+        return subtract_gradient(v, p, cfg.dx)
+
+    vel_m = torch.stack([advect(v, v, cfg.dt, no_slip=True)
+                         for v in _to_members(state.velocity, mh, mw)])
+    vel = apply_fn(_from_members(vel_m, h, w))
+    vel_m = torch.stack([project_member(v)
+                         for v in _to_members(vel, mh, mw)])
+    col_m = torch.stack([advect(c, v, cfg.dt, no_slip=False) for c, v in
+                         zip(_to_members(state.color, mh, mw), vel_m)])
+    color = torch.clamp(_from_members(col_m, h, w), 0.0, 1.0)
+    return SimState(velocity=_from_members(vel_m, h, w), color=color,
+                    step=state.step + 1)
+
+
 def step(state: SimState, impulses: Impulses, cfg: SimConfig) -> SimState:
     """One simulation step — the reference's ``loop()`` (``.ino:249-289``).
     ``impulses`` may lie on the CPU; they follow the state's device."""
-    _check_ported(cfg)
+    if cfg.domain_tile is not None:
+        return _step_tiled(state, impulses, cfg)
     impulses = _on_device(impulses, state.velocity.device)
     adv = _advect_by(cfg, state.velocity)
     vel = _self_advect(adv, state.velocity, cfg.dt)
@@ -226,13 +385,15 @@ def step_render(state: SimState, impulses: Impulses, cfg: SimConfig,
     """One step plus its RGB565 frame: ``(state, frame)``.
 
     At ``cfg.scaling == 1`` on the kernel path the pack rides the K2 dye
-    store (bit-identical to ``render_rgb565(state.color, s=1)``); otherwise
-    the render follows the step."""
-    _check_ported(cfg)
+    store (bit-identical to ``render_rgb565(state.color, s=1)``), on a
+    ``domain_tile`` supergrid the member-mode one; otherwise the render
+    follows the step."""
     fused = (cfg.ndim == 2 and cfg.scaling == 1 and cfg.clamps_dye
              and cfg.advector == "semilag" and cfg.vorticity_eps == 0.0
              and cfg.solver == "fused_pallas"
              and _use_pallas_advect(cfg, state.velocity))
+    if fused and cfg.domain_tile is not None:
+        return _step_tiled(state, impulses, cfg, rgb565=True, bswap=bswap)
     if not fused:
         st = step(state, impulses, cfg)
         return st, render_rgb565(st.color, s=cfg.scaling, bswap=bswap,
@@ -265,9 +426,9 @@ def step_with_metrics(state: SimState, impulses: Impulses, cfg: SimConfig):
     0-dim tensor on the state's device (nothing is read back here).
 
     As in the JAX package, the impulses are scattered before the
-    projection (K1 runs without them) and the dye advects without the
-    fused clamp, clipped after for ``semilag``/``rk2``."""
-    _check_ported(cfg)
+    projection (K1 runs without them), the dye advects without the fused
+    clamp, clipped after for ``semilag``/``rk2``, and ``domain_tile`` is
+    ignored: the whole grid steps as one domain."""
     impulses = _on_device(impulses, state.velocity.device)
     adv = _advect_by(cfg, state.velocity)
     vel = _self_advect(adv, state.velocity, cfg.dt)

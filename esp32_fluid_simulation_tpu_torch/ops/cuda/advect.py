@@ -22,6 +22,24 @@ K5 (both versions): ``phi_hat, cmin, cmax = K2(field, vel, return_minmax)``,
 clamped to ``[min(cmin, phi_hat), max(cmax, phi_hat)]``, each op rounding
 to the field dtype.  The kernel takes two launches, ``maccormack_forward``
 and ``maccormack_backward``, each with its own launch counter.
+
+K6, the tiled-domain modes (``advect.py:112-165, 601-607``):
+
+* ``member=(mh, mw)``: the grid is a supergrid of independent member tiles;
+  after the CFL clamp the sample is clamped to its tile ``[lo, lo+mh-1]``
+  (``lo = (i // mh) * mh``, exact), the base tap to ``[lo, lo+mh-2]``, and
+  the no-slip factor is taken from ``si_raw - lo`` against ``mh``.  It
+  combines with every other flag, and K5 passes it to both passes.
+* ``overlay=``: a dense ``[C+1, H, W]`` float32 array; where channel ``C``
+  is > 0, channel ``ch`` replaces the value after the no-slip factor and the
+  clip, before the store (the drag queue's drain riding the store).  Not
+  with ``rgb565`` or ``return_minmax``, as in the JAX package.
+
+Each mode has its own launch counter beside ``launches``:
+``advect_kernel.member_launches`` and ``.overlay_launches``,
+``maccormack_forward.member_launches`` and
+``maccormack_backward.member_launches``.  Block mode (``global_offset``,
+``global_shape``, ``halo``) is K11 and raises.
 """
 
 from __future__ import annotations
@@ -31,26 +49,20 @@ import torch
 from ...render.upscale import pack_rgb565
 from ..advect import noslip_axis_factor
 from .build import load, stream_of
+from .modes import check_member, refuse_unported
 
-_UNPORTED = ("overlay", "member", "global_offset", "global_shape", "halo",
-             "sample_bf16")
 _NONE, _RAW, _COMBINED = 0, 1, 2   # enum MinMax in csrc/advect.cu
 
 
-def _check_unported(name, unported):
-    for key in unported:
-        if key not in _UNPORTED:
-            raise TypeError(f"{name} got an unexpected argument {key!r}")
-    # None, False and the JAX default halo=0 mean "not asked for"
-    if any(not (v is None or (isinstance(v, int) and not v))
-           for v in unported.values()):
-        raise NotImplementedError(
-            f"{name}: {sorted(unported)} not ported yet (ROADMAP.md queue "
-            "2, K6/K11)")
+def _origin(n, m, device):
+    """Member-tile origin ``(k // m) * m`` of each index ``k < n``, exact in
+    float32."""
+    return (torch.arange(n, device=device) // m * m).to(torch.float32)
 
 
 def advect_reference(field, vel, dt, no_slip, max_disp=12, clip01=False,
-                     rgb565=False, bswap=True, return_minmax=False):
+                     rgb565=False, bswap=True, return_minmax=False,
+                     member=None, overlay=None):
     """Plain PyTorch version of the kernel (same arithmetic, same order)."""
     squeeze = field.dim() == 2
     f = (field[None] if squeeze else field).to(torch.float32)
@@ -63,10 +75,21 @@ def advect_reference(field, vel, dt, no_slip, max_disp=12, clip01=False,
     sj_raw = fj - v[1] * dt
     si = torch.minimum(torch.maximum(si_raw, fi - max_disp), fi + max_disp)
     sj = torch.minimum(torch.maximum(sj_raw, fj - max_disp), fj + max_disp)
-    si = torch.clamp(si, 0.0, h - 1.0)
-    sj = torch.clamp(sj, 0.0, w - 1.0)
-    i0 = torch.clamp(torch.floor(si), 0.0, h - 2.0)
-    j0 = torch.clamp(torch.floor(sj), 0.0, w - 2.0)
+    if member is None:
+        si = torch.clamp(si, 0.0, h - 1.0)
+        sj = torch.clamp(sj, 0.0, w - 1.0)
+        i0 = torch.clamp(torch.floor(si), 0.0, h - 2.0)
+        j0 = torch.clamp(torch.floor(sj), 0.0, w - 2.0)
+    else:
+        mh, mw = member
+        lo_i = _origin(h, mh, dev)[:, None].expand(h, w)
+        lo_j = _origin(w, mw, dev)[None, :].expand(h, w)
+        si = torch.minimum(torch.maximum(si, lo_i), lo_i + (mh - 1))
+        sj = torch.minimum(torch.maximum(sj, lo_j), lo_j + (mw - 1))
+        i0 = torch.minimum(torch.maximum(torch.floor(si), lo_i),
+                           lo_i + (mh - 2))
+        j0 = torch.minimum(torch.maximum(torch.floor(sj), lo_j),
+                           lo_j + (mw - 2))
     di = si - i0
     dj = sj - j0
     one_m_dj = 1.0 - dj
@@ -78,10 +101,17 @@ def advect_reference(field, vel, dt, no_slip, max_disp=12, clip01=False,
     colv1 = t10 * one_m_dj + t11 * dj
     acc = colv0 * (1.0 - di) + colv1 * di
     if no_slip:
-        acc = acc * (noslip_axis_factor(si_raw, h)
-                     * noslip_axis_factor(sj_raw, w))
+        if member is None:
+            acc = acc * (noslip_axis_factor(si_raw, h)
+                         * noslip_axis_factor(sj_raw, w))
+        else:
+            acc = acc * (noslip_axis_factor(si_raw - lo_i, mh)
+                         * noslip_axis_factor(sj_raw - lo_j, mw))
     if clip01:
         acc = torch.clamp(acc, 0.0, 1.0)
+    if overlay is not None:
+        c = f.shape[0]
+        acc = torch.where(overlay[c] > 0, overlay[:c], acc)
     out = acc.to(field.dtype)
     if rgb565:
         # the frame packs the stored values: clip01 keeps them in [0, 1]
@@ -98,14 +128,15 @@ def advect_reference(field, vel, dt, no_slip, max_disp=12, clip01=False,
     return out[0] if squeeze else out
 
 
-def advect_maccormack_reference(field, vel, dt, no_slip, max_disp=12):
+def advect_maccormack_reference(field, vel, dt, no_slip, max_disp=12,
+                                member=None):
     """Plain PyTorch version of K5 (``advect.py:965-987``): two plain K2
     passes and the limiter, each op in the field dtype."""
     phi_hat, cmin, cmax = advect_reference(field, vel, dt, no_slip,
                                            max_disp=max_disp,
-                                           return_minmax=True)
+                                           return_minmax=True, member=member)
     phi_back = advect_reference(phi_hat, -vel, dt, no_slip,
-                                max_disp=max_disp)
+                                max_disp=max_disp, member=member)
     corrected = phi_hat + 0.5 * (field - phi_back)
     lo = torch.minimum(cmin, phi_hat)
     hi = torch.maximum(cmax, phi_hat)
@@ -136,11 +167,26 @@ def _checked_3d(name, field, vel, max_disp):
     return f3
 
 
+def _checked_overlay(overlay, f3, squeeze):
+    """The overlay as a float32 ``[C+1, H, W]`` tensor beside ``f3``."""
+    c, h, w = f3.shape
+    if tuple(overlay.shape) != (c + 1, h, w):
+        shape = tuple(f3.shape[1:] if squeeze else f3.shape)
+        raise ValueError(f"overlay must be [{c + 1}, H, W] (values + write "
+                         f"flag) for a field {shape}, got "
+                         f"{tuple(overlay.shape)}")
+    if overlay.device != f3.device:
+        raise ValueError("overlay and field on different devices")
+    return overlay.to(torch.float32).contiguous()
+
+
 def _launch_advect(f3, vel, dt, no_slip, max_disp, clip01=False,
-                   rgb565=False, bswap=True, minmax=_NONE):
+                   rgb565=False, bswap=True, minmax=_NONE, member=None,
+                   overlay=None):
     """One launch of the advect kernel: ``out``, plus the frame or the
     bounds as asked."""
     c, h, w = f3.shape
+    mh, mw = member or (0, 0)
     out = torch.empty_like(f3)
     frame = (torch.empty((h - 1, w - 1), dtype=torch.uint16,
                          device=f3.device) if rgb565 else None)
@@ -149,12 +195,13 @@ def _launch_advect(f3, vel, dt, no_slip, max_disp, clip01=False,
     lib = load()
     with torch.cuda.device(f3.device):
         lib.call("fluid_advect", f3.data_ptr(), vel.data_ptr(),
+                 None if overlay is None else overlay.data_ptr(),
                  out.data_ptr(), frame.data_ptr() if rgb565 else None,
                  lo.data_ptr() if minmax else None,
                  hi.data_ptr() if minmax else None,
                  c, h, w, int(f3.dtype == torch.bfloat16), float(dt),
-                 int(max_disp), int(no_slip), int(clip01), int(bswap),
-                 int(minmax), stream_of(f3))
+                 int(max_disp), mh, mw, int(no_slip), int(clip01),
+                 int(bswap), int(minmax), stream_of(f3))
     return out, frame, lo, hi
 
 
@@ -162,58 +209,78 @@ def advect_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
                   no_slip: bool, max_disp: int = 12, clip01: bool = False,
                   rgb565: bool = False, bswap: bool = True,
                   self_advect: bool = False, return_minmax: bool = False,
+                  member=None, overlay: torch.Tensor | None = None,
                   **unported):
     """Advect ``field`` (``[C, H, W]`` or ``[H, W]``, float32 or bfloat16)
     through ``vel`` (``[2, H, W]`` float32).  Returns the new field,
     ``(field, frame)`` with ``rgb565=True`` (a 3-channel field with
     ``clip01``), or ``(field, cmin, cmax)`` with ``return_minmax=True``.
     ``self_advect=True`` advects the velocity by itself (``field`` is the
-    velocity; ``vel`` is ignored) into a fresh tensor."""
-    _check_unported("advect_kernel", unported)
+    velocity; ``vel`` is ignored) into a fresh tensor.  ``member`` and
+    ``overlay`` are the tiled-domain modes (module docstring)."""
+    refuse_unported("advect_kernel", unported, also=("sample_bf16",))
     if rgb565 and (not clip01 or field.dim() != 3 or field.shape[0] != 3
                    or return_minmax):
         raise ValueError("rgb565 needs clip01 on a 3-channel field (and no "
                          "return_minmax)")
+    if overlay is not None and (rgb565 or return_minmax):
+        raise ValueError("overlay needs the plain store (no return_minmax "
+                         "or rgb565)")
     if self_advect:
         if field.dim() != 3 or field.shape[0] != 2:
             raise ValueError("self_advect needs the [2, H, W] velocity as "
                              "field")
         vel = field
+    squeeze = field.dim() == 2
+    f3 = field[None] if squeeze else field
+    member = check_member("advect_kernel", member, *f3.shape[-2:])
+    if overlay is not None:
+        overlay = _checked_overlay(overlay, f3, squeeze)
     if field.device.type == "cpu":
         return advect_reference(field, vel, dt, no_slip, max_disp=max_disp,
                                 clip01=clip01, rgb565=rgb565, bswap=bswap,
-                                return_minmax=return_minmax)
+                                return_minmax=return_minmax, member=member,
+                                overlay=overlay)
 
     f3 = _checked_3d("advect_kernel", field, vel, max_disp)
     out, frame, lo, hi = _launch_advect(
         f3, vel, dt, no_slip, max_disp, clip01=clip01, rgb565=rgb565,
-        bswap=bswap, minmax=_RAW if return_minmax else _NONE)
+        bswap=bswap, minmax=_RAW if return_minmax else _NONE, member=member,
+        overlay=overlay)
     advect_kernel.launches += 1
+    advect_kernel.member_launches += member is not None
+    advect_kernel.overlay_launches += overlay is not None
     if rgb565:
         return out, frame
-    if field.dim() == 2:
+    if squeeze:
         return (out[0], lo[0], hi[0]) if return_minmax else out[0]
     return (out, lo, hi) if return_minmax else out
 
 
 advect_kernel.launches = 0
+advect_kernel.member_launches = 0
+advect_kernel.overlay_launches = 0
 
 
-def maccormack_forward(f3, vel, dt, no_slip, max_disp=12):
+def maccormack_forward(f3, vel, dt, no_slip, max_disp=12, member=None):
     """K5 launch 1: ``(phi_hat, lo, hi)`` with the bounds already combined
     with ``phi_hat``, for a checked ``[C, H, W]`` CUDA field."""
     out, _, lo, hi = _launch_advect(f3, vel, dt, no_slip, max_disp,
-                                    minmax=_COMBINED)
+                                    minmax=_COMBINED, member=member)
     maccormack_forward.launches += 1
+    maccormack_forward.member_launches += member is not None
     return out, lo, hi
 
 
 maccormack_forward.launches = 0
+maccormack_forward.member_launches = 0
 
 
-def maccormack_backward(f3, phi_hat, lo, hi, vel, dt, no_slip, max_disp=12):
+def maccormack_backward(f3, phi_hat, lo, hi, vel, dt, no_slip, max_disp=12,
+                        member=None):
     """K5 launch 2: the backward pass through ``-vel`` and the limiter."""
     c, h, w = f3.shape
+    mh, mw = member or (0, 0)
     out = torch.empty_like(f3)
     lib = load()
     with torch.cuda.device(f3.device):
@@ -221,27 +288,34 @@ def maccormack_backward(f3, phi_hat, lo, hi, vel, dt, no_slip, max_disp=12):
                  phi_hat.data_ptr(), lo.data_ptr(), hi.data_ptr(),
                  vel.data_ptr(), out.data_ptr(), c, h, w,
                  int(f3.dtype == torch.bfloat16), float(dt), int(max_disp),
-                 int(no_slip), stream_of(f3))
+                 mh, mw, int(no_slip), stream_of(f3))
     maccormack_backward.launches += 1
+    maccormack_backward.member_launches += member is not None
     return out
 
 
 maccormack_backward.launches = 0
+maccormack_backward.member_launches = 0
 
 
 def advect_maccormack_kernel(field: torch.Tensor, vel: torch.Tensor,
                              dt: float, no_slip: bool, max_disp: int = 12,
-                             **unported):
+                             member=None, **unported):
     """MacCormack advection of ``field`` (``[C, H, W]`` or ``[H, W]``,
     float32 or bfloat16) through ``vel`` (``[2, H, W]`` float32), with the
-    CFL clamp of K2.  The velocity advects as ``field = vel`` with
-    ``no_slip=True``; the dye with ``no_slip=False``."""
-    _check_unported("advect_maccormack_kernel", unported)
+    CFL clamp of K2 (and its ``member`` mode in both passes).  The velocity
+    advects as ``field = vel`` with ``no_slip=True``; the dye with
+    ``no_slip=False``."""
+    refuse_unported("advect_maccormack_kernel", unported,
+                    also=("sample_bf16",))
+    member = check_member("advect_maccormack_kernel", member,
+                          *field.shape[-2:])
     if field.device.type == "cpu":
         return advect_maccormack_reference(field, vel, dt, no_slip,
-                                           max_disp=max_disp)
+                                           max_disp=max_disp, member=member)
     f3 = _checked_3d("advect_maccormack_kernel", field, vel, max_disp)
-    phi_hat, lo, hi = maccormack_forward(f3, vel, dt, no_slip, max_disp)
+    phi_hat, lo, hi = maccormack_forward(f3, vel, dt, no_slip, max_disp,
+                                         member)
     out = maccormack_backward(f3, phi_hat, lo, hi, vel, dt, no_slip,
-                              max_disp)
+                              max_disp, member)
     return out[0] if field.dim() == 2 else out

@@ -24,8 +24,7 @@ import torch
 
 from ..advect import noslip_axis_factor
 from .build import load, stream_of
-
-_UNPORTED = ("global_offset", "global_shape", "halo")
+from .modes import refuse_unported
 
 
 def _clamped_source(x, raw, max_disp, n):
@@ -73,15 +72,7 @@ def advect3d_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
     bfloat16, C <= 4) through ``vel`` (``[3, D, H, W]``, float32 or
     bfloat16) into a fresh tensor.  ``field`` may be ``vel`` itself (the
     velocity self-advect).  Block mode raises."""
-    for key in unported:
-        if key not in _UNPORTED:
-            raise TypeError(f"advect3d_kernel got an unexpected argument "
-                            f"{key!r}")
-    if any(v is not None and not (k == "halo" and v == 0)
-           for k, v in unported.items()):
-        raise NotImplementedError(
-            "advect3d_kernel: block mode (global_offset/global_shape/halo) "
-            "is not ported yet (ROADMAP.md queue 2, K11)")
+    refuse_unported("advect3d_kernel", unported)
     if field.device.type == "cpu":
         return advect3d_reference(field, vel, dt, no_slip, max_disp)
     if not field.is_cuda:

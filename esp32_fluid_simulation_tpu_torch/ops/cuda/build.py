@@ -42,18 +42,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # field, vel, out, frame, lo, hi, C, H, W, field_bf16, dt, max_disp,
-    # no_slip, clip01, bswap, minmax, stream
-    "fluid_advect": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
-                     _I, _I, _P),
+    # field, vel, overlay, out, frame, lo, hi, C, H, W, field_bf16, dt,
+    # max_disp, mh, mw, no_slip, clip01, bswap, minmax, stream
+    "fluid_advect": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                     _I, _I, _I, _I, _I, _P),
     # field, phi_hat, lo, hi, vel, out, C, H, W, field_bf16, dt, max_disp,
-    # no_slip, stream
+    # mh, mw, no_slip, stream
     "fluid_maccormack_correct": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                                 _I, _I, _P),
-    # vel, vel_out, p, dxd, ipos, ivel, iact, n_imp, H, W, dx, inv2dx,
-    # iters, omega, one_m_w, stream
-    "fluid_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I,
-                      _F, _F, _P),
+                                 _I, _I, _I, _I, _P),
+    # vel, vel_out, p, dxd, ipos, ivel, iact, n_imp, H, W, mh, mw, dx,
+    # inv2dx, iters, omega, one_m_w, stream
+    "fluid_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                      _I, _F, _F, _P),
     # color, out, H, W, color_bf16, s, bswap, unit_range, stream
     "fluid_render_rgb565": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     # field, vel, out, C, D, H, W, field_bf16, vel_bf16, dt, max_disp,
@@ -65,8 +65,8 @@ _SIGNATURES = {
     "fluid_subtract_gradient3d": (_P, _P, _P, _I, _I, _I, _F, _P),
     # d, p, D, H, W, dx, iters, omega, one_m_w, stream
     "fluid_sor3d": (_P, _P, _I, _I, _I, _F, _I, _F, _F, _P),
-    # d, p, dxd, H, W, dx, iters, omega, one_m_w, stream
-    "fluid_sor": (_P, _P, _P, _I, _I, _F, _I, _F, _F, _P),
+    # d, p, dxd, H, W, mh, mw, dx, iters, omega, one_m_w, stream
+    "fluid_sor": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _F, _P),
     # density, out, D, H, W, density_bf16, inv_vmax, bswap, stream
     "fluid_smoke_mip": (_P, _P, _I, _I, _I, _I, _F, _I, _P),
 }

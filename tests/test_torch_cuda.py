@@ -7,15 +7,21 @@ JAX (which ``tests/conftest.py`` imports) need not be installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Each kernel is built with ``--fmad=false`` and must equal its plain version
-bit for bit; ``chip_smoke.py`` repeats these checks at the production
-shapes.
+bit for bit, the tiled-domain modes (K6: ``member=`` of K1, K2, K4 and K5,
+K2's ``overlay=``) at odd and even member tiles too; ``chip_smoke.py``
+repeats these checks at the production shapes.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from esp32_fluid_simulation_tpu_torch import SimConfig, Impulses
+from esp32_fluid_simulation_tpu_torch import (SimConfig, Impulses,
+                                              init_ensemble,
+                                              make_ensemble_step,
+                                              stack_impulses)
+from esp32_fluid_simulation_tpu_torch.models.stable_fluids import (
+    impulse_overlay)
 from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
     advect_kernel, advect_maccormack_kernel, advect_maccormack_reference,
     advect_reference, maccormack_backward, maccormack_forward)
@@ -39,6 +45,8 @@ pytestmark = pytest.mark.gpu
 
 SHAPE = (61, 81)
 SHAPE3 = (9, 33, 130)
+# (grid, member tile): a 2x3 grid of odd members and a 2x2 grid of even ones
+TILINGS = {"odd": ((34, 63), (17, 21)), "even": ((64, 128), (32, 64))}
 
 
 @pytest.fixture
@@ -195,3 +203,132 @@ def test_smoke_mip_kernel_bit_equal(cuda, rng, dtype):
         want = render_smoke_mip_reference(rho, bswap=bswap)
         assert torch.equal(_bits(got), _bits(want))
         assert int(_bits(got)[7, 9]) == 0
+
+
+@pytest.mark.parametrize("tiling", ["odd", "even"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_advect_member_overlay_kernel_bit_equal(cuda, rng, tiling, dtype):
+    shape, member = TILINGS[tiling]
+    cfg = SimConfig(shape=shape, max_impulses=8)
+    imp = Impulses.from_lists(cfg, [(5, 7), (20, 40), (5, 7), (30, 60)],
+                              [(30.0, -12.0), (-8.0, 25.0), (99.0, 1.0),
+                               (0.0, 0.0)], device=cuda)
+    ov = impulse_overlay(imp, shape)
+    # sigma 200 cells/s: the CFL clamp binds on some cells
+    vel = _on((200 * rng.standard_normal((2,) + shape)).astype(np.float32),
+              cuda)
+    before = (advect_kernel.launches, advect_kernel.member_launches,
+              advect_kernel.overlay_launches)
+    for overlay in (None, ov):
+        got = advect_kernel(vel, vel, 1 / 30, True, self_advect=True,
+                            member=member, overlay=overlay)
+        want = advect_reference(vel, vel, 1 / 30, True, member=member,
+                                overlay=overlay)
+        assert torch.equal(got, want)
+    assert (advect_kernel.launches, advect_kernel.member_launches,
+            advect_kernel.overlay_launches) == (
+        before[0] + 2, before[1] + 2, before[2] + 1)
+    dye = _on(rng.random((3,) + shape, dtype=np.float32) * 2 - 0.5,
+              cuda).to(dtype)
+    for bswap in (True, False):
+        c, f = advect_kernel(dye, vel, 1 / 30, False, clip01=True,
+                             rgb565=True, bswap=bswap, member=member)
+        rc, rf = advect_reference(dye, vel, 1 / 30, False, clip01=True,
+                                  rgb565=True, bswap=bswap, member=member)
+        assert torch.equal(_bits(c), _bits(rc))
+        assert torch.equal(_bits(f), _bits(rf))
+    ov4 = torch.cat([ov[:2], ov[1:2], ov[2:]])       # [4, H, W]
+    c = advect_kernel(dye, vel, 1 / 30, False, clip01=True, member=member,
+                      overlay=ov4)
+    rc = advect_reference(dye, vel, 1 / 30, False, clip01=True,
+                          member=member, overlay=ov4)
+    assert torch.equal(_bits(c), _bits(rc))
+    for field in (dye, dye[0].contiguous()):
+        got = advect_kernel(field, vel, 1 / 30, True, return_minmax=True,
+                            member=member)
+        want = advect_reference(field, vel, 1 / 30, True,
+                                return_minmax=True, member=member)
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("tiling", ["odd", "even"])
+def test_project_sor_member_kernels_bit_equal(cuda, rng, tiling):
+    shape, member = TILINGS[tiling]
+    cfg = SimConfig(shape=shape)
+    vel = _on(rng.normal(0, 40, (2,) + shape).astype(np.float32), cuda)
+    imp = Impulses.from_lists(
+        cfg, [(member[0], 5), (20, 30), (20, 30), (99, -3)],
+        [(90.0, -45.0), (33.0, 44.0), (-60.0, 120.0), (7.0, 8.0)],
+        device=cuda)
+    before = (project_fused.member_launches, sor_solve_kernel.member_launches)
+    for impulses in (imp, None):
+        v, p = project_fused(vel, 1.0, 10, 1.96, impulses=impulses,
+                             member=member)
+        rv, rp = project_fused_reference(vel, 1.0, 10, 1.96, impulses,
+                                         member)
+        assert torch.equal(v, rv) and torch.equal(p, rp)
+    d = _on(rng.standard_normal(shape).astype(np.float32), cuda)
+    for iters in (0, 1, 10):
+        assert torch.equal(sor_solve_kernel(d, 0.7, iters, 1.96,
+                                            member=member),
+                           sor_solve_reference(d, 0.7, iters, 1.96, member))
+    assert (project_fused.member_launches,
+            sor_solve_kernel.member_launches) == (before[0] + 2,
+                                                  before[1] + 3)
+
+
+@pytest.mark.parametrize("dtype,channels,no_slip", [
+    (torch.float32, 2, True), (torch.bfloat16, 3, False)])
+def test_maccormack_member_kernel_bit_equal(cuda, rng, dtype, channels,
+                                            no_slip):
+    shape, member = TILINGS["odd"]
+    vel = _on((200 * rng.standard_normal((2,) + shape)).astype(np.float32),
+              cuda)
+    field = vel if channels == 2 else _on(
+        rng.random((channels,) + shape, dtype=np.float32), cuda).to(dtype)
+    before = (maccormack_forward.member_launches,
+              maccormack_backward.member_launches)
+    got = advect_maccormack_kernel(field, vel, 1 / 30, no_slip,
+                                   member=member)
+    want = advect_maccormack_reference(field, vel, 1 / 30, no_slip,
+                                       member=member)
+    assert torch.equal(_bits(got), _bits(want))
+    assert (maccormack_forward.member_launches,
+            maccormack_backward.member_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+
+
+def test_tiled_ensemble_step_kernel_route(cuda, rng):
+    """Four 32x48 members through ``make_ensemble_step`` on the card (the
+    kernel route: K2 member twice, once with the overlay, K1 member once)
+    against the same step through the plain versions on the card."""
+    cfg = SimConfig(shape=(32, 48), sor_iters=4, max_impulses=2,
+                    advect_impl="pallas")
+    n = 4
+    st = init_ensemble(cfg, n, device=cuda)
+    imps = stack_impulses([Impulses.from_lists(
+        cfg, [(8 + k, 9), (20, 4 + k)], [(50.0 + 30 * k, -40.0),
+                                          (25.0, -60.0 + 10 * k)],
+        device=cuda) for k in range(n)])
+    before = (advect_kernel.member_launches, advect_kernel.overlay_launches,
+              project_fused.member_launches)
+    out = make_ensemble_step(cfg)(st, imps)
+    assert (advect_kernel.member_launches, advect_kernel.overlay_launches,
+            project_fused.member_launches) == (before[0] + 2, before[1] + 1,
+                                               before[2] + 1)
+    from esp32_fluid_simulation_tpu_torch.models import ensemble as E
+    from esp32_fluid_simulation_tpu_torch.models.stable_fluids import (
+        _from_members, _to_members)
+    cfg_super, gh, gw = E.tiled_ensemble_config(cfg, n)
+    h, w = cfg_super.shape
+    m = cfg.shape
+    vel = _from_members(st.velocity, h, w)
+    ov = E._member_impulse_overlay(imps, gh, gw, *m)
+    vel = advect_reference(vel, vel, cfg.dt, True, member=m, overlay=ov)
+    vel, _ = project_fused_reference(vel, cfg.dx, cfg.sor_iters, cfg.omega,
+                                     member=m)
+    color = advect_reference(_from_members(st.color, h, w), vel, cfg.dt,
+                             False, clip01=True, member=m)
+    assert torch.equal(out.velocity, _to_members(vel, *m))
+    assert torch.equal(out.color, _to_members(color, *m))

@@ -117,11 +117,20 @@ def test_advect_plain_rgb565_matches_pallas(rng, dtype, bswap):
 
 
 def test_advect_kernel_rejects_unported_flags(rng):
-    f = torch.zeros((2, 8, 8))
-    with pytest.raises(NotImplementedError, match="overlay"):
-        advect_kernel(f, f, 0.1, False, overlay=torch.zeros((3, 8, 8)))
+    """Block mode (K11) still raises; ``overlay=`` and ``member=`` (K6) are
+    taken (test_torch_tiled_kernels_ref.py holds them to JAX)."""
+    f = torch.from_numpy(rng.random((2, 8, 8), dtype=F))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        advect_kernel(f, f, 0.1, False, global_offset=torch.zeros(2))
     with pytest.raises(TypeError):
         advect_kernel(f, f, 0.1, False, no_such_flag=True)
+    flag = torch.zeros((1, 8, 8))
+    flag[0, 3, 4] = 1.0
+    ov = torch.cat([torch.full((2, 8, 8), 7.0), flag])
+    got = advect_kernel(f, f, 0.1, False, overlay=ov, member=(4, 4))
+    want = advect_kernel(f, f, 0.1, False, member=(4, 4))
+    want[:, 3, 4] = 7.0
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("with_impulses", [True, False])

@@ -165,14 +165,15 @@ def test_sor_sweep_and_solve_match_jax(rng):
 
 
 def test_poisson_solve_unported_solver_raises():
-    """Every solver name of the config is ported; the K4 kernel's tiled
-    ``member=`` mode is not, and a name outside the config's list is
-    refused as JAX refuses it."""
+    """Every solver name of the config is ported and the K4 kernel's tiled
+    ``member=`` mode runs; its block mode is not ported, and a name outside
+    the config's list is refused as JAX refuses it."""
     from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import (
         sor_solve_kernel)
     d = torch.zeros((9, 12))
+    assert torch.equal(sor_solve_kernel(d, member=(3, 4)), d)
     with pytest.raises(NotImplementedError, match="queue 1"):
-        sor_solve_kernel(d, member=(3, 4))
+        sor_solve_kernel(d, global_shape=(9, 12))
 
     class Cfg:
         solver, dx, sor_iters, omega = "fused_pallas", 1.0, 10, 1.96

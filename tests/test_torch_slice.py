@@ -16,7 +16,6 @@
 * config JSON, the interop round trip, and the package importing no JAX.
 """
 
-import dataclasses
 import functools
 import json
 import os
@@ -172,14 +171,12 @@ def test_multi_step_equals_step_loop():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(shape=(16, 16), domain_tile=(8, 8)), "item 8"),
     (dict(shape=(16, 16), advect_impl="pallas",
           advect_sample_dtype="bfloat16"), "Not to port"),
 ])
 def test_unported_features_raise(kw, item):
     cfg = T.SimConfig(**kw)
-    st = T.init_state(dataclasses.replace(cfg, domain_tile=None),
-                      device="cpu")
+    st = T.init_state(cfg, device="cpu")
     imp = T.Impulses.none(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         T.step(st, imp, cfg)

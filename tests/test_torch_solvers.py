@@ -9,7 +9,7 @@
   ``sor_solve`` at test_pallas.py:83-90's tolerance (rtol 1e-4 / atol
   2e-5), and against ``sor_solve_pallas`` in interpret mode at one small
   shape;
-* the K4 wrapper's refusals (``member=`` is K6, block mode K11).
+* the K4 wrapper's refusals (block mode is K11; ``member=``, K6, runs).
 """
 
 import functools
@@ -24,7 +24,8 @@ from jax.experimental import pallas as pl
 import esp32_fluid_simulation_tpu as J
 import esp32_fluid_simulation_tpu_torch as T
 from esp32_fluid_simulation_tpu.ops.pallas.sor import sor_solve_pallas
-from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import sor_solve_kernel
+from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import (
+    sor_solve_kernel, sor_solve_reference)
 
 j_poisson = importlib.import_module("esp32_fluid_simulation_tpu.ops.poisson")
 t_poisson = importlib.import_module(
@@ -133,10 +134,15 @@ def test_sor_kernel_plain_matches_pallas(rng, monkeypatch):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-5)
 
 
-def test_sor_kernel_refuses_unported_modes():
+def test_sor_kernel_refuses_unported_modes(rng):
+    """Block mode (K11) raises; ``member=`` (K6) runs the member-masked
+    plain solve (test_torch_tiled_kernels_ref.py holds it to JAX)."""
     d = torch.zeros((8, 8))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sor_solve_kernel(d, member=(4, 4))
+    dm = torch.from_numpy(rng.standard_normal((8, 12)).astype(F))
+    got = sor_solve_kernel(dm, 1.0, 3, 1.96, member=(4, 6))
+    assert torch.equal(got, sor_solve_reference(dm, 1.0, 3, 1.96,
+                                                member=(4, 6)))
+    assert not torch.equal(got, sor_solve_kernel(dm, 1.0, 3, 1.96))
     for kw in (dict(global_offset=torch.zeros(2)), dict(global_shape=(8, 8)),
                dict(halo=20)):
         with pytest.raises(NotImplementedError, match="item 10"):
