@@ -58,12 +58,35 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    the tiled ``make_step_render``, each bit-identical to the plain path on
    the card; member 0 also equals the member stepped alone through
    ``make_step`` on the non-member kernels, bit for bit.
+15. Block mode (K11) of K1, K2 and K4 against the plain versions: every
+   block of 130x200 cut 2x2, and the (0, 0) and (4096, 4096) blocks of
+   8192^2 cut into 4096^2 blocks (K2 on the f32 velocity with
+   ``return_minmax`` and on the bf16 dye with the clip, K1 with and without
+   impulses, K4, at iters 10); bit-equality is expected.
+16. The sharded main path: ``examples/config5_8192_sharded.json`` with
+   config 0's kernel settings (``fused_pallas``, ``advect_impl="pallas"``)
+   on a 2x2 mesh of the one card (four 4096^2 blocks on cuda:0): 10 steps
+   of ``make_sharded_step`` (launch counters: K1 block = 4*steps, K2 block =
+   8*steps), bit-identical to the single-device ``make_step`` at 8192^2 and
+   to the plain path; then config 5 as written (eager SOR and advection)
+   for 2 steps against the single-device eager step.
+17. The other sharded routes on the card, each on a 2x2 mesh:
+   ``sor_pallas`` at 4096^2 (K4 block = 4*steps), MacCormack with kernel
+   advection at 2048^2 (K2 block with ``return_minmax``), bit-identical to
+   the single-device step; ``make_sharded_step_with_metrics``; the sharded
+   render (every pixel equal); config 4 through
+   ``make_sharded_ensemble_step``, each shard's members bit-identical to
+   them stepped alone through ``make_ensemble_step`` (the whole ensemble
+   differs off shard (0, 0), where the coordinates are shard-local; the
+   difference is printed).
 5. Times (CUDA events), last: ms/step of the kernel and plain paths at
    4096^2, at 256^3, of config 3, of the ``sor_pallas`` step, of config 2
    and of config 4 (whole-ensemble step, member-steps/s, the rollout's step,
    the tiled ``step_render``, and the step's split into kernels, overlay
    build and layout permutes), and ms per call of each kernel and mode and
-   its plain version.
+   its plain version; the sharded step at 8192^2 beside the single-device
+   step, its split (K1 block x4, K2 block x8, the halo exchanges) and each
+   block mode beside its whole-grid kernel at 4096^2.
 
 Each kernel's entry in the summary carries its bound: the larger of the
 bytes it must move (each input read once, each output written once) over
@@ -91,6 +114,7 @@ CONFIG0 = ROOT / "examples" / "config0_4096_production.json"
 CONFIG2 = ROOT / "examples" / "config2_512_vorticity_ab.json"
 CONFIG3 = ROOT / "examples" / "config3_2048_maccormack_multigrid.json"
 CONFIG4 = ROOT / "examples" / "config4_ensemble_256.json"
+CONFIG5 = ROOT / "examples" / "config5_8192_sharded.json"
 SMOKE_GOLDEN = ROOT / "tests" / "golden" / "path_smoke3d.npz"
 MAIN_STEPS = 30
 RENDER_STEPS = 3
@@ -101,6 +125,15 @@ CONFIG2_STEPS = 20
 METRIC_STEPS = 5
 ENSEMBLE_STEPS = 10
 ENSEMBLE_N = 256
+SHARDED_STEPS = 10
+SHARDED_EAGER_STEPS = 2
+ROUTE_STEPS = 3
+MESH_2X2 = (2, 2)
+SWIRL_SPEED = 300.0            # scripted_swirl's default poke, cells/s
+# phase 15's (grid, block, block origins): every block of 130x200 cut 2x2,
+# and the corner and far blocks of 8192^2 cut into 4096^2 blocks
+BLOCK_CASES = (((130, 200), (65, 100), ((0, 0), (0, 100), (65, 0), (65, 100))),
+               ((8192, 8192), (4096, 4096), ((0, 0), (4096, 4096))))
 # (grid, member tile): odd members, even members, config 4's supergrid
 TILINGS = (((34, 63), (17, 21)), ((64, 128), (32, 64)),
            ((4096, 4096), (256, 256)))
@@ -155,6 +188,14 @@ KERNELS = {
                                     f"{TPU}/ops/pallas/advect.py:601"),
     "K6 K1 project_fused member": (f"{PKG}/csrc/project.cu",
                                    f"{TPU}/ops/pallas/project.py:121"),
+    # K11, block mode: K1 and K2 on the sharded main path, K4 on the
+    # sharded sor_pallas route
+    "K11 K1 project_fused block": (f"{PKG}/csrc/project.cu",
+                                   f"{TPU}/ops/pallas/project.py:212"),
+    "K11 K2 advect_kernel block": (f"{PKG}/csrc/advect.cu",
+                                   f"{TPU}/ops/pallas/advect.py:741"),
+    "K11 K4 sor_solve_kernel block": (f"{PKG}/csrc/sor.cu",
+                                      f"{TPU}/ops/pallas/sor.py:101"),
 }
 
 
@@ -440,6 +481,11 @@ def reset_counts():
         "K6 K4 member": (sor_solve_kernel, "member_launches"),
         "K6 K5 member": (maccormack_forward, "member_launches"),
         "K6 K5 backward member": (maccormack_backward, "member_launches"),
+        # block mode (K11)
+        "K11 K1 project_fused block": (project_fused, "block_launches"),
+        "K11 K2 advect_kernel block": (advect_kernel, "block_launches"),
+        "K11 K4 sor_solve_kernel block": (sor_solve_kernel,
+                                          "block_launches"),
     }
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
@@ -1537,6 +1583,526 @@ def phase5_smoke_timing(dev, cfg, state, card):
     }
 
 
+def haloed(x, off, bshape, g):
+    """The ``bshape`` block at ``off`` with ``g`` ghost cells per side, cut
+    from the zero-padded field (what the halo exchange builds there)."""
+    pad = torch.nn.functional.pad(x, (g, g, g, g))
+    return pad[..., off[0]:off[0] + bshape[0] + 2 * g,
+               off[1]:off[1] + bshape[1] + 2 * g].contiguous()
+
+
+def phase15_block_kernels(dev):
+    """K11: block mode of K1, K2 and K4 against the plain versions, on
+    every 65x100 block of 130x200 and on two 4096^2 blocks of 8192^2.
+    Returns the largest difference per summary row."""
+    from esp32_fluid_simulation_tpu_torch import SimConfig, Impulses
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
+        advect_kernel, advect_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.modes import check_block
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
+        project_fused, project_fused_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import (
+        sor_solve_kernel, sor_solve_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    err = {}
+
+    def check(name, label, got, want):
+        err[name] = max(err.get(name, 0.0), compare(label, got, want))
+
+    dt, md, it = 1.0 / 30.0, 12, 10
+    for gshape, bshape, offsets in BLOCK_CASES:
+        h, w = gshape
+        print(f"phase 15 K11 block modes vs plain at {h}x{w}, blocks "
+              f"{bshape[0]}x{bshape[1]}")
+        # sigma 200 cells/s: |v|*dt > max_disp=12 on ~7% of the cells
+        vel = 200.0 * torch.randn((2, h, w), generator=gen, device=dev)
+        dye = (2.0 * torch.rand((3, h, w), generator=gen, device=dev)
+               - 0.5).to(torch.bfloat16)
+        d = torch.randn(gshape, generator=gen, device=dev)
+        # a duplicated cell, an out-of-range position and one on the first
+        # block's edge
+        imp = Impulses.from_lists(
+            SimConfig(shape=gshape),
+            [(20, 30), (20, 30), (h // 2, w // 3), (h + 50, -3),
+             (bshape[0], bshape[1] - 1)],
+            [(90.0, -45.0), (33.0, 44.0), (-60.0, 120.0), (7.0, 8.0),
+             (-20.0, 65.0)], device=dev)
+        for off in offsets:
+            kw = dict(global_offset=off, global_shape=gshape)
+
+            def cut(x, g):
+                """(haloed block, its modes.Block)."""
+                return haloed(x, off, bshape, g), check_block(
+                    "phase 15", off, gshape, g,
+                    (bshape[0] + 2 * g, bshape[1] + 2 * g), 0, "")
+
+            vown = haloed(vel, off, bshape, 0)
+            for field, no_slip, clip01, minmax, label in (
+                    (vel, True, False, True, "f32 velocity no_slip minmax"),
+                    (dye, False, True, False, "bf16 dye clip01"),
+                    (dye[0].contiguous(), False, False, True,
+                     "bf16 1ch minmax")):
+                fpad, blk = cut(field, md + 1)
+                got = advect_kernel(fpad, vown, dt, no_slip, max_disp=md,
+                                    clip01=clip01, return_minmax=minmax,
+                                    halo=md + 1, **kw)
+                want = advect_reference(fpad, vown, dt, no_slip, md,
+                                        clip01=clip01, return_minmax=minmax,
+                                        block=blk)
+                if not minmax:
+                    got, want = (got,), (want,)
+                for g_, w_ in zip(got, want):
+                    check("K11 K2 advect_kernel block",
+                          f"K2 block {label} at {off}", g_, w_)
+            vpad, blk = cut(vel, 2 * it + 2)
+            for impulses in (imp, None):
+                label = "impulses" if impulses is not None else "none"
+                got = project_fused(vpad, 1.0, it, 1.96, impulses=impulses,
+                                    halo=2 * it + 2, **kw)
+                want = project_fused_reference(vpad, 1.0, it, 1.96,
+                                               impulses, block=blk)
+                for g_, w_, part in zip(got, want, ("velocity", "pressure")):
+                    check("K11 K1 project_fused block",
+                          f"K1 block {part} ({label}) at {off}", g_, w_)
+            dpad, blk = cut(d, 2 * it)
+            check("K11 K4 sor_solve_kernel block", f"K4 block at {off}",
+                  sor_solve_kernel(dpad, 1.0, it, 1.96, halo=2 * it, **kw),
+                  sor_solve_reference(dpad, 1.0, it, 1.96, block=blk))
+        del vel, dye, d
+    return err
+
+
+def sharded_run(fn, state, imps):
+    """``fn`` over ``imps`` from ``state``, the launch counters reset just
+    before and read just after; returns (state, counts)."""
+    torch.cuda.synchronize()
+    counts = reset_counts()
+    for imp in imps:
+        state = fn(state, imp)
+    torch.cuda.synchronize()
+    return state, counts()
+
+
+def check_counts(phase, n, want):
+    bad = {k: (n[k], v) for k, v in want.items() if n[k] != v}
+    if bad:
+        raise AssertionError(f"phase {phase}: launch counts (got, want) "
+                             f"{bad}")
+
+
+def same_state(phase, label, got, want):
+    """Print how far two states are apart; True when bit-identical."""
+    dv = float((got.velocity - want.velocity).abs().max())
+    dc = float((got.color.float() - want.color.float()).abs().max())
+    eq = float((got.color == want.color).float().mean())
+    same = (torch.equal(got.velocity, want.velocity)
+            and torch.equal(got.color, want.color))
+    print(f"phase {phase} {label}: max|dv|={dv:.3g} max|dc|={dc:.3g} dye "
+          f"equal={100 * eq:.4f}% bit-identical={same}")
+    return same
+
+
+def stepped(fn, state, imps):
+    for imp in imps:
+        state = fn(state, imp)
+    return state
+
+
+def phase16_sharded_main_path(dev):
+    """Config 5 at 8192^2 with config 0's kernel settings on a 2x2 mesh of
+    the card.  Returns the K11 counts of the run, the config, the mesh,
+    the first state and the sharded state after the run."""
+    from esp32_fluid_simulation_tpu_torch import (SimConfig, SimState,
+                                                  init_state, make_step)
+    from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
+    from esp32_fluid_simulation_tpu_torch.parallel import (
+        make_mesh, make_sharded_step, shard_state, unshard_state)
+
+    cfg5 = SimConfig.from_json(CONFIG5.read_text())
+    cfg = dataclasses.replace(cfg5, solver="fused_pallas",
+                              advect_impl="pallas")
+    mesh = make_mesh([dev] * 4, grid_shape=MESH_2X2)
+    steps = SHARDED_STEPS
+    state0 = init_state(cfg, device=dev)
+    imps = [scripted_swirl(cfg, t, device=dev) for t in range(steps)]
+    sh, n = sharded_run(make_sharded_step(cfg, mesh),
+                        shard_state(state0, cfg, mesh), imps)
+    k11 = {k: n[k] for k in ("K11 K1 project_fused block",
+                             "K11 K2 advect_kernel block")}
+    check_counts(16, n, {"K11 K1 project_fused block": 4 * steps,
+                         "K11 K2 advect_kernel block": 8 * steps,
+                         "K1 project_fused": 4 * steps,
+                         "K2 advect_kernel": 8 * steps,
+                         "K11 K4 sor_solve_kernel block": 0,
+                         "K5 advect_maccormack_kernel": 0})
+    st = unshard_state(sh, dev)
+    if not (torch.isfinite(st.velocity).all()
+            and torch.isfinite(st.color.float()).all()):
+        raise AssertionError("phase 16: non-finite state")
+    lo, hi = float(st.color.min()), float(st.color.max())
+    if lo < 0.0 or hi > 1.0 or st.step != steps:
+        raise AssertionError(f"phase 16: dye in [{lo}, {hi}] at step "
+                             f"{st.step}")
+    print(f"phase 16 sharded main path {cfg.shape[0]}x{cfg.shape[1]} on a "
+          f"{MESH_2X2[0]}x{MESH_2X2[1]} mesh of {dev}, {steps} steps of "
+          f"make_sharded_step: launches {k11}; finite, dye in [{lo}, {hi}],"
+          f" max |v| {float(st.velocity.norm(dim=0).max()):.4g}")
+    ok = same_state(16, "vs the single-device make_step", st,
+                    stepped(make_step(cfg), state0, imps))
+    ps = SimState(state0.velocity.clone(), state0.color.clone(), 0)
+    ok = same_state(16, "vs the plain path on the card", st, stepped(
+        lambda s, i: plain_step(s, i, cfg), ps, imps)) and ok
+    if not ok:
+        raise AssertionError("phase 16: the sharded kernel route differs "
+                             "from the single-device step")
+    del st
+
+    # config 5 as written: advect_impl "auto" is the eager route in the
+    # sharded step; the single-device eager step is advect_impl "jnp"
+    imps = imps[:SHARDED_EAGER_STEPS]
+    eager, ne = sharded_run(make_sharded_step(cfg5, mesh), shard_state(
+        init_state(cfg5, device=dev), cfg5, mesh), imps)
+    check_counts(16, ne, {k: 0 for k in ne})
+    got = unshard_state(eager, dev)
+    cfg_e = dataclasses.replace(cfg5, advect_impl="jnp")
+    want = stepped(make_step(cfg_e), init_state(cfg_e, device=dev), imps)
+    same_state(16, f"config 5 as written (solver {cfg5.solver}, eager "
+               f"advection), {len(imps)} steps vs the single-device eager "
+               "step", got, want)
+    # stated tolerance: the eager advection rebases coordinates into the
+    # shard window (si - ox + k), which may round by one ulp, so the
+    # velocity is held in units of the swirl's speed (300 cells/s) at rtol
+    # 1e-5 / atol 1e-5, as the tests hold a self-advected velocity; the
+    # bf16 dye lerps in bf16, where such a shift moves a cell by less than
+    # one bf16 ulp of the dye's unit scale (atol 2^-8; 2^-14 seen on the
+    # card, at cells of ~4e-4 on a shard edge)
+    torch.testing.assert_close(got.velocity / SWIRL_SPEED,
+                               want.velocity / SWIRL_SPEED, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(got.color.float(), want.color.float(),
+                               rtol=0, atol=2.0 ** -8)
+    return k11, cfg, mesh, state0, sh
+
+
+def phase17_sharded_routes(dev, mesh):
+    """The other sharded routes on a 2x2 mesh of the card.  Returns K4
+    block's count on the sor_pallas route, its config and the sharded state
+    after it."""
+    from esp32_fluid_simulation_tpu_torch import (
+        Impulses, SimConfig, SimState, init_ensemble, init_state,
+        make_ensemble_step, make_step, make_step_with_metrics, render_rgb565)
+    from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
+    from esp32_fluid_simulation_tpu_torch.parallel import (
+        gather, make_sharded_ensemble_step, make_sharded_render,
+        make_sharded_step, make_sharded_step_with_metrics, shard_state,
+        unshard_state)
+
+    steps = ROUTE_STEPS
+    cfg0 = SimConfig.from_json(CONFIG0.read_text())
+    cfg3 = SimConfig.from_json(CONFIG3.read_text())
+    routes = (
+        ("sor_pallas", dataclasses.replace(cfg0, solver="sor_pallas"),
+         {"K11 K4 sor_solve_kernel block": 4 * steps,
+          "K11 K2 advect_kernel block": 8 * steps,
+          "K11 K1 project_fused block": 0}),
+        ("MacCormack + kernel advection (config 3 with fused_pallas)",
+         dataclasses.replace(cfg3, advect_impl="pallas",
+                             solver="fused_pallas"),
+         {"K11 K2 advect_kernel block": 16 * steps,
+          "K11 K1 project_fused block": 4 * steps,
+          "K5 advect_maccormack_kernel": 0}))
+    k4 = None
+    for label, cfg, want in routes:
+        state0 = init_state(cfg, device=dev)
+        imps = [scripted_swirl(cfg, t, device=dev) for t in range(steps)]
+        sh, n = sharded_run(make_sharded_step(cfg, mesh),
+                            shard_state(state0, cfg, mesh), imps)
+        check_counts(17, n, want)
+        if k4 is None:
+            k4 = (n["K11 K4 sor_solve_kernel block"], cfg, sh)
+        if not same_state(17, f"{label} {cfg.shape[0]}x{cfg.shape[1]} "
+                          f"{steps} steps, launches "
+                          f"{ {k: n[k] for k in want} }, vs the "
+                          "single-device make_step",
+                          unshard_state(sh, dev),
+                          stepped(make_step(cfg), state0, imps)):
+            raise AssertionError(f"phase 17: {label} differs from the "
+                                 "single-device step")
+
+    # metrics at 4096^2 on the kernel route
+    imps = [scripted_swirl(cfg0, t, device=dev) for t in range(2)]
+    st = init_state(cfg0, device=dev)
+    sh = shard_state(st, cfg0, mesh)
+    mfn = make_sharded_step_with_metrics(cfg0, mesh)
+    for imp in imps:
+        st, want = make_step_with_metrics(cfg0)(st, imp)
+        sh, got = mfn(sh, imp)
+    print("phase 17 make_sharded_step_with_metrics 4096^2: "
+          + ", ".join(f"{k} {float(got[k]):.6g} (single {float(want[k]):.6g})"
+                      for k in want))
+    for key in ("div_pre_max", "div_post_max", "poisson_residual_l2",
+                "max_speed"):
+        # stated tolerance (test_sharded.py:204-205): the shards' sums and
+        # maxima combine in another order
+        np.testing.assert_allclose(float(got[key]), float(want[key]),
+                                   rtol=1e-4, atol=1e-5)
+    if not (bool(got["finite"]) and same_state(
+            17, "metrics step vs single-device step_with_metrics",
+            unshard_state(sh, dev), st)):
+        raise AssertionError("phase 17: the sharded metrics step differs")
+
+    # the sharded render at s=1 and s=4, every pixel
+    color = unshard_state(sh, dev).color
+    for s in (1, 4):
+        cfg_s = dataclasses.replace(cfg0, scaling=s)
+        got = gather(make_sharded_render(cfg_s, mesh)(sh.color), dev)
+        want = render_rgb565(color, s=s)
+        eq = float((got == want).float().mean())
+        print(f"phase 17 make_sharded_render s={s}: frame "
+              f"{tuple(got.shape)}, {100 * eq:.4f}% pixels equal")
+        if got.shape != want.shape or eq != 1.0:
+            raise AssertionError(f"phase 17: sharded render s={s} differs")
+
+    # config 4 through the sharded ensemble step
+    member_cfg = SimConfig.from_json(CONFIG4.read_text())
+    n_mem = ENSEMBLE_N
+    ens0 = init_ensemble(member_cfg, n_mem, device=dev)
+    sched = config4_schedule(member_cfg, n_mem, steps, dev)
+    fn, cfg_super = make_sharded_ensemble_step(member_cfg, mesh, n_mem)
+    got = stepped(fn, ens0, sched)
+    want = stepped(make_ensemble_step(member_cfg), ens0, sched)
+    # each shard steps its members on a shard-local supergrid, as in JAX:
+    # the backtrace coordinates of the members off shard (0, 0) are smaller
+    # than on the whole supergrid and round otherwise (ROADMAP queue 3), so
+    # the whole ensemble is not bit-identical; its difference is printed
+    same_state(17, f"config 4 make_sharded_ensemble_step ({n_mem} members, "
+               f"{steps} steps) vs make_ensemble_step", got, want)
+    gh, gw = (n // m for n, m in zip(cfg_super.shape, member_cfg.shape))
+    sx, sy = gh // MESH_2X2[0], gw // MESH_2X2[1]
+    alone_step = make_ensemble_step(member_cfg)
+    for a in range(MESH_2X2[0]):
+        for b in range(MESH_2X2[1]):
+            # shard (a, b)'s members, stepped alone through
+            # make_ensemble_step: the same sx x sy supergrid, the same
+            # coordinates, bit-identical
+            idx = torch.tensor([(a * sx + r) * gw + b * sy + c
+                                for r in range(sx) for c in range(sy)],
+                               device=dev)
+            alone = stepped(alone_step, SimState(
+                ens0.velocity[idx], ens0.color[idx], ens0.step),
+                [Impulses(*(x[idx] for x in imp)) for imp in sched])
+            if not (torch.equal(got.velocity[idx], alone.velocity)
+                    and torch.equal(got.color[idx], alone.color)):
+                raise AssertionError(f"phase 17: shard ({a}, {b})'s members "
+                                     "differ from their run alone")
+            if (a, b) == (0, 0) and not (
+                    torch.equal(got.velocity[idx], want.velocity[idx])
+                    and torch.equal(got.color[idx], want.color[idx])):
+                raise AssertionError("phase 17: shard (0, 0)'s members "
+                                     "differ from the whole ensemble's")
+    if not (torch.isfinite(got.velocity).all()
+            and torch.isfinite(got.color).all()):
+        raise AssertionError("phase 17: non-finite sharded ensemble")
+    print(f"phase 17 config 4: each shard's {sx * sy} members bit-identical "
+          f"to them stepped alone through make_ensemble_step ({sx}x{sy} "
+          "supergrid); shard (0, 0)'s also to the whole ensemble's")
+    return k4
+
+
+def phase5_sharded_timing(dev, card, cfg, mesh, state0, sh, k4_path):
+    """Times of the sharded main path at 8192^2 beside the single-device
+    step, its split, and each block mode beside its whole-grid kernel at
+    4096^2; returns the K11 rows' work per main-path step."""
+    from esp32_fluid_simulation_tpu_torch import make_step
+    from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
+        advect_kernel, advect_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.modes import check_block
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
+        project_fused, project_fused_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import (
+        sor_solve_kernel, sor_solve_reference)
+    from esp32_fluid_simulation_tpu_torch.ops.fd import divergence
+    from esp32_fluid_simulation_tpu_torch.parallel import (make_sharded_step,
+                                                           unshard_state)
+    from esp32_fluid_simulation_tpu_torch.parallel.sharded import (
+        Shards, _exchange2)
+
+    imps = [scripted_swirl(cfg, t, device=dev) for t in range(8)]
+    res = {}
+    step = make_sharded_step(cfg, mesh)
+    box = {"st": sh, "t": 0}
+
+    def sharded_one():
+        box["st"] = step(box["st"], imps[box["t"] % 8])
+        box["t"] += 1
+
+    one = make_step(cfg)
+    sbox = {"st": state0, "t": 0}
+
+    def single_one():
+        sbox["st"] = one(sbox["st"], imps[sbox["t"] % 8])
+        sbox["t"] += 1
+
+    res["single-device step 8192^2"] = cuda_ms(single_one, 5, warmup=1)
+    res["sharded step 8192^2 (2x2)"] = cuda_ms(sharded_one, 5, warmup=1)
+    res["sharded step 8192^2 (2x2) again"] = cuda_ms(sharded_one, 5,
+                                                     warmup=0)
+    res["single-device step 8192^2 again"] = cuda_ms(single_one, 5,
+                                                     warmup=0)
+
+    # the split, at the state the chain reached
+    st = box["st"]
+    lay = Shards(mesh, cfg.shape)
+    md, dt, it = cfg.advect_max_disp, cfg.dt, cfg.sor_iters
+    k, g1 = md + 1, 2 * it + 2
+    vpad13 = _exchange2(st.velocity, k)
+    cpad13 = _exchange2(st.color, k)
+    vpad22 = _exchange2(st.velocity, g1)
+    cells = [(a, b) for a in range(lay.nx) for b in range(lay.ny)]
+
+    def over(fn):
+        return lambda: [fn(a, b) for a, b in cells]
+
+    def kw(a, b, g):
+        return dict(global_offset=lay.origin(a, b), global_shape=cfg.shape,
+                    halo=g)
+
+    def blk(a, b, g):
+        return check_block("phase 5", lay.origin(a, b), cfg.shape, g,
+                           (lay.lh + 2 * g, lay.lw + 2 * g), 0, "")
+
+    vel_s, col_s = st.velocity, st.color
+    res["exchange velocity k=13"] = cuda_ms(
+        lambda: _exchange2(vel_s, k), 10, warmup=2)
+    res["exchange dye k=13"] = cuda_ms(lambda: _exchange2(col_s, k), 10,
+                                       warmup=2)
+    res["exchange velocity 2*iters+2=22"] = cuda_ms(
+        lambda: _exchange2(vel_s, g1), 10, warmup=2)
+    res["K2 block velocity x4"], res["K2 block velocity x4 plain"] = (
+        time_pair(over(lambda a, b: advect_kernel(
+            vpad13[a][b], vel_s[a][b], dt, True, max_disp=md, **kw(a, b, k))),
+            over(lambda a, b: advect_reference(
+                vpad13[a][b], vel_s[a][b], dt, True, md,
+                block=blk(a, b, k))), n_kern=5, n_plain=1))
+    res["K2 block dye x4"], res["K2 block dye x4 plain"] = time_pair(
+        over(lambda a, b: advect_kernel(
+            cpad13[a][b], vel_s[a][b], dt, False, max_disp=md, clip01=True,
+            **kw(a, b, k))),
+        over(lambda a, b: advect_reference(
+            cpad13[a][b], vel_s[a][b], dt, False, md, clip01=True,
+            block=blk(a, b, k))), n_kern=5, n_plain=1)
+    res["K1 block x4"], res["K1 block x4 plain"] = time_pair(
+        over(lambda a, b: project_fused(vpad22[a][b], cfg.dx, it, cfg.omega,
+                                        **kw(a, b, g1))),
+        over(lambda a, b: project_fused_reference(
+            vpad22[a][b], cfg.dx, it, cfg.omega, block=blk(a, b, g1))),
+        n_kern=5, n_plain=1)
+
+    # each block mode beside its whole-grid kernel at 4096^2: the owned
+    # block (0, 0) alone
+    v0 = vel_s[0][0]
+    c0 = col_s[0][0]
+    res["K1 4096^2 whole grid"] = cuda_ms(
+        lambda: project_fused(v0, cfg.dx, it, cfg.omega), 10, warmup=2)
+    res["K1 block 4096^2 (haloed 4140^2)"] = cuda_ms(
+        lambda: project_fused(vpad22[0][0], cfg.dx, it, cfg.omega,
+                              **kw(0, 0, g1)), 10, warmup=2)
+    # a wider halo whose rows start on 128-byte lines (4160 floats): does
+    # the 4140-float row pitch cost K1 block its time over K1?
+    vpad32 = _exchange2(vel_s, 32)[0][0]
+    res["K1 block 4096^2 (haloed 4160^2, aligned rows)"] = cuda_ms(
+        lambda: project_fused(vpad32, cfg.dx, it, cfg.omega,
+                              **kw(0, 0, 32)), 10, warmup=2)
+    del vpad32
+    res["K2 velocity 4096^2 whole grid"] = cuda_ms(
+        lambda: advect_kernel(v0, v0, dt, True, md, self_advect=True), 10,
+        warmup=2)
+    res["K2 block velocity 4096^2"] = cuda_ms(
+        lambda: advect_kernel(vpad13[0][0], v0, dt, True, max_disp=md,
+                              **kw(0, 0, k)), 10, warmup=2)
+    res["K2 dye 4096^2 whole grid"] = cuda_ms(
+        lambda: advect_kernel(c0, v0, dt, False, md, clip01=True), 10,
+        warmup=2)
+    res["K2 block dye 4096^2"] = cuda_ms(
+        lambda: advect_kernel(cpad13[0][0], v0, dt, False, max_disp=md,
+                              clip01=True, **kw(0, 0, k)), 10, warmup=2)
+    d0 = divergence(v0, cfg.dx)
+    d0pad = torch.nn.functional.pad(d0, (2 * it,) * 4)
+    res["K4 4096^2 whole grid"] = cuda_ms(
+        lambda: sor_solve_kernel(d0, cfg.dx, it, cfg.omega), 10, warmup=2)
+    res["K4 block 4096^2 (haloed 4116^2)"] = cuda_ms(
+        lambda: sor_solve_kernel(d0pad, cfg.dx, it, cfg.omega,
+                                 global_offset=(0, 0),
+                                 global_shape=cfg.shape, halo=2 * it),
+        10, warmup=2)
+
+    # K4 block on its own route's shapes: sor_pallas at 4096^2 on 2x2
+    _, cfg4k, sh4 = k4_path
+    lay4 = Shards(mesh, cfg4k.shape)
+    div4 = lay4.split(divergence(unshard_state(sh4, dev).velocity, cfg4k.dx))
+    dpad4 = _exchange2(div4, 2 * it)
+    cells4 = [(a, b) for a in range(lay4.nx) for b in range(lay4.ny)]
+
+    def kw4(a, b):
+        return dict(global_offset=lay4.origin(a, b),
+                    global_shape=cfg4k.shape, halo=2 * it)
+
+    res["K4 block x4 (sor_pallas 4096^2 on 2x2)"], \
+        res["K4 block x4 plain"] = time_pair(
+            lambda: [sor_solve_kernel(dpad4[a][b], cfg4k.dx, it,
+                                      cfg4k.omega, **kw4(a, b))
+                     for a, b in cells4],
+            lambda: [sor_solve_reference(
+                dpad4[a][b], cfg4k.dx, it, cfg4k.omega, block=check_block(
+                    "phase 5", lay4.origin(a, b), cfg4k.shape, 2 * it,
+                    dpad4[a][b].shape, 0, "")) for a, b in cells4],
+            n_kern=5, n_plain=1)
+    print(f"phase 5 timing of the sharded path on {card} (CUDA events, ms "
+          "per call; x4 = the four shards' calls of one step):")
+    for key, v in res.items():
+        print(f"  {key}: {v:.4f} ms")
+    parts = (res["K1 block x4"] + res["K2 block velocity x4"]
+             + res["K2 block dye x4"] + res["exchange velocity k=13"]
+             + res["exchange dye k=13"]
+             + res["exchange velocity 2*iters+2=22"])
+    print(f"  split of the sharded step: K1 block x4 {res['K1 block x4']:.4f}"
+          f", K2 block x8 "
+          f"{res['K2 block velocity x4'] + res['K2 block dye x4']:.4f}, "
+          f"exchanges {parts - res['K1 block x4'] - res['K2 block velocity x4'] - res['K2 block dye x4']:.4f}"
+          f" = {parts:.4f} of {res['sharded step 8192^2 (2x2)']:.4f} ms")
+
+    def total(grid):
+        return sum(nbytes(x) for row in grid for x in row)
+
+    owned_v, owned_c = total(vel_s), total(col_s)
+    haloed22 = sum(x[0].numel() for row in vpad22 for x in row)
+    # K2 block: the velocity pass reads the velocity once (its haloed
+    # copy holds the owned cells; the second, owned array the kernel also
+    # reads is a cost of the two-array design, not of the function) and
+    # writes the owned block; the dye pass reads the haloed dye and the
+    # owned velocity and writes the owned dye
+    k2_bytes = (total(vpad13) + owned_v) + (total(cpad13) + owned_v
+                                            + owned_c)
+    return {
+        "K11 K1 project_fused block": (
+            res["K1 block x4"], res["K1 block x4 plain"],
+            total(vpad22) + owned_v + owned_v // 2,
+            haloed22 * (13 + 8 * it)),
+        "K11 K2 advect_kernel block": (
+            res["K2 block velocity x4"] + res["K2 block dye x4"],
+            res["K2 block velocity x4 plain"] + res["K2 block dye x4 plain"],
+            k2_bytes,
+            (owned_v // 8) * (49 + 60)),
+        "K11 K4 sor_solve_kernel block": (
+            res["K4 block x4 (sor_pallas 4096^2 on 2x2)"],
+            res["K4 block x4 plain"],
+            total(dpad4) + total(div4),
+            sum(x.numel() for row in dpad4 for x in row) * (1 + 8 * it)),
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -1561,6 +2127,7 @@ def main():
     err.update(phase1b_kernels3d(dev))
     for name, e in phase13_k6_kernels(dev).items():
         err[name] = max(err.get(name, 0.0), e)
+    err.update(phase15_block_kernels(dev))
     phase2_golden(dev)
     cfg = SimConfig.from_json(CONFIG0.read_text())
     counts, state0 = phase3_4_main_path(dev, cfg)
@@ -1575,6 +2142,10 @@ def main():
     phase12_metrics(dev, cfg, state0)
     counts4, member_cfg, ens0, sched = phase14_config4(dev)
     counts.update(counts4)
+    k11, cfg5, mesh, state5, sh5 = phase16_sharded_main_path(dev)
+    counts.update(k11)
+    k4_path = phase17_sharded_routes(dev, mesh)
+    counts["K11 K4 sor_solve_kernel block"] = k4_path[0]
     work = phase5_timing(dev, cfg, state0, card)
     work.update(phase5_smoke_timing(dev, scfg, smoke, card))
     work.update(phase5_k4_k5_timing(dev, card, {
@@ -1582,6 +2153,8 @@ def main():
         "sor_pallas step": (cfg_sor, st_sor, False),
         "config2 step_render": (cfg2, st2, True)}))
     work.update(phase5_config4_timing(dev, card, member_cfg, ens0, sched))
+    work.update(phase5_sharded_timing(dev, card, cfg5, mesh, state5, sh5,
+                                      k4_path))
 
     for name, n in counts.items():
         if n == 0:

@@ -14,7 +14,8 @@ unless the caller names another device.  Layout:
   L3  application runtime    ``models/`` step functions (the 2D dye bed,
                              its ensembles and tiled domains, the 3D smoke
                              plume), ``render/``,
-                             ``io_host/`` touch input
+                             ``io_host/`` touch input, ``parallel/``
+                             single-process meshes (the 2D sharded step)
 """
 
 from .config import SimConfig, reference_config

@@ -59,6 +59,21 @@
 // 4 B per cell of reads (the flag channel), and C x 4 B more only at the
 // flagged cells.  Also a template flag; it combines with
 // neither the extrema nor the frame, as in the TPU kernel.
+//
+// Block mode (K11, the global_offset= argument of advect_pallas,
+// advect.py:741-747, 786-795, called per shard by parallel/sharded.py): the
+// output and the velocity are one shard's owned H x W block at global
+// (ox, oy) of a GH x GW domain, the field the same block with a halo of at
+// least max_disp + 1 exchanged cells per side.  The backtrace, the clamps
+// and the no-slip factor are computed in global float coordinates exactly
+// as without block mode (integer-valued floats below 2^24 are exact), and
+// only the tap addresses move: global row i0 is haloed row i0 - ox + halo
+// (the TPU kernel's rel_i, advect.py:143).  So a block's cells are bit-equal
+// to the same cells of the whole-grid launch.  A template flag; it takes
+// the raw extrema (the sharded MacCormack's predictor) and the dye clip,
+// not the member, the overlay or the frame, as in the TPU kernel.  It reads
+// the field's halo ring beyond what the block's own launch would (about
+// 2% more cells at a 4096^2 block with halo 13).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -124,10 +139,10 @@ __device__ __forceinline__ int quant_unit(float v, int bits) {
   return min((int)(v * (float)(1 << bits)), (1 << bits) - 1);
 }
 
-// The bilinear stencil of one backtraced point: the base tap, the weights
-// and the no-slip factor (advect.py:81-167).
+// The bilinear stencil of one backtraced point: the base tap's global row
+// and column, the weights and the no-slip factor (advect.py:81-167).
 struct Stencil {
-  long base;
+  int i0, j0;
   float di, dj, w_i0, one_m_dj, ns;
 };
 
@@ -169,7 +184,8 @@ __device__ __forceinline__ Stencil stencil(int i, int j, float si_raw,
   s.dj = sj - j0f;
   s.w_i0 = 1.f - s.di;
   s.one_m_dj = 1.f - s.dj;
-  s.base = (long)i0f * W + (long)j0f;
+  s.i0 = (int)i0f;
+  s.j0 = (int)j0f;
   s.ns = ns;
   return s;
 }
@@ -184,9 +200,16 @@ __device__ __forceinline__ float bilerp(const Stencil& s, float t00,
   return no_slip ? a * s.ns : a;
 }
 
-// Everything one launch of the advect kernel takes.  field, out (and lo,
-// hi) are [C, H, W] in the field dtype; overlay is [C+1, H, W] float32 or
-// null; mh = 0 means no member tiling.
+// Block mode's geometry: the owned block's global origin, the field's halo
+// and the domain (halo = 0: not block mode).
+struct Block {
+  int ox, oy, halo, GH, GW;
+};
+
+// Everything one launch of the advect kernel takes.  out (and lo, hi) are
+// [C, H, W] in the field dtype, the field too or, in block mode, [C, H +
+// 2 halo, W + 2 halo]; overlay is [C+1, H, W] float32 or null; mh = 0 means
+// no member tiling.
 struct AdvectArgs {
   const void* field;
   const float* vel;
@@ -196,39 +219,50 @@ struct AdvectArgs {
   void* lo;
   void* hi;
   int H, W, mh, mw;
+  Block blk;
   float dt, max_disp;
   int no_slip, clip01, bswap;
   cudaStream_t stream;
 };
 
-template <typename T, int C, int MM, bool MEMBER, bool OVERLAY>
+template <typename T, int C, int MM, bool MEMBER, bool OVERLAY, bool BLOCK>
 __global__ void advect_kernel(const T* __restrict__ field,
                               const float* __restrict__ vel,
                               const float* __restrict__ overlay,
                               T* __restrict__ out,
                               uint16_t* __restrict__ frame,
                               T* __restrict__ lo, T* __restrict__ hi, int H,
-                              int W, int mh, int mw, float dt, float max_disp,
-                              int no_slip, int clip01, int bswap) {
+                              int W, int mh, int mw, const Block b, float dt,
+                              float max_disp, int no_slip, int clip01,
+                              int bswap) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= H || j >= W) return;
   const long plane = (long)H * W;
   const long c = (long)i * W + j;
-  const Stencil s = stencil<MEMBER>(i, j, (float)i - vel[c] * dt,
-                                    (float)j - vel[plane + c] * dt, H, W,
+  const int gi = BLOCK ? i + b.ox : i;
+  const int gj = BLOCK ? j + b.oy : j;
+  const Stencil s = stencil<MEMBER>(gi, gj, (float)gi - vel[c] * dt,
+                                    (float)gj - vel[plane + c] * dt,
+                                    BLOCK ? b.GH : H, BLOCK ? b.GW : W,
                                     max_disp, no_slip, mh, mw);
+  // the field's row stride and plane, and the base tap within it
+  const int fw = BLOCK ? W + 2 * b.halo : W;
+  const long fplane = BLOCK ? (long)(H + 2 * b.halo) * fw : plane;
+  const long base = BLOCK ? (long)(s.i0 - b.ox + b.halo) * fw +
+                                (s.j0 - b.oy + b.halo)
+                          : (long)s.i0 * W + s.j0;
   // the drain flag of the overlay (a NaN flag writes nothing)
   const bool drain = OVERLAY && overlay[C * plane + c] > 0.f;
 
   float stored[C];
 #pragma unroll
   for (int ch = 0; ch < C; ++ch) {
-    const T* f = field + ch * plane;
-    const float t00 = load(f, s.base);
-    const float t01 = load(f, s.base + 1);
-    const float t10 = load(f, s.base + W);
-    const float t11 = load(f, s.base + W + 1);
+    const T* f = field + ch * fplane;
+    const float t00 = load(f, base);
+    const float t01 = load(f, base + 1);
+    const float t10 = load(f, base + fw);
+    const float t11 = load(f, base + fw + 1);
     float a = bilerp(s, t00, t01, t10, t11, no_slip);
     if (clip01) a = fminf(fmaxf(a, 0.f), 1.f);
     if (drain) a = overlay[ch * plane + c];
@@ -246,7 +280,7 @@ __global__ void advect_kernel(const T* __restrict__ field,
     }
   }
 
-  if (C == 3 && frame != nullptr && i < H - 1 && j < W - 1) {
+  if (!BLOCK && C == 3 && frame != nullptr && i < H - 1 && j < W - 1) {
     int word = (quant_unit(stored[0], 5) << 11) |
                (quant_unit(stored[1 % C], 6) << 5) |
                quant_unit(stored[2 % C], 5);
@@ -255,33 +289,44 @@ __global__ void advect_kernel(const T* __restrict__ field,
   }
 }
 
-template <typename T, int C, int MM, bool MEMBER, bool OVERLAY>
+template <typename T, int C, int MM, bool MEMBER, bool OVERLAY, bool BLOCK>
 cudaError_t launch(const AdvectArgs& a) {
   const dim3 block(32, 8);
   const dim3 grid((a.W + block.x - 1) / block.x,
                   (a.H + block.y - 1) / block.y);
-  advect_kernel<T, C, MM, MEMBER, OVERLAY><<<grid, block, 0, a.stream>>>(
-      static_cast<const T*>(a.field), a.vel, a.overlay, static_cast<T*>(a.out),
-      C == 3 ? a.frame : nullptr, static_cast<T*>(a.lo),
-      static_cast<T*>(a.hi), a.H, a.W, a.mh, a.mw, a.dt, a.max_disp,
-      a.no_slip, a.clip01, a.bswap);
+  advect_kernel<T, C, MM, MEMBER, OVERLAY, BLOCK>
+      <<<grid, block, 0, a.stream>>>(
+          static_cast<const T*>(a.field), a.vel, a.overlay,
+          static_cast<T*>(a.out), C == 3 ? a.frame : nullptr,
+          static_cast<T*>(a.lo), static_cast<T*>(a.hi), a.H, a.W, a.mh, a.mw,
+          a.blk, a.dt, a.max_disp, a.no_slip, a.clip01, a.bswap);
   return cudaGetLastError();
 }
 
-// The member and overlay modes; the overlay only without extrema.
+// The member, overlay and block modes; the overlay only without extrema,
+// block mode alone and without K5's combined extrema.
 template <typename T, int C, int MM>
 cudaError_t dispatch_mode(const AdvectArgs& a) {
   const bool member = a.mh > 0;
-  if (a.overlay != nullptr) {
-    if constexpr (MM == kNone) {
-      return member ? launch<T, C, MM, true, true>(a)
-                    : launch<T, C, MM, false, true>(a);
+  if (a.blk.halo > 0) {
+    if constexpr (MM != kCombined) {
+      if (member || a.overlay != nullptr || a.frame != nullptr)
+        return cudaErrorInvalidValue;
+      return launch<T, C, MM, false, false, true>(a);
     } else {
       return cudaErrorInvalidValue;
     }
   }
-  return member ? launch<T, C, MM, true, false>(a)
-                : launch<T, C, MM, false, false>(a);
+  if (a.overlay != nullptr) {
+    if constexpr (MM == kNone) {
+      return member ? launch<T, C, MM, true, true, false>(a)
+                    : launch<T, C, MM, false, true, false>(a);
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
+  return member ? launch<T, C, MM, true, false, false>(a)
+                : launch<T, C, MM, false, false, false>(a);
 }
 
 template <typename T, int C>
@@ -331,13 +376,14 @@ __global__ void maccormack_correct_kernel(
                                     (float)j + vel[plane + c] * dt, H, W,
                                     max_disp, no_slip, mh, mw);
 
+  const long base = (long)s.i0 * W + s.j0;
 #pragma unroll
   for (int ch = 0; ch < C; ++ch) {
     const T* f = phi_hat + ch * plane;
     const long k = ch * plane + c;
     const float back = round_to<T>(
-        bilerp(s, load(f, s.base), load(f, s.base + 1), load(f, s.base + W),
-               load(f, s.base + W + 1), no_slip));
+        bilerp(s, load(f, base), load(f, base + 1), load(f, base + W),
+               load(f, base + W + 1), no_slip));
     // phi_hat + 0.5 * (field - phi_back), rounded after each op
     const float diff = round_to<T>(load(field, k) - back);
     const float half = round_to<T>(0.5f * diff);
@@ -405,17 +451,22 @@ cudaError_t dispatch_correct(int C, const void* field, const void* phi_hat,
 // minmax = 0); frame: [H-1, W-1] uint16 or null (C == 3 only); lo, hi:
 // [C, H, W] in the field dtype, written when minmax is 1 (the raw tap
 // extrema) or 2 (combined with the stored value), else null; mh, mw: the
-// member tile (mh = 0: none; else mh, mw >= 2 dividing H, W).
+// member tile (mh = 0: none; else mh, mw >= 2 dividing H, W).  Block mode
+// when halo > 0 (no member, overlay or frame; minmax 0 or 1): out, vel, lo
+// and hi are the owned H x W block at global (ox, oy) of a GH x GW domain,
+// field is [C, H + 2 halo, W + 2 halo].
 extern "C" int fluid_advect(const void* field, const void* vel,
                             const void* overlay, void* out, void* frame,
                             void* lo, void* hi, int C, int H, int W,
                             int field_bf16, float dt, int max_disp, int mh,
-                            int mw, int no_slip, int clip01, int bswap,
-                            int minmax, void* stream) {
+                            int mw, int ox, int oy, int halo, int GH, int GW,
+                            int no_slip, int clip01, int bswap, int minmax,
+                            void* stream) {
   const AdvectArgs a{field, static_cast<const float*>(vel),
                      static_cast<const float*>(overlay), out,
-                     static_cast<uint16_t*>(frame), lo, hi, H, W, mh, mw, dt,
-                     (float)max_disp, no_slip, clip01, bswap,
+                     static_cast<uint16_t*>(frame), lo, hi, H, W, mh, mw,
+                     Block{ox, oy, halo, GH, GW}, dt, (float)max_disp,
+                     no_slip, clip01, bswap,
                      static_cast<cudaStream_t>(stream)};
   if (field_bf16) return (int)dispatch_channels<__nv_bfloat16>(C, minmax, a);
   return (int)dispatch_channels<float>(C, minmax, a);

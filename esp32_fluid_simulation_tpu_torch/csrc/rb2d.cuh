@@ -15,17 +15,36 @@
 // neighbour sums read 0 across them and a_ii counts member-local
 // neighbours.  The colour stays the parity of the whole grid, (i + j) % 2,
 // as in the TPU kernel: a member whose origin has odd oi + oj sweeps its
-// colours in the other order than it would alone.  The mode is a template
-// flag; without it the kernels compile to the code they had before.
+// colours in the other order than it would alone.
 //
-// The kernels sit in an anonymous namespace: each .cu file that includes
-// this header compiles its own copy, and the copies do not clash at link.
+// Block mode (K11, the global_offset= argument of the TPU kernels,
+// sor.py:61-76, project.py:103-120): the array is one shard's block with a
+// halo, whose cell (0, 0) sits at global (oi, oj) of a GH x GW domain (oi,
+// oj < 0 on an edge shard).  Walls, a_ii and the colour (gi + gj) & 1 come
+// from the global coordinates; the "read 0" test and a_ii come apart: a
+// neighbour beyond the array reads 0 (the TPU window's zero padding), a_ii
+// counts only the global walls, and cells outside the domain are never
+// updated (they hold the fill's 0).  Wrong values in the outer ring travel
+// one cell per half-sweep and never reach the owned block while the halo
+// is at least the number of half-sweeps.
+//
+// The modes are template flags; without them the kernels compile to the
+// code they had before.  The kernels sit in an anonymous namespace: each
+// .cu file that includes this header compiles its own copy, and the copies
+// do not clash at link.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace {
+
+// Where an array lies in its domain: its rows x cols, the global position
+// of its cell (0, 0) and the domain's extent (oi = oj = 0 and GH, GW = H, W
+// without block mode), and the member tile (mh = 0: none).
+struct Geom {
+  int H, W, oi, oj, GH, GW, mh, mw;
+};
 
 // The four walls around cell (i, j): those of the H x W grid, or with
 // MEMBER those of the cell's mh x mw member tile (mh, mw divide H, W).
@@ -45,24 +64,33 @@ __device__ __forceinline__ Walls walls(int i, int j, int H, int W, int mh,
   }
 }
 
-// One half-sweep over the cells with (i + j) % 2 == color; thread (m, i)
-// owns column j = 2m + ((i + color) & 1).  dxd holds dx * d.
-template <bool MEMBER>
+__device__ __forceinline__ bool in_domain(int gi, int gj, const Geom& g) {
+  return gi >= 0 && gi < g.GH && gj >= 0 && gj < g.GW;
+}
+
+// One half-sweep over the cells with (gi + gj) % 2 == color; thread (m, i)
+// owns column j = 2m + ((i + oi + oj + color) & 1).  dxd holds dx * d.
+template <bool MEMBER, bool BLOCK>
 __global__ void sor_half_sweep_kernel(float* __restrict__ p,
-                                      const float* __restrict__ dxd, int H,
-                                      int W, int mh, int mw, int color,
-                                      float omega, float one_m_w) {
+                                      const float* __restrict__ dxd,
+                                      const Geom g, int color, float omega,
+                                      float one_m_w) {
+  const int W = g.W;
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  const int j = 2 * m + ((i + color) & 1);
-  if (i >= H || j >= W) return;
+  // & 1, not %: oi + oj is negative on an edge shard
+  const int j = 2 * m + ((BLOCK ? i + g.oi + g.oj + color : i + color) & 1);
+  if (i >= g.H || j >= W) return;
+  const int gi = BLOCK ? i + g.oi : i;
+  const int gj = BLOCK ? j + g.oj : j;
+  if (BLOCK && !in_domain(gi, gj, g)) return;  // held at 0
   const long c = (long)i * W + j;
-  const Walls w = walls<MEMBER>(i, j, H, W, mh, mw);
-  // zero ghosts beyond the walls
-  const float up = w.i_lo ? 0.f : p[c - W];
-  const float dn = w.i_hi ? 0.f : p[c + W];
-  const float lf = w.j_lo ? 0.f : p[c - 1];
-  const float rt = w.j_hi ? 0.f : p[c + 1];
+  const Walls w = walls<MEMBER>(gi, gj, g.GH, g.GW, g.mh, g.mw);
+  // zero ghosts beyond the walls (and beyond the array in block mode)
+  const float up = (w.i_lo || (BLOCK && i == 0)) ? 0.f : p[c - W];
+  const float dn = (w.i_hi || (BLOCK && i == g.H - 1)) ? 0.f : p[c + W];
+  const float lf = (w.j_lo || (BLOCK && j == 0)) ? 0.f : p[c - 1];
+  const float rt = (w.j_hi || (BLOCK && j == W - 1)) ? 0.f : p[c + 1];
   const float nb = ((up + dn) + lf) + rt;
   // -1/a_ii with a_ii the in-bounds neighbour count, a LUT of double
   // divisions rounded to float (poisson.cpp:67)
@@ -74,25 +102,31 @@ __global__ void sor_half_sweep_kernel(float* __restrict__ p,
   p[c] = one_m_w * p[c] + omega * (neg_inv * (dxd[c] - nb));
 }
 
-// 2*iters half-sweeps, even parity first, in place on p (blocks of 32x8
-// threads, half a row's width each); mh = 0 means no member tiling.
-// Returns the first launch error.
-inline cudaError_t sor_half_sweeps(float* p, const float* dxd, int H, int W,
-                                   int mh, int mw, int iters, float omega,
-                                   float one_m_w, cudaStream_t s) {
+template <bool MEMBER, bool BLOCK>
+cudaError_t half_sweeps(float* p, const float* dxd, const Geom& g, int iters,
+                        float omega, float one_m_w, cudaStream_t s) {
   const dim3 block(32, 8);
-  const dim3 grid(((W + 1) / 2 + 31) / 32, (H + 7) / 8);
+  // a row's cells of one colour: at most (W + 1) / 2 of them
+  const dim3 grid(((g.W + 1) / 2 + 31) / 32, (g.H + 7) / 8);
   for (int half = 0; half < 2 * iters; ++half) {
-    if (mh > 0)
-      sor_half_sweep_kernel<true><<<grid, block, 0, s>>>(
-          p, dxd, H, W, mh, mw, half % 2, omega, one_m_w);
-    else
-      sor_half_sweep_kernel<false><<<grid, block, 0, s>>>(
-          p, dxd, H, W, mh, mw, half % 2, omega, one_m_w);
+    sor_half_sweep_kernel<MEMBER, BLOCK><<<grid, block, 0, s>>>(
+        p, dxd, g, half % 2, omega, one_m_w);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// 2*iters half-sweeps, even parity first, in place on p (blocks of 32x8
+// threads, half a row's width each), in the modes g asks for.  Returns the
+// first launch error.
+template <bool BLOCK>
+cudaError_t sor_half_sweeps(float* p, const float* dxd, const Geom& g,
+                            int iters, float omega, float one_m_w,
+                            cudaStream_t s) {
+  if (g.mh > 0)
+    return half_sweeps<true, BLOCK>(p, dxd, g, iters, omega, one_m_w, s);
+  return half_sweeps<false, BLOCK>(p, dxd, g, iters, omega, one_m_w, s);
 }
 
 }  // namespace

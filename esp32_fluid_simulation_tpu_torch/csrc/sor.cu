@@ -24,6 +24,15 @@
 // Tiled-domain mode (K6, the member= argument of sor_solve_pallas,
 // sor.py:83): the half-sweeps' member walls, as in K1 (csrc/rb2d.cuh).
 //
+// Block mode (K11, the global_offset= argument of sor_solve_pallas,
+// sor.py:101-110, called per shard by parallel/sharded.py): d is one
+// shard's block with a halo of at least 2*iters exchanged cells per side.
+// The fill and the half-sweeps run over the whole haloed block with the
+// global walls, parity and domain of csrc/rb2d.cuh, and a last launch
+// writes the owned cells into the output.  It streams the haloed block's
+// bytes per half-sweep, as the whole-grid solve does; with 4096^2 blocks of
+// an 8192^2 grid (halo 20) that is 2% more cells than the block.
+//
 // Built with --fmad=false, bit-equal to the plain PyTorch version
 // (ops.poisson.sor_solve: dx * d, then ((up + dn) + lf) + rt and
 // (1-w) p + w (neg_inv (dx d - nb))).
@@ -43,13 +52,27 @@ __global__ void sor_fill_kernel(const float* __restrict__ d,
   p[c] = 0.f;
 }
 
+// The owned bh x bw cells of the haloed block p (halo g per side).
+__global__ void owned_copy_kernel(const float* __restrict__ p,
+                                  float* __restrict__ out, int W, int g,
+                                  int bh, int bw) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= bh || j >= bw) return;
+  out[(long)i * bw + j] = p[(long)(i + g) * W + (j + g)];
+}
+
 }  // namespace
 
 // d, p, dxd: [H, W] float32 (p is the output, dxd scratch; H, W >= 2);
-// mh, mw: the member tile (mh = 0: none; else mh, mw >= 2 dividing H, W).
+// mh, mw: the member tile (mh = 0: none; else mh, mw >= 2 dividing the
+// domain).  Block mode when halo > 0: d, p and dxd are the haloed block,
+// whose cell (0, 0) sits at global (oi, oj) of a GH x GW domain, and the
+// owned (H - 2 halo) x (W - 2 halo) cells of the solve go to p_out.
 extern "C" int fluid_sor(const void* d, void* p, void* dxd, int H, int W,
-                         int mh, int mw, float dx, int iters, float omega,
-                         float one_m_w, void* stream) {
+                         int mh, int mw, int oi, int oj, int GH, int GW,
+                         int halo, void* p_out, float dx, int iters,
+                         float omega, float one_m_w, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pp = static_cast<float*>(p);
   float* dd = static_cast<float*>(dxd);
@@ -57,8 +80,19 @@ extern "C" int fluid_sor(const void* d, void* p, void* dxd, int H, int W,
   const int threads = 256;
   sor_fill_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0, s>>>(
       static_cast<const float*>(d), dd, pp, n, dx);
-  const cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)sor_half_sweeps(pp, dd, H, W, mh, mw, iters, omega,
-                              one_m_w, s);
+  if (halo == 0)
+    return (int)sor_half_sweeps<false>(pp, dd, Geom{H, W, 0, 0, H, W, mh, mw},
+                                       iters, omega, one_m_w, s);
+  err = sor_half_sweeps<true>(pp, dd, Geom{H, W, oi, oj, GH, GW, mh, mw},
+                              iters, omega, one_m_w, s);
+  if (err != cudaSuccess) return (int)err;
+  const int bh = H - 2 * halo;
+  const int bw = W - 2 * halo;
+  const dim3 block(32, 8);
+  const dim3 grid((bw + 31) / 32, (bh + 7) / 8);
+  owned_copy_kernel<<<grid, block, 0, s>>>(pp, static_cast<float*>(p_out), W,
+                                           halo, bh, bw);
+  return (int)cudaGetLastError();
 }

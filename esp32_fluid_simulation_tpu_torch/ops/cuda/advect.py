@@ -35,11 +35,25 @@ K6, the tiled-domain modes (``advect.py:112-165, 601-607``):
   clip, before the store (the drag queue's drain riding the store).  Not
   with ``rgb565`` or ``return_minmax``, as in the JAX package.
 
+K11, block mode (``global_offset=``/``global_shape=``/``halo=``,
+``advect.py:741-747, 786-795``, the sharded step's kernel advection):
+``field`` is one shard's block with ``halo >= max_disp + 1`` exchanged
+cells per side, ``vel`` the owned block without a halo, ``global_offset``
+the owned block's global origin ``(ox, oy)`` (two ints or a 2-element
+integer tensor, read once on the host) and ``global_shape`` the domain.
+The backtrace, the clamps and the no-slip factor are those of the whole
+grid, in global float coordinates; only the taps' rows and columns shift
+into the haloed block, so the owned cells equal the whole grid's to the
+bit.  It takes 1-3 channels, float32 and bfloat16 fields, ``no_slip``,
+``clip01`` and ``return_minmax``; ``self_advect`` and ``overlay`` raise
+``ValueError`` as in JAX, ``member`` and ``rgb565`` (no caller in the JAX
+package) raise ``NotImplementedError``.  K5 refuses block mode with
+``ValueError``, as in JAX: the sharded MacCormack composes K2.
+
 Each mode has its own launch counter beside ``launches``:
-``advect_kernel.member_launches`` and ``.overlay_launches``,
-``maccormack_forward.member_launches`` and
-``maccormack_backward.member_launches``.  Block mode (``global_offset``,
-``global_shape``, ``halo``) is K11 and raises.
+``advect_kernel.member_launches``, ``.overlay_launches`` and
+``.block_launches``, ``maccormack_forward.member_launches`` and
+``maccormack_backward.member_launches``.
 """
 
 from __future__ import annotations
@@ -49,7 +63,7 @@ import torch
 from ...render.upscale import pack_rgb565
 from ..advect import noslip_axis_factor
 from .build import load, stream_of
-from .modes import check_member, refuse_unported
+from .modes import BLOCK_MODE, check_block, check_member, refuse_unported
 
 _NONE, _RAW, _COMBINED = 0, 1, 2   # enum MinMax in csrc/advect.cu
 
@@ -62,24 +76,34 @@ def _origin(n, m, device):
 
 def advect_reference(field, vel, dt, no_slip, max_disp=12, clip01=False,
                      rgb565=False, bswap=True, return_minmax=False,
-                     member=None, overlay=None):
-    """Plain PyTorch version of the kernel (same arithmetic, same order)."""
+                     member=None, overlay=None, block=None):
+    """Plain PyTorch version of the kernel (same arithmetic, same order);
+    ``block`` (a ``modes.Block``) is block mode: ``field`` haloed, ``vel``
+    and the result the owned block."""
     squeeze = field.dim() == 2
     f = (field[None] if squeeze else field).to(torch.float32)
-    h, w = f.shape[-2:]
+    h, w = vel.shape[-2:]
     dev = field.device
-    fi = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
-    fj = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    # the owned cells' global origin, the domain, and the shift from a
+    # global row (column) to the field's
+    ox, oy, gh, gw, ti, tj = (
+        (0, 0, h, w, 0, 0) if block is None else
+        (block.ox, block.oy, block.gh, block.gw, block.halo - block.ox,
+         block.halo - block.oy))
+    fi = (torch.arange(h, device=dev)[:, None] + ox).to(
+        torch.float32).expand(h, w)
+    fj = (torch.arange(w, device=dev)[None, :] + oy).to(
+        torch.float32).expand(h, w)
     v = vel.to(torch.float32)
     si_raw = fi - v[0] * dt
     sj_raw = fj - v[1] * dt
     si = torch.minimum(torch.maximum(si_raw, fi - max_disp), fi + max_disp)
     sj = torch.minimum(torch.maximum(sj_raw, fj - max_disp), fj + max_disp)
     if member is None:
-        si = torch.clamp(si, 0.0, h - 1.0)
-        sj = torch.clamp(sj, 0.0, w - 1.0)
-        i0 = torch.clamp(torch.floor(si), 0.0, h - 2.0)
-        j0 = torch.clamp(torch.floor(sj), 0.0, w - 2.0)
+        si = torch.clamp(si, 0.0, gh - 1.0)
+        sj = torch.clamp(sj, 0.0, gw - 1.0)
+        i0 = torch.clamp(torch.floor(si), 0.0, gh - 2.0)
+        j0 = torch.clamp(torch.floor(sj), 0.0, gw - 2.0)
     else:
         mh, mw = member
         lo_i = _origin(h, mh, dev)[:, None].expand(h, w)
@@ -93,8 +117,8 @@ def advect_reference(field, vel, dt, no_slip, max_disp=12, clip01=False,
     di = si - i0
     dj = sj - j0
     one_m_dj = 1.0 - dj
-    ii = i0.long()
-    jj = j0.long()
+    ii = i0.long() + ti
+    jj = j0.long() + tj
     t00, t01 = f[:, ii, jj], f[:, ii, jj + 1]
     t10, t11 = f[:, ii + 1, jj], f[:, ii + 1, jj + 1]
     colv0 = t00 * one_m_dj + t01 * dj
@@ -102,8 +126,8 @@ def advect_reference(field, vel, dt, no_slip, max_disp=12, clip01=False,
     acc = colv0 * (1.0 - di) + colv1 * di
     if no_slip:
         if member is None:
-            acc = acc * (noslip_axis_factor(si_raw, h)
-                         * noslip_axis_factor(sj_raw, w))
+            acc = acc * (noslip_axis_factor(si_raw, gh)
+                         * noslip_axis_factor(sj_raw, gw))
         else:
             acc = acc * (noslip_axis_factor(si_raw - lo_i, mh)
                          * noslip_axis_factor(sj_raw - lo_j, mw))
@@ -143,7 +167,7 @@ def advect_maccormack_reference(field, vel, dt, no_slip, max_disp=12,
     return torch.clamp(corrected, lo, hi)
 
 
-def _checked_3d(name, field, vel, max_disp):
+def _checked_3d(name, field, vel, max_disp, block=None):
     """Validate a CUDA launch's inputs; the field as ``[C, H, W]``."""
     if not field.is_cuda:
         raise ValueError(f"{name}: unsupported device {field.device}")
@@ -156,8 +180,9 @@ def _checked_3d(name, field, vel, max_disp):
     if f3.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: field dtype {f3.dtype} not supported "
                          "(float32, bfloat16)")
-    if vel.shape != (2, h, w) or vel.dtype != torch.float32:
-        raise ValueError(f"{name}: vel must be float32 [2, H, W]")
+    vshape = (2, h, w) if block is None else (2, block.bh, block.bw)
+    if vel.shape != vshape or vel.dtype != torch.float32:
+        raise ValueError(f"{name}: vel must be float32 {list(vshape)}")
     if vel.device != field.device:
         raise ValueError(f"{name}: field and vel on different devices")
     if not (f3.is_contiguous() and vel.is_contiguous()):
@@ -182,16 +207,20 @@ def _checked_overlay(overlay, f3, squeeze):
 
 def _launch_advect(f3, vel, dt, no_slip, max_disp, clip01=False,
                    rgb565=False, bswap=True, minmax=_NONE, member=None,
-                   overlay=None):
+                   overlay=None, block=None):
     """One launch of the advect kernel: ``out``, plus the frame or the
     bounds as asked."""
-    c, h, w = f3.shape
+    c = f3.shape[0]
+    h, w = vel.shape[-2:]
     mh, mw = member or (0, 0)
-    out = torch.empty_like(f3)
+    ox, oy, gh, gw, g = ((0, 0, h, w, 0) if block is None else
+                         (block.ox, block.oy, block.gh, block.gw,
+                          block.halo))
+    out = f3.new_empty((c, h, w))
     frame = (torch.empty((h - 1, w - 1), dtype=torch.uint16,
                          device=f3.device) if rgb565 else None)
-    lo = torch.empty_like(f3) if minmax else None
-    hi = torch.empty_like(f3) if minmax else None
+    lo = torch.empty_like(out) if minmax else None
+    hi = torch.empty_like(out) if minmax else None
     lib = load()
     with torch.cuda.device(f3.device):
         lib.call("fluid_advect", f3.data_ptr(), vel.data_ptr(),
@@ -200,8 +229,8 @@ def _launch_advect(f3, vel, dt, no_slip, max_disp, clip01=False,
                  lo.data_ptr() if minmax else None,
                  hi.data_ptr() if minmax else None,
                  c, h, w, int(f3.dtype == torch.bfloat16), float(dt),
-                 int(max_disp), mh, mw, int(no_slip), int(clip01),
-                 int(bswap), int(minmax), stream_of(f3))
+                 int(max_disp), mh, mw, ox, oy, g, gh, gw, int(no_slip),
+                 int(clip01), int(bswap), int(minmax), stream_of(f3))
     return out, frame, lo, hi
 
 
@@ -210,6 +239,7 @@ def advect_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
                   rgb565: bool = False, bswap: bool = True,
                   self_advect: bool = False, return_minmax: bool = False,
                   member=None, overlay: torch.Tensor | None = None,
+                  global_offset=None, global_shape=None, halo: int = 0,
                   **unported):
     """Advect ``field`` (``[C, H, W]`` or ``[H, W]``, float32 or bfloat16)
     through ``vel`` (``[2, H, W]`` float32).  Returns the new field,
@@ -217,7 +247,8 @@ def advect_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
     ``clip01``), or ``(field, cmin, cmax)`` with ``return_minmax=True``.
     ``self_advect=True`` advects the velocity by itself (``field`` is the
     velocity; ``vel`` is ignored) into a fresh tensor.  ``member`` and
-    ``overlay`` are the tiled-domain modes (module docstring)."""
+    ``overlay`` are the tiled-domain modes, ``global_offset``,
+    ``global_shape`` and ``halo`` block mode (module docstring)."""
     refuse_unported("advect_kernel", unported, also=("sample_bf16",))
     if rgb565 and (not clip01 or field.dim() != 3 or field.shape[0] != 3
                    or return_minmax):
@@ -233,6 +264,21 @@ def advect_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
         vel = field
     squeeze = field.dim() == 2
     f3 = field[None] if squeeze else field
+    blk = check_block("advect_kernel", global_offset, global_shape, halo,
+                      f3.shape[-2:], max_disp + 1, "max_disp+1")
+    if blk is not None:
+        if self_advect or overlay is not None:
+            raise ValueError("advect_kernel: self_advect and overlay take "
+                             "no block mode (single device)")
+        if member is not None or rgb565:
+            raise NotImplementedError(
+                "advect_kernel: member= and rgb565= with block mode have no "
+                "caller and are not ported (ROADMAP.md queue 1, 'Not to "
+                "port')")
+        if tuple(vel.shape) != (2, blk.bh, blk.bw):
+            raise ValueError(f"advect_kernel: block mode takes the owned "
+                             f"velocity [2, {blk.bh}, {blk.bw}], got "
+                             f"{list(vel.shape)}")
     member = check_member("advect_kernel", member, *f3.shape[-2:])
     if overlay is not None:
         overlay = _checked_overlay(overlay, f3, squeeze)
@@ -240,16 +286,17 @@ def advect_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
         return advect_reference(field, vel, dt, no_slip, max_disp=max_disp,
                                 clip01=clip01, rgb565=rgb565, bswap=bswap,
                                 return_minmax=return_minmax, member=member,
-                                overlay=overlay)
+                                overlay=overlay, block=blk)
 
-    f3 = _checked_3d("advect_kernel", field, vel, max_disp)
+    f3 = _checked_3d("advect_kernel", field, vel, max_disp, blk)
     out, frame, lo, hi = _launch_advect(
         f3, vel, dt, no_slip, max_disp, clip01=clip01, rgb565=rgb565,
         bswap=bswap, minmax=_RAW if return_minmax else _NONE, member=member,
-        overlay=overlay)
+        overlay=overlay, block=blk)
     advect_kernel.launches += 1
     advect_kernel.member_launches += member is not None
     advect_kernel.overlay_launches += overlay is not None
+    advect_kernel.block_launches += blk is not None
     if rgb565:
         return out, frame
     if squeeze:
@@ -260,6 +307,7 @@ def advect_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
 advect_kernel.launches = 0
 advect_kernel.member_launches = 0
 advect_kernel.overlay_launches = 0
+advect_kernel.block_launches = 0
 
 
 def maccormack_forward(f3, vel, dt, no_slip, max_disp=12, member=None):
@@ -305,7 +353,12 @@ def advect_maccormack_kernel(field: torch.Tensor, vel: torch.Tensor,
     float32 or bfloat16) through ``vel`` (``[2, H, W]`` float32), with the
     CFL clamp of K2 (and its ``member`` mode in both passes).  The velocity
     advects as ``field = vel`` with ``no_slip=True``; the dye with
-    ``no_slip=False``."""
+    ``no_slip=False``.  Block mode raises ``ValueError``, as in JAX: the
+    backward pass would read ``phi_hat`` without its halo."""
+    if any(key in unported for key in BLOCK_MODE):
+        raise ValueError("advect_maccormack_kernel is single-device only; "
+                         "block-mode arguments are not taken (the sharded "
+                         "MacCormack composes K2)")
     refuse_unported("advect_maccormack_kernel", unported,
                     also=("sample_bf16",))
     member = check_member("advect_maccormack_kernel", member,

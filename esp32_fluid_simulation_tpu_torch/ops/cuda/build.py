@@ -43,17 +43,18 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # field, vel, overlay, out, frame, lo, hi, C, H, W, field_bf16, dt,
-    # max_disp, mh, mw, no_slip, clip01, bswap, minmax, stream
+    # max_disp, mh, mw, ox, oy, halo, GH, GW, no_slip, clip01, bswap,
+    # minmax, stream
     "fluid_advect": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
-                     _I, _I, _I, _I, _I, _P),
+                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # field, phi_hat, lo, hi, vel, out, C, H, W, field_bf16, dt, max_disp,
     # mh, mw, no_slip, stream
     "fluid_maccormack_correct": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                  _I, _I, _I, _I, _P),
-    # vel, vel_out, p, dxd, ipos, ivel, iact, n_imp, H, W, mh, mw, dx,
-    # inv2dx, iters, omega, one_m_w, stream
-    "fluid_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                      _I, _F, _F, _P),
+    # vel, vel_out, p, dxd, ipos, ivel, iact, n_imp, H, W, mh, mw, oi, oj,
+    # GH, GW, halo, p_out, dx, inv2dx, iters, omega, one_m_w, stream
+    "fluid_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _P, _F, _F, _I, _F, _F, _P),
     # color, out, H, W, color_bf16, s, bswap, unit_range, stream
     "fluid_render_rgb565": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     # field, vel, out, C, D, H, W, field_bf16, vel_bf16, dt, max_disp,
@@ -65,8 +66,10 @@ _SIGNATURES = {
     "fluid_subtract_gradient3d": (_P, _P, _P, _I, _I, _I, _F, _P),
     # d, p, D, H, W, dx, iters, omega, one_m_w, stream
     "fluid_sor3d": (_P, _P, _I, _I, _I, _F, _I, _F, _F, _P),
-    # d, p, dxd, H, W, mh, mw, dx, iters, omega, one_m_w, stream
-    "fluid_sor": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _F, _P),
+    # d, p, dxd, H, W, mh, mw, oi, oj, GH, GW, halo, p_out, dx, iters,
+    # omega, one_m_w, stream
+    "fluid_sor": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I,
+                  _F, _F, _P),
     # density, out, D, H, W, density_bf16, inv_vmax, bswap, stream
     "fluid_smoke_mip": (_P, _P, _I, _I, _I, _I, _F, _I, _P),
 }

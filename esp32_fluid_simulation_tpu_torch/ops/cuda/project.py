@@ -14,6 +14,20 @@ grid's red-black parity, as in the TPU kernel.  The plain version is the
 same masked ops over the whole grid (not the composed ops per member, whose
 parity would start at each member's origin).  It combines with
 ``impulses``; ``project_fused.member_launches`` counts its launches.
+
+Block mode (K11, ``global_offset=``/``global_shape=``/``halo=``,
+``project.py:212-229``, the sharded step's ``solver="fused_pallas"``):
+``vel`` is one shard's block with ``halo >= 2*iters + 2`` exchanged cells
+per side, ``global_offset`` the owned block's global origin ``(ox, oy)``
+(two ints or a 2-element integer tensor, read once on the host) and
+``global_shape`` the domain.  The drain compares global positions (clamped
+to the domain), the walls of the divergence, the solve and the gradient are
+the domain's, the colour is the global parity, a neighbour beyond the block
+reads 0, cells outside the domain hold 0, and the owned ``[2, bh, bw]``
+velocity and ``[bh, bw]`` pressure are returned.  It combines with
+``impulses`` and ``member``.  The plain version is the same masked ops over
+the haloed block, then the owned crop; ``project_fused.block_launches``
+counts its launches.
 """
 
 from __future__ import annotations
@@ -24,8 +38,8 @@ import torch
 from ..fd import divergence, subtract_gradient
 from ..poisson import _shift_zero, sor_solve
 from .build import load, stream_of
-from .modes import check_member, refuse_unported
-from .sor import member_sor_solve, member_walls
+from .modes import block_coords, check_block, check_member, refuse_unported
+from .sor import member_sor_solve, member_walls, owned, walls_at
 
 _MAX_IMPULSES = 64  # kMaxImpulses in csrc/project.cu
 
@@ -54,10 +68,30 @@ def _member_subtract_gradient(vel, p, dx, walls):
     return vel - torch.stack([g0, g1], dim=0)
 
 
+def block_project(vel, dx, iters, omega, impulses, member, blk):
+    """The plain block-mode projection: the drain at global positions, the
+    member-masked ops over the haloed block with the domain's walls (or its
+    members'), the global parity and the domain mask, then the owned
+    crop."""
+    gi, gj, in_dom = block_coords(blk, vel.shape[1:], vel.device)
+    if impulses is not None:
+        from ...models.stable_fluids import apply_impulses, impulses_in_window
+        vel = apply_impulses(vel, impulses_in_window(
+            impulses, (blk.gh, blk.gw), blk.origin, vel.shape[1:]))
+    walls = walls_at(gi, gj, blk.gh, blk.gw, member)
+    div = torch.where(in_dom, _member_divergence(vel, dx, walls), 0.0)
+    p = member_sor_solve(div, dx, iters, omega, walls, (gi + gj) & 1, in_dom)
+    return (owned(_member_subtract_gradient(vel, p, dx, walls), blk),
+            owned(p, blk))
+
+
 def project_fused_reference(vel, dx=1.0, iters=10, omega=1.96,
-                            impulses=None, member=None):
-    """Plain PyTorch version: the composed ops of the port, or their
-    member-masked forms over the whole grid."""
+                            impulses=None, member=None, block=None):
+    """Plain PyTorch version: the composed ops of the port, their
+    member-masked forms over the whole grid, or (``block``, a
+    ``modes.Block``) their block-mode forms."""
+    if block is not None:
+        return block_project(vel, dx, iters, omega, impulses, member, block)
     if impulses is not None:
         from ...models.stable_fluids import apply_impulses
         vel = apply_impulses(vel, impulses)
@@ -72,19 +106,25 @@ def project_fused_reference(vel, dx=1.0, iters=10, omega=1.96,
 
 def project_fused(vel: torch.Tensor, dx: float = 1.0, iters: int = 10,
                   omega: float = 1.96, impulses=None, member=None,
+                  global_offset=None, global_shape=None, halo: int = 0,
                   **unported):
     """(projected velocity, pressure) for a 2D ``[2, H, W]`` float32
     velocity: optional impulse drain (clamped positions, the last active
     slot wins, values rounded through ``vel.dtype``), divergence,
     ``iters`` RB-SOR sweeps from zero, gradient subtract; per member tile
-    with ``member``.  Block mode (K11) raises."""
+    with ``member``; of the owned block of a haloed shard block in block
+    mode."""
     refuse_unported("project_fused", unported)
     if vel.dim() != 3 or vel.shape[0] != 2:
         raise ValueError("project_fused: vel must be [2, H, W]")
-    member = check_member("project_fused", member, *vel.shape[1:])
+    blk = check_block("project_fused", global_offset, global_shape, halo,
+                      vel.shape[1:], 2 * iters + 2, "2*iters+2")
+    member = check_member("project_fused", member,
+                          *(vel.shape[1:] if blk is None
+                            else (blk.gh, blk.gw)))
     if vel.device.type == "cpu":
         return project_fused_reference(vel, dx, iters, omega, impulses,
-                                       member)
+                                       member, blk)
     if not vel.is_cuda:
         raise ValueError(f"project_fused: unsupported device {vel.device}")
     if vel.dtype != torch.float32:
@@ -114,9 +154,17 @@ def project_fused(vel: torch.Tensor, dx: float = 1.0, iters: int = 10,
         iact = impulses.active.to(torch.bool).contiguous()
 
     mh, mw = member or (0, 0)
-    out = torch.empty_like(vel)
     p = torch.empty((h, w), dtype=torch.float32, device=vel.device)
     dxd = torch.empty_like(p)
+    if blk is None:
+        g, (oi, oj), (gh, gw) = 0, (0, 0), (h, w)
+        out, p_out = torch.empty_like(vel), p
+    else:
+        g, (oi, oj), (gh, gw) = blk.halo, blk.origin, (blk.gh, blk.gw)
+        out = torch.empty((2, blk.bh, blk.bw), dtype=vel.dtype,
+                          device=vel.device)
+        p_out = torch.empty((blk.bh, blk.bw), dtype=vel.dtype,
+                            device=vel.device)
     lib = load()
     with torch.cuda.device(vel.device):
         lib.call("fluid_project", vel.data_ptr(), out.data_ptr(),
@@ -124,14 +172,16 @@ def project_fused(vel: torch.Tensor, dx: float = 1.0, iters: int = 10,
                  None if ipos is None else ipos.data_ptr(),
                  None if ivel is None else ivel.data_ptr(),
                  None if iact is None else iact.data_ptr(),
-                 n_imp, h, w, mh, mw, float(dx),
-                 float(np.float32(1.0 / (2.0 * dx))), int(iters),
+                 n_imp, h, w, mh, mw, oi, oj, gh, gw, g, p_out.data_ptr(),
+                 float(dx), float(np.float32(1.0 / (2.0 * dx))), int(iters),
                  float(omega), float(np.float32(1.0 - omega)),
                  stream_of(vel))
     project_fused.launches += 1
     project_fused.member_launches += member is not None
-    return out, p
+    project_fused.block_launches += blk is not None
+    return out, p_out
 
 
 project_fused.launches = 0
 project_fused.member_launches = 0
+project_fused.block_launches = 0

@@ -1,13 +1,12 @@
 """K4: the whole 2D red-black SOR pressure solve on the GPU
 (``csrc/sor.cu``).
 
-Replaces ``esp32_fluid_simulation_tpu/ops/pallas/sor.py:sor_solve_pallas``
-(single device; its block mode is K11).  ``sor_solve_kernel`` launches the
-CUDA kernels for CUDA tensors and runs ``sor_solve_reference``, its plain
-PyTorch version (``ops.poisson.sor_solve``: zero init, even parity first,
-the same neighbour order and ``-1/a_ii`` LUT), for CPU tensors — only
-because they lie on the CPU.  Any other device raises.  The half-sweep is
-K1's (``csrc/rb2d.cuh``).
+Replaces ``esp32_fluid_simulation_tpu/ops/pallas/sor.py:sor_solve_pallas``.
+``sor_solve_kernel`` launches the CUDA kernels for CUDA tensors and runs
+``sor_solve_reference``, its plain PyTorch version (``ops.poisson.
+sor_solve``: zero init, even parity first, the same neighbour order and
+``-1/a_ii`` LUT), for CPU tensors — only because they lie on the CPU.  Any
+other device raises.  The half-sweep is K1's (``csrc/rb2d.cuh``).
 
 ``member=(mh, mw)`` (K6, ``sor.py:83``, ``rb_common.py:145-176``): every
 member tile of the grid is solved on its own — neighbour sums read 0 across
@@ -16,6 +15,18 @@ stays the parity of the whole grid, as in the TPU kernel.  Its plain
 version is therefore a masked solve over the whole grid, not the solve of
 each member alone; ``sor_solve_kernel.member_launches`` counts its
 launches.
+
+Block mode (K11, ``global_offset=``/``global_shape=``/``halo=``,
+``sor.py:101-110``, the sharded step's ``solver="sor_pallas"``): ``d`` is
+one shard's block with ``halo >= 2*iters`` exchanged cells per side,
+``global_offset`` the owned block's global origin ``(ox, oy)`` (two ints or
+a 2-element integer tensor, read once on the host) and ``global_shape`` the
+domain.  Walls, ``a_ii`` and the colour ``(gi + gj) % 2`` come from global
+coordinates, a neighbour beyond the block reads 0, cells outside the domain
+hold 0, and the owned ``bh x bw`` pressure is returned.  It combines with
+``member=`` (member tiles of the domain).  The plain version is the same
+masked ops over the haloed block, then the owned crop;
+``sor_solve_kernel.block_launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -23,30 +34,45 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..poisson import _parity, _shift_zero, sor_solve
+from ..poisson import _parity, _shift_zero, neg_inv_of, sor_solve
 from .build import load, stream_of
-from .modes import check_member, refuse_unported
+from .modes import block_coords, check_block, check_member, refuse_unported
 
 
-def member_walls(shape, member, device):
-    """``(i_lo, i_hi, j_lo, j_hi)``: boolean masks (broadcasting to
-    ``shape``) of the cells on each wall of their ``(mh, mw)`` member
+def walls_at(gi, gj, gh, gw, member=None):
+    """``(i_lo, i_hi, j_lo, j_hi)``: boolean masks (broadcasting over the
+    global row indices ``gi`` and column indices ``gj``) of the cells on
+    each wall of the ``gh x gw`` domain, or of their ``(mh, mw)`` member
     tile."""
+    if member is None:
+        return gi == 0, gi == gh - 1, gj == 0, gj == gw - 1
     mh, mw = member
-    i = torch.arange(shape[0], device=device)[:, None] % mh
-    j = torch.arange(shape[1], device=device)[None, :] % mw
+    i, j = gi % mh, gj % mw
     return i == 0, i == mh - 1, j == 0, j == mw - 1
 
 
-def member_sor_solve(d, dx, iters, omega, walls):
-    """``sor_solve`` with zero ghosts and ``a_ii`` at the member ``walls``
-    and the whole grid's parity (``ops.poisson.sor_sweep``'s arithmetic)."""
+def diag_at(walls):
+    """``a_ii``, the int64 count of the neighbours not cut off by
+    ``walls`` (``walls_at``'s four masks)."""
+    return 4 - sum(m.long() for m in walls)
+
+
+def member_walls(shape, member, device):
+    """``walls_at`` of the member tiles of a grid of ``shape``."""
+    gi = torch.arange(shape[0], device=device)[:, None]
+    gj = torch.arange(shape[1], device=device)[None, :]
+    return walls_at(gi, gj, *shape, member)
+
+
+def member_sor_solve(d, dx, iters, omega, walls, parity=None, in_dom=None):
+    """``sor_solve`` with zero ghosts and ``a_ii`` at the ``walls``, the
+    ``parity`` of the whole grid (of ``d``'s grid when None), and the cells
+    outside ``in_dom`` held at 0 (``ops.poisson.sor_sweep``'s
+    arithmetic)."""
     i_lo, i_hi, j_lo, j_hi = walls
-    aii = 4 - (i_lo.long() + i_hi.long() + j_lo.long() + j_hi.long())
-    lut = torch.tensor([-1.0 / k for k in range(1, 5)],
-                       dtype=torch.float64).to(torch.float32)
-    neg_inv = lut.to(d.device)[aii - 1].to(d.dtype)
-    parity = _parity(d.shape, device=d.device)
+    neg_inv = neg_inv_of(diag_at(walls), d.dtype)
+    if parity is None:
+        parity = _parity(d.shape, device=d.device)
     p = torch.zeros_like(d)
     for _ in range(iters):
         for color in (0, 1):
@@ -56,13 +82,37 @@ def member_sor_solve(d, dx, iters, omega, walls):
                   + torch.where(j_hi, 0.0, _shift_zero(p, 1, 1)))
             gs = neg_inv * (dx * d - nb)
             p_new = (1.0 - omega) * p + omega * gs
-            p = torch.where(parity == color, p_new, p)
+            mask = parity == color
+            if in_dom is not None:
+                mask = mask & in_dom
+            p = torch.where(mask, p_new, p)
     return p
 
 
-def sor_solve_reference(d, dx=1.0, iters=10, omega=1.96, member=None):
-    """Plain PyTorch version: ``ops.poisson.sor_solve`` in 2D, or its
-    member-masked form."""
+def owned(x, blk):
+    """The owned ``bh x bw`` cells of a haloed block (trailing two axes)."""
+    g = blk.halo
+    return x[..., g:g + blk.bh, g:g + blk.bw]
+
+
+def block_sor_solve(d, dx, iters, omega, blk, member=None):
+    """The plain block-mode solve: ``member_sor_solve`` over the haloed
+    block with the domain's walls (or its members'), the global parity and
+    the domain mask, then the owned crop."""
+    gi, gj, in_dom = block_coords(blk, d.shape, d.device)
+    p = member_sor_solve(d, dx, iters, omega,
+                         walls_at(gi, gj, blk.gh, blk.gw, member),
+                         (gi + gj) & 1, in_dom)
+    return owned(p, blk)
+
+
+def sor_solve_reference(d, dx=1.0, iters=10, omega=1.96, member=None,
+                        block=None):
+    """Plain PyTorch version: ``ops.poisson.sor_solve`` in 2D, its
+    member-masked form, or (``block``, a ``modes.Block``) its block-mode
+    form."""
+    if block is not None:
+        return block_sor_solve(d, dx, iters, omega, block, member)
     if member is None:
         return sor_solve(d, dx, iters, omega)
     return member_sor_solve(d, dx, iters, omega,
@@ -70,17 +120,21 @@ def sor_solve_reference(d, dx=1.0, iters=10, omega=1.96, member=None):
 
 
 def sor_solve_kernel(d: torch.Tensor, dx: float = 1.0, iters: int = 10,
-                     omega: float = 1.96, member=None,
+                     omega: float = 1.96, member=None, global_offset=None,
+                     global_shape=None, halo: int = 0,
                      **unported) -> torch.Tensor:
     """Pressure ``p`` with ``lap(p) = d`` after ``iters`` red-black SOR
     sweeps from zero, for an ``[H, W]`` float32 ``d`` (per member tile with
-    ``member``)."""
+    ``member``; the owned block of a haloed shard block in block mode)."""
     refuse_unported("sor_solve_kernel", unported)
     if d.dim() != 2:
         raise ValueError("sor_solve_kernel: d must be [H, W]")
-    member = check_member("sor_solve_kernel", member, *d.shape)
+    blk = check_block("sor_solve_kernel", global_offset, global_shape, halo,
+                      d.shape, 2 * iters, "2*iters")
+    member = check_member("sor_solve_kernel", member,
+                          *(d.shape if blk is None else (blk.gh, blk.gw)))
     if d.device.type == "cpu":
-        return sor_solve_reference(d, dx, iters, omega, member)
+        return sor_solve_reference(d, dx, iters, omega, member, blk)
     if not d.is_cuda:
         raise ValueError(f"sor_solve_kernel: unsupported device {d.device}")
     if d.dtype != torch.float32:
@@ -96,15 +150,23 @@ def sor_solve_kernel(d: torch.Tensor, dx: float = 1.0, iters: int = 10,
     mh, mw = member or (0, 0)
     p = torch.empty_like(d)
     dxd = torch.empty_like(d)
+    g = 0 if blk is None else blk.halo
+    oi, oj = (0, 0) if blk is None else blk.origin
+    gh, gw = (h, w) if blk is None else (blk.gh, blk.gw)
+    out = (p if g == 0 else
+           torch.empty((blk.bh, blk.bw), dtype=d.dtype, device=d.device))
     lib = load()
     with torch.cuda.device(d.device):
         lib.call("fluid_sor", d.data_ptr(), p.data_ptr(), dxd.data_ptr(), h,
-                 w, mh, mw, float(dx), int(iters), float(omega),
-                 float(np.float32(1.0 - omega)), stream_of(d))
+                 w, mh, mw, oi, oj, gh, gw, g, out.data_ptr(), float(dx),
+                 int(iters), float(omega), float(np.float32(1.0 - omega)),
+                 stream_of(d))
     sor_solve_kernel.launches += 1
     sor_solve_kernel.member_launches += member is not None
-    return p
+    sor_solve_kernel.block_launches += blk is not None
+    return out
 
 
 sor_solve_kernel.launches = 0
 sor_solve_kernel.member_launches = 0
+sor_solve_kernel.block_launches = 0

@@ -197,10 +197,11 @@ def test_maccormack_kernel_clamps_like_k2(rng):
     assert torch.isfinite(got).all()
     assert float(got.min()) >= float(f.min())
     assert float(got.max()) <= float(f.max())
-    # member= (K6) runs its plain version; block mode (K11) raises
+    # member= (K6) runs its plain version; block mode raises ValueError as
+    # in JAX (advect.py:971-976): the sharded MacCormack composes K2
     got = advect_maccormack_kernel(_t(f), _t(v), 1 / 30, False, max_disp=4,
                                    member=(12, 20))
     assert torch.equal(got, advect_maccormack_reference(
         _t(f), _t(v), 1 / 30, False, max_disp=4, member=(12, 20)))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="single-device only"):
         advect_maccormack_kernel(_t(f), _t(v), 1 / 30, False, halo=13)

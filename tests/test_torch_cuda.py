@@ -332,3 +332,110 @@ def test_tiled_ensemble_step_kernel_route(cuda, rng):
                              False, clip01=True, member=m)
     assert torch.equal(out.velocity, _to_members(vel, *m))
     assert torch.equal(out.color, _to_members(color, *m))
+
+
+def _block_of(x, off, bshape, g):
+    """The owned block at ``off`` with ``g`` ghosts, cut from the
+    zero-padded grid (as the halo exchange builds it)."""
+    pad = torch.nn.functional.pad(x, (g, g, g, g))
+    return pad[..., off[0]:off[0] + bshape[0] + 2 * g,
+               off[1]:off[1] + bshape[1] + 2 * g].contiguous()
+
+
+BLOCK_GLOBAL, BLOCK = (130, 200), (65, 100)
+BLOCK_OFFSETS = [(0, 0), (65, 100), (0, 100), (30, 50)]
+
+
+@pytest.mark.parametrize("off", BLOCK_OFFSETS)
+def test_block_kernels_bit_equal(cuda, rng, off):
+    """K11: K2, K1 and K4 in block mode against their plain versions, and
+    the crop of the whole-grid kernel, bit for bit."""
+    kw = dict(global_offset=off, global_shape=BLOCK_GLOBAL)
+    vel = _on((200 * rng.standard_normal((2,) + BLOCK_GLOBAL)).astype(
+        np.float32), cuda)
+    vown = vel[:, off[0]:off[0] + BLOCK[0], off[1]:off[1] + BLOCK[1]]
+    vown = vown.contiguous()
+    dye = _on(rng.random((3,) + BLOCK_GLOBAL, dtype=np.float32),
+              cuda).to(torch.bfloat16)
+    before = (advect_kernel.block_launches, project_fused.block_launches,
+              sor_solve_kernel.block_launches)
+    for field, no_slip, clip01, minmax in ((vel, True, False, True),
+                                           (dye, False, True, False),
+                                           (dye[0].contiguous(), False,
+                                            False, True)):
+        fpad = _block_of(field, off, BLOCK, 13)
+        got = advect_kernel(fpad, vown, 1 / 30, no_slip, max_disp=12,
+                            clip01=clip01, return_minmax=minmax, halo=13,
+                            **kw)
+        want = advect_reference(fpad, vown, 1 / 30, no_slip, 12,
+                                clip01=clip01, return_minmax=minmax,
+                                block=_blk(off, 13))
+        whole = advect_kernel(field, vel, 1 / 30, no_slip, max_disp=12,
+                              clip01=clip01, return_minmax=minmax)
+        for g, w, full in zip(*((got, want, whole) if minmax else
+                               ((got,), (want,), (whole,)))):
+            assert torch.equal(_bits(g), _bits(w))
+            assert torch.equal(_bits(g), _bits(
+                full[..., off[0]:off[0] + BLOCK[0],
+                     off[1]:off[1] + BLOCK[1]]))
+    cfg = SimConfig(shape=BLOCK_GLOBAL)
+    imp = Impulses.from_lists(cfg, [(20, 30), (20, 30), (70, 120),
+                                    (200, -3)],
+                              [(90.0, -45.0), (33.0, 44.0), (-60.0, 120.0),
+                               (7.0, 8.0)], device=cuda)
+    vpad = _block_of(vel, off, BLOCK, 22)
+    for impulses in (imp, None):
+        v, p = project_fused(vpad, 1.0, 10, 1.96, impulses=impulses,
+                             halo=22, **kw)
+        rv, rp = project_fused_reference(vpad, 1.0, 10, 1.96, impulses,
+                                         block=_blk(off, 22))
+        wv, wp = project_fused(vel, 1.0, 10, 1.96, impulses=impulses)
+        assert torch.equal(v, rv) and torch.equal(p, rp)
+        assert torch.equal(v, wv[:, off[0]:off[0] + BLOCK[0],
+                                 off[1]:off[1] + BLOCK[1]])
+    d = vel[0].contiguous()
+    dpad = _block_of(d, off, BLOCK, 20)
+    got = sor_solve_kernel(dpad, 0.7, 10, 1.96, halo=20, **kw)
+    assert torch.equal(got, sor_solve_reference(dpad, 0.7, 10, 1.96,
+                                                block=_blk(off, 20)))
+    assert torch.equal(got, sor_solve_kernel(d, 0.7, 10, 1.96)[
+        off[0]:off[0] + BLOCK[0], off[1]:off[1] + BLOCK[1]])
+    assert (advect_kernel.block_launches, project_fused.block_launches,
+            sor_solve_kernel.block_launches) == (before[0] + 3,
+                                                 before[1] + 2,
+                                                 before[2] + 1)
+
+
+def _blk(off, g):
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.modes import Block
+    return Block(off[0], off[1], *BLOCK_GLOBAL, g, *BLOCK)
+
+
+@pytest.mark.parametrize("solver", ["fused_pallas", "sor_pallas"])
+def test_sharded_kernel_step_on_one_card(cuda, solver):
+    """The sharded step on a 2x2 mesh of one card (four blocks on cuda:0)
+    equals the single-device kernel step bit for bit, with K1 (or K4) once
+    and K2 twice per shard and step in block mode."""
+    from esp32_fluid_simulation_tpu_torch import init_state, make_step
+    from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
+    from esp32_fluid_simulation_tpu_torch.parallel import (
+        make_mesh, make_sharded_step, shard_state, unshard_state)
+    cfg = SimConfig(shape=(128, 192), solver=solver, advect_impl="pallas",
+                    color_dtype="bfloat16", sor_iters=6)
+    mesh = make_mesh([cuda] * 4, grid_shape=(2, 2))
+    st = init_state(cfg, device=cuda)
+    one, sharded = make_step(cfg), make_sharded_step(cfg, mesh)
+    a, b = st, shard_state(st, cfg, mesh)
+    before = (advect_kernel.block_launches, project_fused.block_launches,
+              sor_solve_kernel.block_launches)
+    for t in range(3):
+        imp = scripted_swirl(cfg, t, device=cuda)
+        a, b = one(a, imp), sharded(b, imp)
+    b = unshard_state(b, cuda)
+    assert torch.equal(a.velocity, b.velocity)
+    assert torch.equal(a.color, b.color)
+    k1 = 12 if solver == "fused_pallas" else 0
+    assert (advect_kernel.block_launches, project_fused.block_launches,
+            sor_solve_kernel.block_launches) == (before[0] + 24,
+                                                 before[1] + k1,
+                                                 before[2] + 12 - k1)

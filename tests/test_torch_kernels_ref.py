@@ -117,11 +117,18 @@ def test_advect_plain_rgb565_matches_pallas(rng, dtype, bswap):
 
 
 def test_advect_kernel_rejects_unported_flags(rng):
-    """Block mode (K11) still raises; ``overlay=`` and ``member=`` (K6) are
-    taken (test_torch_tiled_kernels_ref.py holds them to JAX)."""
+    """Block mode (K11) runs and gives the crop of the whole-grid advect
+    (test_torch_block_kernels_ref.py holds it to JAX); ``overlay=`` and
+    ``member=`` (K6) are taken (test_torch_tiled_kernels_ref.py holds them
+    to JAX); an unknown flag raises."""
     f = torch.from_numpy(rng.random((2, 8, 8), dtype=F))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        advect_kernel(f, f, 0.1, False, global_offset=torch.zeros(2))
+    v = torch.from_numpy((40 * rng.standard_normal((2, 8, 8))).astype(F))
+    got = advect_kernel(torch.nn.functional.pad(f, (3, 3, 3, 3))[:, 4:, 3:13],
+                        v[:, 4:, 3:7].contiguous(), 0.1, False, max_disp=2,
+                        global_offset=torch.tensor([4, 3]),
+                        global_shape=(8, 8), halo=3)
+    assert torch.equal(got, advect_kernel(f, v, 0.1, False,
+                                          max_disp=2)[:, 4:, 3:7])
     with pytest.raises(TypeError):
         advect_kernel(f, f, 0.1, False, no_such_flag=True)
     flag = torch.zeros((1, 8, 8))

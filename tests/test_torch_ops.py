@@ -166,13 +166,18 @@ def test_sor_sweep_and_solve_match_jax(rng):
 
 def test_poisson_solve_unported_solver_raises():
     """Every solver name of the config is ported and the K4 kernel's tiled
-    ``member=`` mode runs; its block mode is not ported, and a name outside
-    the config's list is refused as JAX refuses it."""
+    ``member=`` and block modes run (block mode needs ``global_offset=``),
+    and a name outside the config's list is refused as JAX refuses it."""
     from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import (
         sor_solve_kernel)
     d = torch.zeros((9, 12))
     assert torch.equal(sor_solve_kernel(d, member=(3, 4)), d)
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    dm = torch.arange(108, dtype=torch.float32).reshape(9, 12) / 50
+    assert torch.equal(
+        sor_solve_kernel(torch.nn.functional.pad(dm, (2, 2, 2, 2)), iters=1,
+                         global_offset=(0, 0), global_shape=(9, 12), halo=2),
+        sor_solve_kernel(dm, iters=1))
+    with pytest.raises(ValueError, match="need global_offset"):
         sor_solve_kernel(d, global_shape=(9, 12))
 
     class Cfg:

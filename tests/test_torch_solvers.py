@@ -9,7 +9,8 @@
   ``sor_solve`` at test_pallas.py:83-90's tolerance (rtol 1e-4 / atol
   2e-5), and against ``sor_solve_pallas`` in interpret mode at one small
   shape;
-* the K4 wrapper's refusals (block mode is K11; ``member=``, K6, runs).
+* the K4 wrapper's modes (block mode, K11, gives the crop; ``member=``,
+  K6, runs).
 """
 
 import functools
@@ -135,7 +136,9 @@ def test_sor_kernel_plain_matches_pallas(rng, monkeypatch):
 
 
 def test_sor_kernel_refuses_unported_modes(rng):
-    """Block mode (K11) raises; ``member=`` (K6) runs the member-masked
+    """Block mode (K11) runs and gives the crop of the whole-grid solve
+    (test_torch_block_kernels_ref.py holds it to JAX), and refuses a halo
+    below 2*iters as JAX does; ``member=`` (K6) runs the member-masked
     plain solve (test_torch_tiled_kernels_ref.py holds it to JAX)."""
     d = torch.zeros((8, 8))
     dm = torch.from_numpy(rng.standard_normal((8, 12)).astype(F))
@@ -143,10 +146,14 @@ def test_sor_kernel_refuses_unported_modes(rng):
     assert torch.equal(got, sor_solve_reference(dm, 1.0, 3, 1.96,
                                                 member=(4, 6)))
     assert not torch.equal(got, sor_solve_kernel(dm, 1.0, 3, 1.96))
-    for kw in (dict(global_offset=torch.zeros(2)), dict(global_shape=(8, 8)),
-               dict(halo=20)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            sor_solve_kernel(d, **kw)
+    block = torch.nn.functional.pad(dm, (6, 6, 6, 6))[:, 6:]   # cols 6..11
+    got = sor_solve_kernel(block.contiguous(), 1.0, 3, 1.96,
+                           global_offset=(0, 6), global_shape=(8, 12),
+                           halo=6)
+    assert torch.equal(got, sor_solve_kernel(dm, 1.0, 3, 1.96)[:, 6:])
+    with pytest.raises(ValueError, match=r"halo >= 2\*iters"):
+        sor_solve_kernel(block.contiguous(), 1.0, 4, 1.96,
+                         global_offset=(0, 6), global_shape=(8, 12), halo=6)
     with pytest.raises(TypeError):
         sor_solve_kernel(d, tile_h=8)
     # the JAX defaults mean "not asked for"

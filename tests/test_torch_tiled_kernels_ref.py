@@ -263,22 +263,44 @@ def test_one_member_is_the_whole_grid(rng):
                        sor_solve_reference(d, 0.7, 4, 1.5))
 
 
-def test_tiled_modes_refusals():
-    """Block mode (K11) still raises naming its ROADMAP item; the overlay
-    is refused with the frame or the extrema (so by K5) and at a wrong
-    shape, as in the JAX kernel; a member must tile the grid."""
+def test_tiled_modes_refusals(rng):
+    """Block mode (K11) runs: a haloed block of the grid gives the crop of
+    the whole-grid result, with and without member tiles (K1, K4), while K5
+    refuses it with ValueError as the JAX kernel does; the overlay is
+    refused with the frame or the extrema (so by K5) and at a wrong shape,
+    as in the JAX kernel; a member must tile the grid."""
     f = torch.zeros((2, 8, 8))
     d = torch.zeros((8, 8))
-    for kw in (dict(global_offset=torch.zeros(2)), dict(global_shape=(8, 8)),
-               dict(halo=20)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            advect_kernel(f, f, 0.1, False, **kw)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            advect_maccormack_kernel(f, f, 0.1, False, **kw)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            sor_solve_kernel(d, **kw)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            project_fused(f, **kw)
+    grid = _t(rng.normal(0, 30, (2, 16, 24)).astype(F))
+    dd = grid[0].contiguous()
+    off, g = (8, 12), 6
+
+    def block(x):
+        pad = torch.nn.functional.pad(x, (g, g, g, g))
+        return pad[..., off[0]:off[0] + 8 + 2 * g,
+                   off[1]:off[1] + 12 + 2 * g].contiguous()
+
+    def crop(x):
+        return x[..., off[0]:off[0] + 8, off[1]:off[1] + 12]
+
+    kw = dict(global_offset=off, global_shape=(16, 24), halo=g)
+    for member in (None, (8, 12)):
+        assert torch.equal(sor_solve_kernel(block(dd), 1.0, 3, 1.96,
+                                            member=member, **kw),
+                           crop(sor_solve_kernel(dd, 1.0, 3, 1.96,
+                                                 member=member)))
+        for got, want in zip(project_fused(block(grid), 1.0, 2, 1.96,
+                                           member=member, **kw),
+                             project_fused(grid, 1.0, 2, 1.96,
+                                           member=member)):
+            assert torch.equal(got, crop(want))
+    assert torch.equal(
+        advect_kernel(block(grid), crop(grid).contiguous(), 0.1, True,
+                      max_disp=5, **kw),
+        crop(advect_kernel(grid, grid, 0.1, True, max_disp=5)))
+    for bkw in (dict(global_offset=torch.zeros(2)), dict(halo=20)):
+        with pytest.raises(ValueError, match="single-device only"):
+            advect_maccormack_kernel(f, f, 0.1, False, **bkw)
     with pytest.raises(TypeError):
         project_fused(f, tile_h=8)
     dye = torch.zeros((3, 8, 8))
