@@ -26,6 +26,20 @@
 // the store in the field dtype (bf16: round to nearest even).  Computed in
 // float32 whatever the storage.  Built with --fmad=false, bit-equal to the
 // plain PyTorch version.
+//
+// Block mode (K11, the global_offset= argument of advect3d_pallas,
+// advect3d.py:255-306, called per shard by parallel/sharded_smoke.py and
+// parallel/sharded3d.py): vel and out are one shard's owned D x H x W block,
+// whose cell (z, 0, 0) sits at global (z, ox, oy) of a D x GH x GW domain
+// (the vertical axis is shard-local), and the field is the same block with
+// `halo` exchanged cells on each side of the two horizontal axes.  The
+// backtrace, both clamps and the no-slip factor run in global coordinates
+// exactly as the whole-grid launch; only the tap addresses move: global
+// row i0 is haloed row i0 - ox + halo (column likewise), with the field's
+// own row and plane strides.  So a block's cells equal the whole grid's to
+// the bit.  halo >= max_disp + 1 keeps every tap inside the haloed field.
+// The TPU kernel's halo <= pr limit (its aligned sublane halo) has no
+// counterpart here.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -63,11 +77,18 @@ __device__ __forceinline__ float source(float x, float raw, float md, int n) {
   return fminf(fmaxf(s, 0.f), (float)(n - 1));
 }
 
-template <typename T, typename V>
+// Block mode's geometry: the owned block's global origin, the field's halo
+// and the domain's rows and columns (halo = 0: not block mode).
+struct Block {
+  int ox, oy, halo, GH, GW;
+};
+
+template <typename T, typename V, bool BLOCK>
 __global__ void advect3d_kernel(const T* __restrict__ field,
                                 const V* __restrict__ vel,
                                 T* __restrict__ out, int C, int D, int H,
-                                int W, float dt, float md, int no_slip) {
+                                int W, float dt, float md, int no_slip,
+                                const Block b) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   const int z = blockIdx.z;
@@ -75,18 +96,24 @@ __global__ void advect3d_kernel(const T* __restrict__ field,
   const long long plane = (long long)H * W;
   const long long vol = plane * D;
   const long long c = z * plane + (long long)i * W + j;
+  // the domain, and the field's strides (the haloed block's in block mode)
+  const int GH = BLOCK ? b.GH : H;
+  const int GW = BLOCK ? b.GW : W;
+  const int FW = BLOCK ? W + 2 * b.halo : W;
+  const long long fplane = BLOCK ? (long long)(H + 2 * b.halo) * FW : plane;
+  const long long fvol = fplane * D;
   const float zf = (float)z;
-  const float xi = (float)i;
-  const float xj = (float)j;
+  const float xi = (float)(BLOCK ? i + b.ox : i);
+  const float xj = (float)(BLOCK ? j + b.oy : j);
   const float sz_raw = zf - load(vel, c) * dt;
   const float si_raw = xi - load(vel, vol + c) * dt;
   const float sj_raw = xj - load(vel, 2 * vol + c) * dt;
   const float sz = source(zf, sz_raw, md, D);
-  const float si = source(xi, si_raw, md, H);
-  const float sj = source(xj, sj_raw, md, W);
+  const float si = source(xi, si_raw, md, GH);
+  const float sj = source(xj, sj_raw, md, GW);
   const float z0 = fminf(fmaxf(floorf(sz), 0.f), (float)(D - 2));
-  const float i0 = fminf(fmaxf(floorf(si), 0.f), (float)(H - 2));
-  const float j0 = fminf(fmaxf(floorf(sj), 0.f), (float)(W - 2));
+  const float i0 = fminf(fmaxf(floorf(si), 0.f), (float)(GH - 2));
+  const float j0 = fminf(fmaxf(floorf(sj), 0.f), (float)(GW - 2));
   const float dz = sz - z0;
   const float di = si - i0;
   const float dj = sj - j0;
@@ -95,19 +122,24 @@ __global__ void advect3d_kernel(const T* __restrict__ field,
   const float w01 = (1.f - dz) * di;
   const float w10 = dz * (1.f - di);
   const float w11 = dz * di;
-  const long long t = (long long)z0 * plane + (long long)i0 * W + (int)j0;
+  // the base tap's global row and column, shifted into the field
+  const int ti = BLOCK ? b.halo - b.ox : 0;
+  const int tj = BLOCK ? b.halo - b.oy : 0;
+  const long long t = (long long)z0 * fplane + ((long long)i0 + ti) * FW +
+                      ((int)j0 + tj);
   float ns = 1.f;
   if (no_slip)
-    ns = (noslip_factor(sz_raw, D) * noslip_factor(si_raw, H)) *
-         noslip_factor(sj_raw, W);
+    ns = (noslip_factor(sz_raw, D) * noslip_factor(si_raw, GH)) *
+         noslip_factor(sj_raw, GW);
   for (int ch = 0; ch < C; ++ch) {
-    const T* f = field + ch * vol + t;
+    const T* f = field + ch * fvol + t;
     const float c00 = (load(f, 0) * one_m_dj + load(f, 1) * dj) * w00;
-    const float c01 = (load(f, W) * one_m_dj + load(f, W + 1) * dj) * w01;
+    const float c01 = (load(f, FW) * one_m_dj + load(f, FW + 1) * dj) * w01;
     const float c10 =
-        (load(f, plane) * one_m_dj + load(f, plane + 1) * dj) * w10;
+        (load(f, fplane) * one_m_dj + load(f, fplane + 1) * dj) * w10;
     const float c11 =
-        (load(f, plane + W) * one_m_dj + load(f, plane + W + 1) * dj) * w11;
+        (load(f, fplane + FW) * one_m_dj + load(f, fplane + FW + 1) * dj) *
+        w11;
     float acc = ((c00 + c01) + c10) + c11;
     if (no_slip) acc = acc * ns;
     store(out, ch * vol + c, acc);
@@ -117,34 +149,44 @@ __global__ void advect3d_kernel(const T* __restrict__ field,
 template <typename T, typename V>
 cudaError_t launch(const void* field, const void* vel, void* out, int C,
                    int D, int H, int W, float dt, float md, int no_slip,
-                   cudaStream_t stream) {
+                   const Block& b, cudaStream_t stream) {
   const dim3 block(32, 8);
   const dim3 grid((W + 31) / 32, (H + 7) / 8, D);
-  advect3d_kernel<T, V><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(field), static_cast<const V*>(vel),
-      static_cast<T*>(out), C, D, H, W, dt, md, no_slip);
+  if (b.halo > 0)
+    advect3d_kernel<T, V, true><<<grid, block, 0, stream>>>(
+        static_cast<const T*>(field), static_cast<const V*>(vel),
+        static_cast<T*>(out), C, D, H, W, dt, md, no_slip, b);
+  else
+    advect3d_kernel<T, V, false><<<grid, block, 0, stream>>>(
+        static_cast<const T*>(field), static_cast<const V*>(vel),
+        static_cast<T*>(out), C, D, H, W, dt, md, no_slip, b);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // field, out: [C, D, H, W] float32 (field_bf16 = 0) or bfloat16 (= 1);
-// vel: [3, D, H, W] float32 (vel_bf16 = 0) or bfloat16 (= 1).
+// vel: [3, D, H, W] float32 (vel_bf16 = 0) or bfloat16 (= 1).  Block mode
+// when halo > 0: vel and out are the owned block at global (ox, oy) of a
+// D x GH x GW domain and field is [C, D, H + 2 halo, W + 2 halo].
 extern "C" int fluid_advect3d(const void* field, const void* vel, void* out,
                               int C, int D, int H, int W, int field_bf16,
                               int vel_bf16, float dt, int max_disp,
-                              int no_slip, void* stream) {
+                              int no_slip, int ox, int oy, int halo, int GH,
+                              int GW, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float md = (float)max_disp;
+  const Block b{ox, oy, halo, GH, GW};
   if (field_bf16)
-    return (int)(vel_bf16
-                     ? launch<__nv_bfloat16, __nv_bfloat16>(
-                           field, vel, out, C, D, H, W, dt, md, no_slip, s)
-                     : launch<__nv_bfloat16, float>(field, vel, out, C, D, H,
-                                                    W, dt, md, no_slip, s));
+    return (int)(vel_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(
+                                field, vel, out, C, D, H, W, dt, md, no_slip,
+                                b, s)
+                          : launch<__nv_bfloat16, float>(
+                                field, vel, out, C, D, H, W, dt, md, no_slip,
+                                b, s));
   return (int)(vel_bf16 ? launch<float, __nv_bfloat16>(field, vel, out, C, D,
                                                         H, W, dt, md,
-                                                        no_slip, s)
+                                                        no_slip, b, s)
                         : launch<float, float>(field, vel, out, C, D, H, W,
-                                               dt, md, no_slip, s));
+                                               dt, md, no_slip, b, s));
 }

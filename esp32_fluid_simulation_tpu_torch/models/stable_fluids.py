@@ -124,17 +124,18 @@ def apply_impulses(vel: torch.Tensor, imp: Impulses) -> torch.Tensor:
 
 def impulses_in_window(imp: Impulses, global_shape, origin,
                        shape) -> Impulses:
-    """``imp`` in the frame of a ``shape`` window whose cell (0, 0) sits at
-    global ``origin`` of a ``global_shape`` grid: positions clamped to the
-    grid, then shifted; the slots whose cell lies outside the window become
-    inactive, so ``apply_impulses`` on the window writes exactly the
-    window's cells of the whole grid's drain."""
+    """``imp`` in the frame of a ``shape`` window whose first cell sits at
+    global ``origin`` of a ``global_shape`` grid (2D or 3D): positions
+    clamped to the grid, then shifted; the slots whose cell lies outside
+    the window become inactive, so ``apply_impulses`` on the window writes
+    exactly the window's cells of the whole grid's drain."""
     idx = [imp.pos[:, a].long().clamp(0, global_shape[a] - 1) - origin[a]
-           for a in range(2)]
-    inside = ((idx[0] >= 0) & (idx[0] < shape[0])
-              & (idx[1] >= 0) & (idx[1] < shape[1]))
+           for a in range(len(global_shape))]
+    inside = imp.active
+    for x, n in zip(idx, shape):
+        inside = inside & (x >= 0) & (x < n)
     return Impulses(pos=torch.stack(idx, dim=1).to(imp.pos.dtype),
-                    velocity=imp.velocity, active=imp.active & inside)
+                    velocity=imp.velocity, active=inside)
 
 
 def write_cells(cells, write, vals, shape, base=None):

@@ -1,7 +1,7 @@
 """K7: 3D semi-Lagrangian advection on the GPU (``csrc/advect3d.cu``).
 
 Replaces ``esp32_fluid_simulation_tpu/ops/pallas/advect3d.py:
-advect3d_pallas`` (single device; its block mode is K11).
+advect3d_pallas``, on a single device and in its block mode (K11).
 ``advect3d_kernel`` launches the CUDA kernel for CUDA tensors and runs
 ``advect3d_reference``, its plain PyTorch version, for CPU tensors — only
 because they lie on the CPU.  Any other device raises.
@@ -16,6 +16,20 @@ field dtype instead, so for bfloat16 fields the two differ by bf16
 rounding.  The TPU kernel's ``max_disp <= 62`` limit came from its lane
 band; a direct gather has none, so only ``0 <= max_disp < 2**24`` (exact
 in float32) is checked.
+
+Block mode (K11, ``global_offset=``/``global_shape=``/``halo=``,
+``advect3d.py:265-306``, the sharded 3D steps' kernel advection): ``field``
+is one shard's ``[C, D, bh+2*halo, bw+2*halo]`` block with ``halo >=
+max_disp + 1`` exchanged cells on each side of the two horizontal axes,
+``vel`` the owned ``[3, D, bh, bw]`` block, ``global_offset`` the owned
+block's global ``(row, col)`` origin (two ints or a 2-element integer
+tensor, read once on the host) and ``global_shape`` the domain ``(D, H,
+W)``, whose ``D`` is the field's: the vertical axis is shard-local.  The
+backtrace, its clamps and the no-slip factor use global coordinates; only
+the taps are read from the haloed field, so the owned result equals the
+whole grid's to the bit.  The TPU kernel's ``halo <= pr`` limit (its
+aligned sublane halo) is dropped.  ``advect3d_kernel.block_launches``
+counts these launches.
 """
 
 from __future__ import annotations
@@ -24,7 +38,7 @@ import torch
 
 from ..advect import noslip_axis_factor
 from .build import load, stream_of
-from .modes import refuse_unported
+from .modes import check_block3d
 
 
 def _clamped_source(x, raw, max_disp, n):
@@ -32,23 +46,34 @@ def _clamped_source(x, raw, max_disp, n):
     return torch.clamp(s, 0.0, n - 1.0)
 
 
-def advect3d_reference(field, vel, dt, no_slip, max_disp=4):
-    """Plain PyTorch version of the kernel (same arithmetic, same order)."""
+def advect3d_reference(field, vel, dt, no_slip, max_disp=4, block=None):
+    """Plain PyTorch version of the kernel (same arithmetic, same order);
+    ``block`` (a ``modes.Block``) is block mode: ``field`` haloed on the
+    trailing two axes, ``vel`` and the result the owned block."""
     squeeze = field.dim() == 3
     f = (field[None] if squeeze else field).to(torch.float32)
-    _, d, h, w = f.shape
+    d, h, w = vel.shape[-3:]
     dev = field.device
-    grid = torch.meshgrid(*(torch.arange(n, dtype=torch.float32, device=dev)
-                            for n in (d, h, w)), indexing="ij")
+    # the owned cells' global origin, the domain, and the shift from a
+    # global row (column) to the field's
+    ox, oy, gh, gw, ti, tj = (
+        (0, 0, h, w, 0, 0) if block is None else
+        (block.ox, block.oy, block.gh, block.gw, block.halo - block.ox,
+         block.halo - block.oy))
+    grid = torch.meshgrid(
+        torch.arange(d, dtype=torch.float32, device=dev),
+        torch.arange(h, device=dev).add(ox).to(torch.float32),
+        torch.arange(w, device=dev).add(oy).to(torch.float32),
+        indexing="ij")
     v = vel.to(torch.float32)
     raw = [grid[k] - v[k] * dt for k in range(3)]
     src = [_clamped_source(grid[k], raw[k], max_disp, n)
-           for k, n in enumerate((d, h, w))]
+           for k, n in enumerate((d, gh, gw))]
     lo = [torch.clamp(torch.floor(s), 0.0, n - 2.0)
-          for s, n in zip(src, (d, h, w))]
+          for s, n in zip(src, (d, gh, gw))]
     dz, di, dj = (s - l for s, l in zip(src, lo))
     one_m_dj = 1.0 - dj
-    z0, i0, j0 = (x.long() for x in lo)
+    z0, i0, j0 = lo[0].long(), lo[1].long() + ti, lo[2].long() + tj
 
     def colv(a, b):
         return (f[:, z0 + a, i0 + b, j0] * one_m_dj
@@ -60,30 +85,39 @@ def advect3d_reference(field, vel, dt, no_slip, max_disp=4):
     acc = acc + colv(1, 1) * (dz * di)
     if no_slip:
         acc = acc * (noslip_axis_factor(raw[0], d)
-                     * noslip_axis_factor(raw[1], h)
-                     * noslip_axis_factor(raw[2], w))
+                     * noslip_axis_factor(raw[1], gh)
+                     * noslip_axis_factor(raw[2], gw))
     out = acc.to(field.dtype)
     return out[0] if squeeze else out
 
 
 def advect3d_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
-                    no_slip: bool, max_disp: int = 4, **unported):
+                    no_slip: bool, max_disp: int = 4, global_offset=None,
+                    global_shape=None, halo: int = 0):
     """Advect ``field`` (``[C, D, H, W]`` or ``[D, H, W]``, float32 or
     bfloat16, C <= 4) through ``vel`` (``[3, D, H, W]``, float32 or
     bfloat16) into a fresh tensor.  ``field`` may be ``vel`` itself (the
-    velocity self-advect).  Block mode raises."""
-    refuse_unported("advect3d_kernel", unported)
-    if field.device.type == "cpu":
-        return advect3d_reference(field, vel, dt, no_slip, max_disp)
-    if not field.is_cuda:
-        raise ValueError(f"advect3d_kernel: unsupported device "
-                         f"{field.device}")
-
+    velocity self-advect).  ``global_offset``, ``global_shape`` and
+    ``halo`` are block mode (module docstring): ``field`` haloed, ``vel``
+    and the result the owned block."""
     f4 = field[None] if field.dim() == 3 else field
     if f4.dim() != 4:
         raise ValueError(f"advect3d_kernel: field shape "
                          f"{tuple(field.shape)} is not [C, D, H, W]")
+    blk = check_block3d("advect3d_kernel", global_offset, global_shape, halo,
+                        f4.shape, max_disp + 1, "max_disp+1")
     c, d, h, w = f4.shape
+    if blk is not None:
+        h, w = blk.bh, blk.bw
+    if tuple(vel.shape) != (3, d, h, w):
+        raise ValueError(f"advect3d_kernel: vel must be [3, {d}, {h}, {w}]"
+                         + (" (the owned block)" if blk is not None else ""))
+    if field.device.type == "cpu":
+        return advect3d_reference(field, vel, dt, no_slip, max_disp, blk)
+    if not field.is_cuda:
+        raise ValueError(f"advect3d_kernel: unsupported device "
+                         f"{field.device}")
+
     # the launch puts planes on grid.z and rows on grid.y, 8 a block
     if not 1 <= c <= 4 or min(d, h, w) < 2 or d > 65535 or h > 8 * 65535:
         raise ValueError(f"advect3d_kernel: field shape "
@@ -93,8 +127,6 @@ def advect3d_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
         if t.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"advect3d_kernel: {name} dtype {t.dtype} not "
                              "supported (float32, bfloat16)")
-    if vel.shape != (3, d, h, w):
-        raise ValueError("advect3d_kernel: vel must be [3, D, H, W]")
     if vel.device != field.device:
         raise ValueError("advect3d_kernel: field and vel on different "
                          "devices")
@@ -104,16 +136,20 @@ def advect3d_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
         raise ValueError(f"advect3d_kernel: max_disp={max_disp} out of "
                          "range")
 
-    out = torch.empty_like(f4)
+    ox, oy, g, gh, gw = ((0, 0, 0, h, w) if blk is None else
+                         (blk.ox, blk.oy, blk.halo, blk.gh, blk.gw))
+    out = f4.new_empty((c, d, h, w))
     lib = load()
     with torch.cuda.device(field.device):
         lib.call("fluid_advect3d", f4.data_ptr(), vel.data_ptr(),
                  out.data_ptr(), c, d, h, w,
                  int(f4.dtype == torch.bfloat16),
                  int(vel.dtype == torch.bfloat16), float(dt), int(max_disp),
-                 int(no_slip), stream_of(field))
+                 int(no_slip), ox, oy, g, gh, gw, stream_of(field))
     advect3d_kernel.launches += 1
+    advect3d_kernel.block_launches += blk is not None
     return out[0] if field.dim() == 3 else out
 
 
 advect3d_kernel.launches = 0
+advect3d_kernel.block_launches = 0

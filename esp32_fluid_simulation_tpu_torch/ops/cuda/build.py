@@ -58,14 +58,19 @@ _SIGNATURES = {
     # color, out, H, W, color_bf16, s, bswap, unit_range, stream
     "fluid_render_rgb565": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     # field, vel, out, C, D, H, W, field_bf16, vel_bf16, dt, max_disp,
-    # no_slip, stream
-    "fluid_advect3d": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    # no_slip, ox, oy, halo, GH, GW, stream
+    "fluid_advect3d": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                       _I, _I, _I, _I, _P),
     # vel, out, D, H, W, inv2dx, stream
     "fluid_divergence3d": (_P, _P, _I, _I, _I, _F, _P),
     # vel, p, out, D, H, W, inv2dx, stream
     "fluid_subtract_gradient3d": (_P, _P, _P, _I, _I, _I, _F, _P),
     # d, p, D, H, W, dx, iters, omega, one_m_w, stream
     "fluid_sor3d": (_P, _P, _I, _I, _I, _F, _I, _F, _F, _P),
+    # d, p_in, p_out, D, H, W, oz, oi, oj, GD, GH, GW, dx, sweeps, omega,
+    # one_m_w, stream
+    "fluid_sor3d_chunk": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _F, _I, _F, _F, _P),
     # d, p, dxd, H, W, mh, mw, oi, oj, GH, GW, halo, p_out, dx, iters,
     # omega, one_m_w, stream
     "fluid_sor": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I,

@@ -1,6 +1,6 @@
 """Argument checks shared by the kernel wrappers: block mode (K11) of K1,
-K2 and K4, its refusal by the 3D kernels, and the member-tile shape of the
-tiled-domain modes (K6)."""
+K2, K4, K7 and K9, and the member-tile shape of the tiled-domain modes
+(K6)."""
 
 from __future__ import annotations
 
@@ -9,23 +9,19 @@ from typing import NamedTuple
 import torch
 
 BLOCK_MODE = ("global_offset", "global_shape", "halo")
-NEXT_SLICE = ("block mode of the 3D kernels (K11 for K7 and K9) is the next "
-              "slice, ROADMAP.md queue 1 item 10")
 
 
 def refuse_unported(name, kwargs, also=()):
     """Raise TypeError for an argument the TPU kernel does not take, and
-    NotImplementedError for one it takes that is not ported: block mode
-    (the 3D kernels' wrappers pass it here) and the names in ``also``.
-    None, False and the JAX default ``halo=0`` mean "not asked for"."""
+    NotImplementedError for one of ``also``, which it takes and the port
+    does not.  None and False mean "not asked for"."""
     for key, value in kwargs.items():
-        if key not in BLOCK_MODE and key not in also:
+        if key not in also:
             raise TypeError(f"{name} got an unexpected argument {key!r}")
-        if value is None or value is False or (key == "halo" and value == 0):
+        if value is None or value is False:
             continue
-        why = (NEXT_SLICE if key in BLOCK_MODE
-               else "ROADMAP.md queue 1, 'Not to port'")
-        raise NotImplementedError(f"{name}: {key}= is not ported ({why})")
+        raise NotImplementedError(f"{name}: {key}= is not ported (ROADMAP.md "
+                                  "queue 1, 'Not to port')")
 
 
 class Block(NamedTuple):
@@ -47,15 +43,17 @@ class Block(NamedTuple):
         return self.ox - self.halo, self.oy - self.halo
 
 
-def host_offset(global_offset):
-    """``(ox, oy)`` as Python ints from a pair of ints or a 2-element
-    integer tensor (read once on the host)."""
+def host_offset(global_offset, n=2):
+    """The ``n`` coordinates of an origin as Python ints, from a sequence of
+    ints or an ``n``-element integer tensor (read once on the host)."""
     if isinstance(global_offset, torch.Tensor):
-        if global_offset.is_floating_point() or global_offset.numel() != 2:
-            raise ValueError("global_offset must be 2 integers")
+        if global_offset.is_floating_point():
+            raise ValueError(f"global_offset must be {n} integers")
         global_offset = global_offset.reshape(-1).tolist()
-    ox, oy = (int(v) for v in global_offset)
-    return ox, oy
+    if len(global_offset) != n:
+        raise ValueError(f"global_offset must be {n} integers, got "
+                         f"{list(global_offset)}")
+    return tuple(int(v) for v in global_offset)
 
 
 def check_block(name, global_offset, global_shape, halo, shape, need,
@@ -85,6 +83,40 @@ def check_block(name, global_offset, global_shape, halo, shape, need,
                          f"at {(ox, oy)} does not lie in the "
                          f"{(gh, gw)} domain")
     return Block(ox, oy, gh, gw, halo, bh, bw)
+
+
+def check_block3d(name, global_offset, global_shape, halo, shape, need,
+                  what):
+    """``check_block`` for a 3D field ``[..., D, rows, cols]`` whose
+    vertical axis is shard-local: ``global_shape`` is the domain's
+    ``(D, H, W)`` with the field's own ``D``, the halo on the two
+    horizontal axes only."""
+    if global_offset is not None and global_shape is not None:
+        gshape = tuple(int(n) for n in global_shape)
+        if len(gshape) != 3:
+            raise ValueError(f"{name}: global_shape {gshape} is not (D, H, "
+                             "W)")
+        if gshape[0] != shape[-3]:
+            raise ValueError(f"{name}: the vertical axis must be shard-local "
+                             f"(field D={shape[-3]} != global D={gshape[0]})")
+        global_shape = gshape[1:]
+    return check_block(name, global_offset, global_shape, halo, shape[-2:],
+                       need, what)
+
+
+def chunk_geometry(name, global_offset, global_shape, shape):
+    """``(origin, domain)`` of a 3D chunk (K9 block mode): the haloed
+    array's global origin ``(oz, oi, oj)``, 0 without ``global_offset``,
+    and the domain ``(gd, gh, gw)``, the array's own shape without
+    ``global_shape``."""
+    origin = (0, 0, 0) if global_offset is None else host_offset(
+        global_offset, 3)
+    domain = tuple(shape) if global_shape is None else tuple(
+        int(n) for n in global_shape)
+    if len(domain) != 3 or min(domain) < 2:
+        raise ValueError(f"{name}: global_shape {domain} is not (D, H, W), "
+                         "each >= 2")
+    return origin, domain
 
 
 def block_coords(blk: Block, shape, device):

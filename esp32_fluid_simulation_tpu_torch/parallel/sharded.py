@@ -51,9 +51,11 @@ from .topology import BATCH_AXIS, Mesh, X_AXIS, Y_AXIS
 
 
 class Shards:
-    """The ``(x, y)`` shards of a mesh over an ``H x W`` domain: each
-    shard's device and the origin of its ``lh x lw`` owned block.  This is
-    the layout a sharded state follows (``sharded_state_sharding``)."""
+    """The ``(x, y)`` shards of a mesh over an ``H x W`` or ``D x H x W``
+    domain (the trailing two axes split, a vertical axis whole on every
+    shard): each shard's device and the origin of its ``lh x lw`` owned
+    block.  This is the layout a sharded state follows
+    (``sharded_state_sharding``)."""
 
     def __init__(self, mesh: Mesh, shape):
         if mesh.shape[BATCH_AXIS] != 1:
@@ -61,12 +63,12 @@ class Shards:
                 "a batched (dp x sp) mesh is not ported (ROADMAP.md queue 1 "
                 "item 10, 'dp x sp mesh')")
         nx, ny = mesh.shape[X_AXIS], mesh.shape[Y_AXIS]
-        h, w = shape
+        h, w = shape[-2:]
         if h % nx or w % ny:
             raise ValueError(f"grid {tuple(shape)} not divisible by mesh "
                              f"({nx},{ny})")
         self.nx, self.ny = nx, ny
-        self.shape = (h, w)
+        self.shape = tuple(shape)
         self.lh, self.lw = h // nx, w // ny
         self.devices = [[mesh.devices[0, a, b] for b in range(ny)]
                         for a in range(nx)]
@@ -123,11 +125,8 @@ def gather(blocks, device) -> torch.Tensor:
 
 def sharded_state_sharding(cfg: SimConfig, mesh: Mesh) -> Shards:
     """The layout of a ``SimState`` of ``cfg`` on ``mesh``: velocity and
-    dye split over the ``(x, y)`` mesh axes, ``step`` a host int."""
-    if cfg.ndim != 2:
-        raise NotImplementedError(
-            "the 3D sharded step (sharded3d.py) is the next slice "
-            "(ROADMAP.md queue 1 item 10)")
+    dye split over the ``(x, y)`` mesh axes (the trailing two; a 3D grid's
+    vertical axis stays whole), ``step`` a host int."""
     return Shards(mesh, cfg.shape)
 
 
@@ -164,6 +163,48 @@ def _channel(grid, c):
     return [[blk[c] for blk in row] for row in grid]
 
 
+def check_max_disp(cfg, max_disp, use_kernel_advect):
+    """The advection's CFL clamp: ``max_disp``, None meaning
+    ``cfg.advect_max_disp``; kernel advection, whose clamp the
+    single-device step takes from that field, refuses another value."""
+    if max_disp is None:
+        return cfg.advect_max_disp
+    if use_kernel_advect and max_disp != cfg.advect_max_disp:
+        raise ValueError(
+            f"max_disp={max_disp} differs from cfg.advect_max_disp="
+            f"{cfg.advect_max_disp}, the kernel advection's clamp")
+    return max_disp
+
+
+def mesh_metrics(sh: Shards, div_pre, div_post, res, vel, color,
+                 n_cells: float):
+    """The SURVEY §5 observability scalars of a sharded step: each shard's
+    reductions combined over the shards, 0-dim tensors on the first
+    shard's device."""
+    home = sh.devices[0][0]
+
+    def reduce(grid, fn, combine):
+        return combine(torch.stack([fn(blk).to(home) for row in grid
+                                    for blk in row]))
+
+    def gmax(grid):
+        return reduce(grid, torch.max, torch.max)
+
+    nonfinite = sh.map(lambda a, b, v, c: (
+        (~torch.isfinite(v)).sum() + (~torch.isfinite(c)).sum()), vel, color)
+    return {
+        "div_pre_max": gmax(sh.map(lambda a, b, x: torch.abs(x), div_pre)),
+        "div_post_max": gmax(sh.map(lambda a, b, x: torch.abs(x),
+                                    div_post)),
+        "poisson_residual_l2": torch.sqrt(reduce(
+            sh.map(lambda a, b, r: r * r, res), torch.sum, torch.sum)
+            / n_cells),
+        "max_speed": torch.sqrt(gmax(sh.map(
+            lambda a, b, v: torch.sum(v * v, dim=0), vel))),
+        "finite": reduce(nonfinite, lambda x: x, torch.sum) == 0,
+    }
+
+
 def make_sharded_step(cfg: SimConfig, mesh: Mesh,
                       max_disp: int | None = None, sor_halo: int = 1,
                       with_metrics: bool = False):
@@ -177,12 +218,14 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh,
     ``sor_halo``: the eager SOR's pressure-halo depth; k trades k-ring
     redundant compute for ~k-fold fewer exchanges.  ``with_metrics``:
     return ``(state, metrics)`` with mesh-reduced observability scalars
-    (see ``make_sharded_step_with_metrics``).
+    (see ``make_sharded_step_with_metrics``).  A 3D ``cfg`` goes to
+    ``parallel.sharded3d.make_sharded_step_3d``.
     """
     if cfg.ndim == 3:
-        raise NotImplementedError(
-            "the 3D sharded step (sharded3d.py, K11 for K7 and K9) is the "
-            "next slice (ROADMAP.md queue 1 item 10)")
+        from .sharded3d import make_sharded_step_3d
+        return make_sharded_step_3d(cfg, mesh, max_disp=max_disp,
+                                    sor_halo=sor_halo,
+                                    with_metrics=with_metrics)
     if cfg.domain_tile is not None:
         # Running a tiled-domain config as a plain single-domain sharded
         # step would silently drop every member-wall boundary condition.
@@ -205,12 +248,7 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh,
         raise NotImplementedError(
             "advect_sample_dtype='bfloat16' is not ported (ROADMAP.md queue "
             "1, 'Not to port')")
-    if max_disp is None:
-        max_disp = cfg.advect_max_disp
-    elif use_kernel_advect and max_disp != cfg.advect_max_disp:
-        raise ValueError(
-            f"max_disp={max_disp} differs from cfg.advect_max_disp="
-            f"{cfg.advect_max_disp}, the kernel advection's clamp")
+    max_disp = check_max_disp(cfg, max_disp, use_kernel_advect)
     sh = Shards(mesh, cfg.shape)
     H, W = cfg.shape
     lh, lw = sh.lh, sh.lw
@@ -564,19 +602,6 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh,
         return sh.map(one, _exchange2(p, 1), div)
 
     home = sh.devices[0][0]
-
-    def reduce(grid, fn, combine):
-        """``combine`` over the shards of ``fn`` of each block, on the
-        first shard's device."""
-        parts = [fn(blk).to(home) for row in grid for blk in row]
-        return combine(torch.stack(parts))
-
-    def gmax(grid):
-        return reduce(grid, torch.max, torch.max)
-
-    def gsum(grid):
-        return reduce(grid, torch.sum, torch.sum)
-
     drain_in_k1 = (cfg.solver == "fused_pallas" and cfg.vorticity_eps == 0.0
                    and not with_metrics)
 
@@ -594,26 +619,9 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh,
         new_state = SimState(velocity=vel, color=color, step=state.step + 1)
         if not with_metrics:
             return new_state
-        # SURVEY §5 metrics, distributed: local reductions combined over
-        # the shards on the first shard's device
-        div_post = divergence_local(vel)
-        res = residual_local(p, div_pre)
-        n_cells = float(H * W)
-        nonfinite = sh.map(lambda a, b, v, c: (
-            (~torch.isfinite(v)).sum() + (~torch.isfinite(c)).sum()),
-            vel, color)
-        metrics = {
-            "div_pre_max": gmax(sh.map(lambda a, b, x: torch.abs(x),
-                                       div_pre)),
-            "div_post_max": gmax(sh.map(lambda a, b, x: torch.abs(x),
-                                        div_post)),
-            "poisson_residual_l2": torch.sqrt(
-                gsum(sh.map(lambda a, b, r: r * r, res)) / n_cells),
-            "max_speed": torch.sqrt(gmax(sh.map(
-                lambda a, b, v: torch.sum(v * v, dim=0), vel))),
-            "finite": reduce(nonfinite, lambda x: x, torch.sum) == 0,
-        }
-        return new_state, metrics
+        return new_state, mesh_metrics(
+            sh, div_pre, divergence_local(vel), residual_local(p, div_pre),
+            vel, color, float(H * W))
 
     return step
 

@@ -35,7 +35,7 @@ from esp32_fluid_simulation_tpu_torch.ops.cuda.fd3d import (
 from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import (
     sor_solve_kernel, sor_solve_reference)
 from esp32_fluid_simulation_tpu_torch.ops.cuda.sor3d import (
-    sor3d_solve, sor3d_reference)
+    sor3d_chunk, sor3d_chunk_reference, sor3d_solve, sor3d_reference)
 from esp32_fluid_simulation_tpu_torch.render.cuda_smoke import (
     render_smoke_mip_kernel, render_smoke_mip_reference)
 from esp32_fluid_simulation_tpu_torch.render.cuda_upscale import (
@@ -409,6 +409,75 @@ def test_block_kernels_bit_equal(cuda, rng, off):
 def _blk(off, g):
     from esp32_fluid_simulation_tpu_torch.ops.cuda.modes import Block
     return Block(off[0], off[1], *BLOCK_GLOBAL, g, *BLOCK)
+
+
+BLOCK3_GLOBAL = (9,) + BLOCK_GLOBAL
+
+
+@pytest.mark.parametrize("off", BLOCK_OFFSETS)
+def test_block_kernels3d_bit_equal(cuda, rng, off):
+    """K11 for K7 and K9: K7 in block mode against its plain version and
+    the crop of whole-grid K7; one ``sor3d_chunk`` from zero and one that
+    continues a whole-grid solve, against the plain version on every cell
+    and whole-grid K9 on the owned cells, bit for bit."""
+    md, k, sweeps = 2, 3, 3
+    g = 2 * sweeps
+    # sigma 40 cells/s: the CFL clamp at max_disp=2 binds on some cells
+    vel = _on((40 * rng.standard_normal((3,) + BLOCK3_GLOBAL)).astype(
+        np.float32), cuda)
+    vown = _block_of(vel, off, BLOCK, 0)
+    pair = _on(rng.random((2,) + BLOCK3_GLOBAL, dtype=np.float32),
+               cuda).to(torch.bfloat16)
+    before = (advect3d_kernel.block_launches, sor3d_chunk.launches)
+    for field, no_slip in ((vel, True), (pair, False)):
+        fpad = _block_of(field, off, BLOCK, k)
+        got = advect3d_kernel(fpad, vown, 1 / 30, no_slip, max_disp=md,
+                              global_offset=off, global_shape=BLOCK3_GLOBAL,
+                              halo=k)
+        assert torch.equal(_bits(got), _bits(advect3d_reference(
+            fpad, vown, 1 / 30, no_slip, md, _blk(off, k))))
+        whole = advect3d_kernel(field, vel, 1 / 30, no_slip, max_disp=md)
+        assert torch.equal(_bits(got), _bits(_block_of(whole, off, BLOCK, 0)))
+    d = _on(rng.standard_normal(BLOCK3_GLOBAL).astype(np.float32), cuda)
+    dpad = _block_of(d, off, BLOCK, g)
+    origin = (0, off[0] - g, off[1] - g)
+    for p0, total in ((torch.zeros_like(dpad), sweeps),
+                      (_block_of(sor3d_solve(d, 0.7, sweeps, 1.5), off, BLOCK,
+                                 g), 2 * sweeps)):
+        got = sor3d_chunk(dpad, p0, 0.7, sweeps, 1.5, global_offset=origin,
+                          global_shape=BLOCK3_GLOBAL)
+        assert torch.equal(got, sor3d_chunk_reference(
+            dpad, p0, 0.7, sweeps, 1.5, origin, BLOCK3_GLOBAL))
+        assert torch.equal(got[:, g:g + BLOCK[0], g:g + BLOCK[1]], _block_of(
+            sor3d_solve(d, 0.7, total, 1.5), off, BLOCK, 0))
+    assert (advect3d_kernel.block_launches, sor3d_chunk.launches) == (
+        before[0] + 2, before[1] + 2)
+
+
+def test_sharded_smoke_kernel_step_on_one_card(cuda):
+    """The sharded plume on a 2x2 mesh of one card equals the single-device
+    kernel step bit for bit, with K7 in block mode three times and the K9
+    block chunk ceil(iters/chunk) times per shard and step."""
+    from esp32_fluid_simulation_tpu_torch import (SmokeConfig, init_smoke,
+                                                  make_smoke_step)
+    from esp32_fluid_simulation_tpu_torch.parallel import (
+        make_mesh, make_sharded_smoke_step, shard_smoke_state,
+        unshard_smoke_state)
+    cfg = SmokeConfig(shape=(16, 32, 48), advect_impl="pallas",
+                      sor_impl="pallas")
+    mesh = make_mesh([cuda] * 4, grid_shape=(2, 2))
+    st = init_smoke(cfg, device=cuda)
+    one, sharded = make_smoke_step(cfg), make_sharded_smoke_step(cfg, mesh)
+    a, b = st, shard_smoke_state(st, cfg, mesh)
+    before = (advect3d_kernel.block_launches, sor3d_chunk.launches)
+    for _ in range(3):
+        a, b = one(a), sharded(b)
+    b = unshard_smoke_state(b, cuda)
+    for name in ("velocity", "density", "temperature"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    chunks = -(-cfg.sor_iters // cfg.sor_chunk)
+    assert (advect3d_kernel.block_launches, sor3d_chunk.launches) == (
+        before[0] + 3 * 4 * 3, before[1] + 4 * chunks * 3)
 
 
 @pytest.mark.parametrize("solver", ["fused_pallas", "sor_pallas"])

@@ -122,14 +122,26 @@ def test_advect3d_plain_cfl_clamp_matches_pallas(rng):
                                atol=5e-5)
 
 
-def test_advect3d_kernel_rejects_block_mode():
-    f = torch.zeros((2, 4, 4, 4))
-    with pytest.raises(NotImplementedError, match="K11 .* next slice"):
-        advect3d_kernel(f, torch.zeros((3, 4, 4, 4)), DT, False,
-                        global_offset=torch.zeros(2), halo=3)
+def test_advect3d_kernel_rejects_block_mode(rng):
+    """Block mode (K11), which this test once checked was refused, runs: a
+    haloed block of a 2-channel field, with the
+    origin as a 2-element integer tensor, equals the crop of the whole
+    grid's result to the bit.  An argument the TPU kernel does not take
+    is still rejected."""
+    f = rng.random((2,) + ADV, dtype=F)
+    v = _smooth_vel(rng, ADV, 40.0)
+    g, off, blk = 2, (4, 2), (6, 100)
+    fpad = np.pad(f, ((0, 0), (0, 0), (g, g), (g, g)))[
+        :, :, off[0]:off[0] + blk[0] + 2 * g, off[1]:off[1] + blk[1] + 2 * g]
+    vown = v[:, :, off[0]:off[0] + blk[0], off[1]:off[1] + blk[1]]
+    got = advect3d_kernel(_t(fpad), _t(vown), DT, False, max_disp=1,
+                          global_offset=torch.tensor(off), global_shape=ADV,
+                          halo=g)
+    whole = advect3d_kernel(_t(f), _t(v), DT, False, max_disp=1)
+    assert torch.equal(got, whole[:, :, off[0]:off[0] + blk[0],
+                                  off[1]:off[1] + blk[1]])
     with pytest.raises(TypeError):
-        advect3d_kernel(f, torch.zeros((3, 4, 4, 4)), DT, False,
-                        tile_q=2)
+        advect3d_kernel(_t(f), _t(v), DT, False, tile_q=2)
 
 
 def test_fd3d_plain_matches_pallas(rng):

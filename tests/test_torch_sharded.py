@@ -260,10 +260,10 @@ def test_sharded_step_follows_jax_sharded_step(monkeypatch, mesh, route):
 
 
 def test_sharded_step_refusals(mesh):
-    """As in JAX: domain_tile configs and unsupported solvers raise
-    NotImplementedError, a grid the mesh does not divide ValueError; the
-    3D step and a batched mesh are not ported yet (NotImplementedError
-    naming their ROADMAP line)."""
+    """As in JAX: domain_tile configs, unsupported solvers and the 3D
+    ``fused_pallas`` raise NotImplementedError, a grid the mesh does not
+    divide ValueError; a batched mesh is not ported yet
+    (NotImplementedError naming its ROADMAP line)."""
     with pytest.raises(NotImplementedError, match="domain_tile"):
         make_sharded_step(SimConfig(shape=(128, 256), domain_tile=(32, 32)),
                           mesh)
@@ -272,8 +272,9 @@ def test_sharded_step_refusals(mesh):
                           mesh)
     with pytest.raises(ValueError, match="not divisible"):
         make_sharded_step(SimConfig(shape=(65, 96)), mesh)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        make_sharded_step(SimConfig(shape=(16, 16, 16)), mesh)
+    with pytest.raises(NotImplementedError, match="fused"):
+        make_sharded_step(SimConfig(shape=(16, 16, 16),
+                                    solver="fused_pallas"), mesh)
     with pytest.raises(NotImplementedError, match="dp x sp"):
         make_sharded_step(SimConfig(shape=SHAPE),
                           make_mesh(["cpu"] * 8, batch=2, grid_shape=(2, 2)))
