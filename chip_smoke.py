@@ -13,7 +13,11 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    upscale, K4 SOR solve, K5 MacCormack advection) against its plain
    PyTorch version on the card, at small odd shapes and at the production
    shapes (K4 at 4096^2, K5 at config 3's 2048^2); bit-equality is expected
-   (``--fmad=false``).
+   (``--fmad=false``).  K1 also at 130x200 and 4097x4093, at iters 0, 1,
+   10 (its one-launch window route) and 20 (its launch-sequence route),
+   with impulses on the seams of its tiles and in a neighbour tile's ring;
+   K3 at s = 1 to 5 (s = 4 its own instance), f32 and bf16, ``bswap`` and
+   ``unit_range`` both ways.
 1b. The same for the 3D smoke kernels (K7 advection, K8 divergence and
    gradient subtract, K9 SOR, K10 MIP render) at (9, 33, 130) and 256^3.
 2. The reference workload ``SimConfig()`` against the golden trajectory
@@ -49,8 +53,10 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    smoke plume with vorticity confinement against the plain path.
 13. The tiled-domain modes (K6: ``member=`` of K1, K2, K4 and K5, K2's
    ``overlay=``) against their plain versions on a 2x3 grid of odd 17x21
-   members, a 2x2 grid of 32x64 members and config 4's 4096^2 supergrid of
-   256^2 members; bit-equality is expected.
+   members, a 2x2 grid of 32x64 members, a 3x5 grid of 48x40 members (their
+   walls cross K1's tiles) and config 4's 4096^2 supergrid of 256^2
+   members (K1 at iters 0, 1, 10 and 20 on the small ones); bit-equality is
+   expected.
 14. Config 4 (``examples/config4_ensemble_256.json``, 256 members of 256^2
    on one 4096^2 supergrid): 10 steps through ``make_ensemble_step`` (launch
    counters: K2 member = 2*steps, K2 overlay = steps, K1 member = steps),
@@ -62,7 +68,8 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    block of 130x200 cut 2x2, and the (0, 0) and (4096, 4096) blocks of
    8192^2 cut into 4096^2 blocks (K2 on the f32 velocity with
    ``return_minmax`` and on the bf16 dye with the clip, K1 with and without
-   impulses, K4, at iters 10); bit-equality is expected.
+   impulses, K4, at iters 10; K1 also at iters 0, 1 and 20 and with 65x40
+   members on 130x200); bit-equality is expected.
 15b. Block mode (K11) of K7 and K9 against the plain versions: every
    block of (9, 130, 200) cut 2x2 and the (0, 0) block of 256^3 cut 2x2
    (K7 on the f32 velocity with no-slip and on bf16 scalars, also against
@@ -102,9 +109,12 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    and of config 4 (whole-ensemble step, member-steps/s, the rollout's step,
    the tiled ``step_render``, and the step's split into kernels, overlay
    build and layout permutes), and ms per call of each kernel and mode and
-   its plain version; the sharded step at 8192^2 beside the single-device
-   step, its split (K1 block x4, K2 block x8, the halo exchanges) and each
-   block mode beside its whole-grid kernel at 4096^2; the sharded 256^3
+   its plain version; K1's device launches per call on both routes (a
+   profiler count), its sequence route at iters 10 beside its window
+   route, and the window route at three tile sizes; the sharded step at
+   8192^2 beside the single-device step, its split (K1 block x4, K2 block
+   x8, the halo exchanges) and each block mode beside its whole-grid
+   kernel at 4096^2; the sharded 256^3
    smoke step beside the single-device one, its split (K7 block x12, the
    K9 block chain, the exchanges, the eager ops), and the 3D dye-bed step
    on both routes.
@@ -119,6 +129,7 @@ line before it is the per-kernel JSON summary.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import shutil
 import subprocess
@@ -157,7 +168,7 @@ BLOCK_CASES = (((130, 200), (65, 100), ((0, 0), (0, 100), (65, 0), (65, 100))),
                ((8192, 8192), (4096, 4096), ((0, 0), (4096, 4096))))
 # (grid, member tile): odd members, even members, config 4's supergrid
 TILINGS = (((34, 63), (17, 21)), ((64, 128), (32, 64)),
-           ((4096, 4096), (256, 256)))
+           ((144, 200), (48, 40)), ((4096, 4096), (256, 256)))
 SMALL = (61, 81)
 PROD = (4096, 4096)
 MC_PROD = (2048, 2048)
@@ -365,15 +376,18 @@ def phase1_kernels(dev):
         color[:, 1::9, ::3] = 0.0
         for dtype in (torch.float32, torch.bfloat16):
             c = color.to(dtype)
-            for bswap in (True, False):
-                for unit_range in (False, True):
-                    got = render_rgb565_kernel(c, 4, bswap, unit_range)
-                    want = render_rgb565_reference(c, 4, bswap, unit_range)
-                    err["K3 render_rgb565_kernel"] = max(
-                        err["K3 render_rgb565_kernel"],
-                        compare(f"K3 s=4 {str(dtype)[6:]} bswap={bswap} "
-                                f"unit_range={unit_range}", got, want))
+            for s, bswap, unit_range in itertools.product(
+                    (1, 2, 3, 4, 5), (True, False), (False, True)):
+                got = render_rgb565_kernel(c, s, bswap, unit_range)
+                want = render_rgb565_reference(c, s, bswap, unit_range)
+                err["K3 render_rgb565_kernel"] = max(
+                    err["K3 render_rgb565_kernel"],
+                    compare(f"K3 s={s} {str(dtype)[6:]} bswap={bswap} "
+                            f"unit_range={unit_range}", got, want))
+                del got, want
 
+    err["K1 project_fused"] = max(err["K1 project_fused"],
+                                  k1_windows(dev, gen))
     for shape in (SMALL, (130, 200), PROD):
         d = torch.randn(shape, generator=gen, device=dev)
         for iters, dx in ((10, 1.0), (1, 0.7)):
@@ -397,6 +411,48 @@ def phase1_kernels(dev):
                         advect_maccormack_kernel(field, vel, dt, no_slip, 12),
                         advect_maccormack_reference(field, vel, dt, no_slip,
                                                     12)))
+    return err
+
+
+def seam_impulses(shape, iters, dev):
+    """Impulse slots on the seams of K1's window-route tiles and in a
+    neighbour tile's ring (within 2*iters + 2 cells of a seam), a duplicate
+    cell (the last active slot wins) and an out-of-range position."""
+    from esp32_fluid_simulation_tpu_torch import SimConfig, Impulses
+    from esp32_fluid_simulation_tpu_torch.ops.cuda import project
+    th, tw = project.TILE[:2]
+    r = 2 * iters + 2
+    return Impulses.from_lists(
+        SimConfig(shape=shape, max_impulses=8),
+        [(th, tw), (th - 1, tw - 1), (th + r - 1, 5), (th, tw),
+         (3, tw + r - 1), (2 * th, 2 * tw + 1), (shape[0] + 50, -3)],
+        [(90.0, -45.0), (33.0, 44.0), (-60.0, 120.0), (-20.0, 65.0),
+         (7.0, 8.0), (25.0, -15.0), (5.0, 5.0)], device=dev)
+
+
+def k1_windows(dev, gen):
+    """K1 whole-grid against its plain version on shapes that are not
+    multiples of its tile, at iters 0, 1, 10 (window route) and 20
+    (sequence route), with and without seam impulses; returns the largest
+    difference."""
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
+        WINDOW_MAX_ITERS, project_fused, project_fused_reference)
+    if WINDOW_MAX_ITERS >= 20:
+        raise AssertionError("phase 1: iters 20 no longer takes K1's "
+                             "sequence route")
+    err = 0.0
+    for shape in (SMALL, (130, 200), (4097, 4093), PROD):
+        print(f"phase 1 K1 routes vs plain at {shape[0]}x{shape[1]}")
+        vel = 40.0 * torch.randn((2,) + shape, generator=gen, device=dev)
+        for iters in (0, 1, 10, 20):
+            for imp in (seam_impulses(shape, iters, dev), None):
+                label = (f"K1 {shape[0]}x{shape[1]} iters={iters} "
+                         f"{'seam impulses' if imp is not None else 'none'}")
+                got = project_fused(vel, 1.0, iters, 1.96, impulses=imp)
+                want = project_fused_reference(vel, 1.0, iters, 1.96, imp)
+                err = max(err, compare(label + " velocity", got[0], want[0]),
+                          compare(label + " pressure", got[1], want[1]))
+        del vel, got, want
     return err
 
 
@@ -523,6 +579,9 @@ def reset_counts():
                                           "block_launches"),
         "K11 K7 advect3d_kernel block": (advect3d_kernel, "block_launches"),
         "K11 K9 sor3d_chunk block": (sor3d_chunk, "launches"),
+        # K1's two routes, counted beside its modes
+        "K1 window route": (project_fused, "window_launches"),
+        "K1 sequence route": (project_fused, "sequence_launches"),
     }
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
@@ -548,9 +607,11 @@ def phase3_4_main_path(dev, cfg):
     torch.cuda.synchronize()
     n = counts()
     if n["K1 project_fused"] != MAIN_STEPS or \
+            n["K1 window route"] != MAIN_STEPS or \
             n["K2 advect_kernel"] != 2 * MAIN_STEPS:
         raise AssertionError(f"phase 3: launch counts {n} for {MAIN_STEPS} "
-                             "steps (want K1 = steps, K2 = 2 * steps)")
+                             "steps (want K1 = K1's window route = steps, "
+                             "K2 = 2 * steps)")
     if not (torch.isfinite(st.velocity).all()
             and torch.isfinite(st.color.float()).all()):
         raise AssertionError("phase 3: non-finite state")
@@ -904,16 +965,19 @@ def phase13_k6_kernels(dev):
                   g, w_)
 
         vel = 40.0 * torch.randn((2, h, w), generator=gen, device=dev)
-        for impulses in (imp, None):
-            label = "impulses" if impulses is not None else "no impulses"
-            got_v, got_p = project_fused(vel, 1.0, 10, 1.96,
-                                         impulses=impulses, member=member)
-            want_v, want_p = project_fused_reference(vel, 1.0, 10, 1.96,
-                                                     impulses, member)
-            check("K6 K1 project_fused member", f"K1 member velocity "
-                  f"({label})", got_v, want_v)
-            check("K6 K1 project_fused member", f"K1 member pressure "
-                  f"({label})", got_p, want_p)
+        for iters in ((10,) if h * w > 1 << 20 else (0, 1, 10, 20)):
+            for impulses in (imp, None):
+                label = (f"iters={iters} " + ("impulses" if impulses
+                                              is not None else "none"))
+                got_v, got_p = project_fused(vel, 1.0, iters, 1.96,
+                                             impulses=impulses,
+                                             member=member)
+                want_v, want_p = project_fused_reference(
+                    vel, 1.0, iters, 1.96, impulses, member)
+                check("K6 K1 project_fused member", f"K1 member velocity "
+                      f"({label})", got_v, want_v)
+                check("K6 K1 project_fused member", f"K1 member pressure "
+                      f"({label})", got_p, want_p)
         d = torch.randn(shape, generator=gen, device=dev)
         for iters, dx in ((10, 1.0), (1, 0.7)):
             check("K4 sor_solve_kernel", f"K4 member iters={iters} dx={dx}",
@@ -996,7 +1060,8 @@ def phase14_config4(dev):
     want = {"K2 advect_kernel": 2 * steps, "K1 project_fused": steps,
             "K6 K2 advect_kernel member": 2 * steps,
             "K6 K2 advect_kernel overlay": steps,
-            "K6 K1 project_fused member": steps, "K3 render_rgb565_kernel": 0,
+            "K6 K1 project_fused member": steps, "K1 window route": steps,
+            "K1 sequence route": 0, "K3 render_rgb565_kernel": 0,
             "K4 sor_solve_kernel": 0, "K5 advect_maccormack_kernel": 0}
     bad = {k: (nc[k], v) for k, v in want.items() if nc[k] != v}
     if bad:
@@ -1279,6 +1344,7 @@ def phase5_timing(dev, cfg, state0, card):
         k2 = cuda_ms(kern, 20, warmup=0)
         res[name] = (k1 + k2) / 2
         res[name + " plain"] = (p1 + p2) / 2
+    res.update(k1_design(vel, cfg, imp))
     print(f"phase 5 timing at {cfg.shape[0]}x{cfg.shape[1]} on {card} "
           "(CUDA events, ms per call):")
     for k, v in res.items():
@@ -1304,6 +1370,74 @@ def phase5_timing(dev, cfg, state0, card):
             res["K3 render_rgb565_kernel plain"],
             nbytes(color) + 2 * up, 24 * up),
     }
+
+
+def device_kernels(fn):
+    """Names of the device kernels one call of ``fn`` launches, from a
+    profiler trace; None if the trace holds no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    return names or None
+
+
+def k1_design(vel, cfg, imp):
+    """K1 at config 0's shapes: its device launches per call on both
+    routes (a profiler count; the window route must launch once), its
+    sequence route at iters 10 beside its window route, and the window
+    route at other tiles (each checked against the plain version)."""
+    from esp32_fluid_simulation_tpu_torch.ops.cuda import project
+    it, om, dx = cfg.sor_iters, cfg.omega, cfg.dx
+    res = {}
+
+    def call(iters=it):
+        return project.project_fused(vel, dx, iters, om, imp)
+
+    seq_iters = project.WINDOW_MAX_ITERS + 1
+    for label, iters in (("window route", it), ("sequence route",
+                                                seq_iters)):
+        names = device_kernels(lambda: call(iters))
+        if names is None:
+            print(f"phase 5 K1 device launches per call ({label}, iters "
+                  f"{iters}): not measured (no device activity in the "
+                  "profiler trace)")
+            continue
+        print(f"phase 5 K1 device launches per call ({label}, iters "
+              f"{iters}): {len(names)} ({sorted(set(names))})")
+        want = 1 if label == "window route" else 2 * iters + 2
+        if len(names) != want:
+            raise AssertionError(f"phase 5: K1's {label} launched "
+                                 f"{len(names)} kernels, not {want}")
+    limit = project.WINDOW_MAX_ITERS
+    try:
+        project.WINDOW_MAX_ITERS = -1
+        res["K1 sequence route at iters 10"] = cuda_ms(call, 10, warmup=2)
+    finally:
+        project.WINDOW_MAX_ITERS = limit
+    want_v, want_p = project.project_fused_reference(vel, dx, it, om, imp)
+    default = project.TILE
+    try:
+        for tile in ((64, 128, 32), (80, 150, 32), (104, 150, 32),
+                     (104, 146, 16), (104, 146, 32)):
+            project.TILE = tile
+            got_v, got_p = call()
+            if not (torch.equal(got_v, want_v) and torch.equal(got_p,
+                                                               want_p)):
+                raise AssertionError(f"phase 5: K1 at tile {tile} differs "
+                                     "from its plain version")
+            res[f"K1 window route, tile {tile[0]}x{tile[1]}, 32x{tile[2]} "
+                "threads"] = cuda_ms(call, 20, warmup=2)
+    finally:
+        project.TILE = default
+    return res
 
 
 def time_pair(kern, plain, n_kern=20, n_plain=3):
@@ -1692,16 +1826,26 @@ def phase15_block_kernels(dev):
                 for g_, w_ in zip(got, want):
                     check("K11 K2 advect_kernel block",
                           f"K2 block {label} at {off}", g_, w_)
-            vpad, blk = cut(vel, 2 * it + 2)
-            for impulses in (imp, None):
-                label = "impulses" if impulses is not None else "none"
-                got = project_fused(vpad, 1.0, it, 1.96, impulses=impulses,
-                                    halo=2 * it + 2, **kw)
-                want = project_fused_reference(vpad, 1.0, it, 1.96,
-                                               impulses, block=blk)
-                for g_, w_, part in zip(got, want, ("velocity", "pressure")):
-                    check("K11 K1 project_fused block",
-                          f"K1 block {part} ({label}) at {off}", g_, w_)
+            # iters 0, 1 and 20 (the sequence route) and 65x40 members on
+            # the small grid only
+            small = h * w < 1 << 20
+            for iters, member in ((it, None),) + (
+                    ((0, None), (1, None), (20, None), (it, (65, 40)))
+                    if small else ()):
+                vpad, blk = cut(vel, 2 * iters + 2)
+                for impulses in (imp, None):
+                    label = (f"iters={iters} member={member} " + (
+                        "impulses" if impulses is not None else "none"))
+                    got = project_fused(vpad, 1.0, iters, 1.96,
+                                        impulses=impulses, member=member,
+                                        halo=2 * iters + 2, **kw)
+                    want = project_fused_reference(vpad, 1.0, iters, 1.96,
+                                                   impulses, member,
+                                                   block=blk)
+                    for g_, w_, part in zip(got, want,
+                                            ("velocity", "pressure")):
+                        check("K11 K1 project_fused block",
+                              f"K1 block {part} ({label}) at {off}", g_, w_)
             dpad, blk = cut(d, 2 * it)
             check("K11 K4 sor_solve_kernel block", f"K4 block at {off}",
                   sor_solve_kernel(dpad, 1.0, it, 1.96, halo=2 * it, **kw),
@@ -1770,6 +1914,8 @@ def phase16_sharded_main_path(dev):
     check_counts(16, n, {"K11 K1 project_fused block": 4 * steps,
                          "K11 K2 advect_kernel block": 8 * steps,
                          "K1 project_fused": 4 * steps,
+                         "K1 window route": 4 * steps,
+                         "K1 sequence route": 0,
                          "K2 advect_kernel": 8 * steps,
                          "K11 K4 sor_solve_kernel block": 0,
                          "K5 advect_maccormack_kernel": 0})

@@ -7,6 +7,15 @@ CUDA tensors and runs ``project_fused_reference``, its plain PyTorch version
 (``apply_impulses -> divergence -> sor_solve -> subtract_gradient``), for
 CPU tensors — only because they lie on the CPU.  Any other device raises.
 
+Two routes, chosen by ``iters`` alone: up to ``WINDOW_MAX_ITERS`` one
+launch (``fluid_project_window``: each block projects a ``TILE`` of the
+output inside its window in shared memory, the TPU kernel's design), above
+it the sequence of ``2*iters + 2`` launches (``fluid_project``) whose
+half-sweeps stream the field through device memory.  Every config's
+``sor_iters`` (10) takes the window route.  ``project_fused.launches``
+counts calls; ``window_launches`` and ``sequence_launches`` count each
+route's.
+
 ``member=(mh, mw)`` (K6, ``project.py:121-134``): every member tile of the
 grid is projected on its own — reflected ghosts, zero ghosts and ``a_ii``,
 and the gradient's Neumann clamp at every member wall — with the whole
@@ -42,6 +51,23 @@ from .modes import block_coords, check_block, check_member, refuse_unported
 from .sor import member_sor_solve, member_walls, owned, walls_at
 
 _MAX_IMPULSES = 64  # kMaxImpulses in csrc/project.cu
+# The window route's tile: (rows, columns) of the output a block owns, and
+# the block's thread rows (32 threads each).  Its window, the tile +-
+# (2*iters + 1) cells, holds at most 146 x 192 cells (p and dx*d: 224,512
+# bytes of the 232,448 a block may use; the planes are 96 words wide):
+# larger iters take a smaller tile (window_tile).
+TILE = (104, 146, 32)
+WINDOW_ROWS, WINDOW_COLS = 146, 192
+# The largest iters the window route takes: at 15 the tile is 84 x 130
+WINDOW_MAX_ITERS = 15
+
+
+def window_tile(iters):
+    """The window route's (rows, columns, thread rows) at ``iters``:
+    ``TILE``, cut so that its window fits."""
+    r = 2 * (2 * iters + 1)
+    th, tw, ny = TILE
+    return min(th, WINDOW_ROWS - r), min(tw, WINDOW_COLS - r), ny
 
 
 def _member_divergence(vel, dx, walls):
@@ -154,28 +180,33 @@ def project_fused(vel: torch.Tensor, dx: float = 1.0, iters: int = 10,
         iact = impulses.active.to(torch.bool).contiguous()
 
     mh, mw = member or (0, 0)
-    p = torch.empty((h, w), dtype=torch.float32, device=vel.device)
-    dxd = torch.empty_like(p)
     if blk is None:
-        g, (oi, oj), (gh, gw) = 0, (0, 0), (h, w)
-        out, p_out = torch.empty_like(vel), p
+        g, (oi, oj), (gh, gw), (bh, bw) = 0, (0, 0), (h, w), (h, w)
     else:
         g, (oi, oj), (gh, gw) = blk.halo, blk.origin, (blk.gh, blk.gw)
-        out = torch.empty((2, blk.bh, blk.bw), dtype=vel.dtype,
-                          device=vel.device)
-        p_out = torch.empty((blk.bh, blk.bw), dtype=vel.dtype,
-                            device=vel.device)
+        bh, bw = blk.bh, blk.bw
+    out = torch.empty((2, bh, bw), dtype=vel.dtype, device=vel.device)
+    p_out = torch.empty((bh, bw), dtype=vel.dtype, device=vel.device)
+    imp_ptrs = [None if t is None else t.data_ptr()
+                for t in (ipos, ivel, iact)]
+    geometry = (n_imp, h, w, mh, mw, oi, oj, gh, gw, g)
+    numbers = (float(dx), float(np.float32(1.0 / (2.0 * dx))), int(iters),
+               float(omega), float(np.float32(1.0 - omega)))
     lib = load()
     with torch.cuda.device(vel.device):
-        lib.call("fluid_project", vel.data_ptr(), out.data_ptr(),
-                 p.data_ptr(), dxd.data_ptr(),
-                 None if ipos is None else ipos.data_ptr(),
-                 None if ivel is None else ivel.data_ptr(),
-                 None if iact is None else iact.data_ptr(),
-                 n_imp, h, w, mh, mw, oi, oj, gh, gw, g, p_out.data_ptr(),
-                 float(dx), float(np.float32(1.0 / (2.0 * dx))), int(iters),
-                 float(omega), float(np.float32(1.0 - omega)),
-                 stream_of(vel))
+        if iters <= WINDOW_MAX_ITERS:
+            lib.call("fluid_project_window", vel.data_ptr(), out.data_ptr(),
+                     p_out.data_ptr(), *imp_ptrs, *geometry, *numbers,
+                     *window_tile(iters), stream_of(vel))
+            project_fused.window_launches += 1
+        else:
+            # scratch: the haloed block's pressure in block mode, dx * div
+            p = p_out if blk is None else torch.empty_like(vel[0])
+            dxd = torch.empty_like(vel[0])
+            lib.call("fluid_project", vel.data_ptr(), out.data_ptr(),
+                     p.data_ptr(), dxd.data_ptr(), *imp_ptrs, *geometry,
+                     p_out.data_ptr(), *numbers, stream_of(vel))
+            project_fused.sequence_launches += 1
     project_fused.launches += 1
     project_fused.member_launches += member is not None
     project_fused.block_launches += blk is not None
@@ -185,3 +216,5 @@ def project_fused(vel: torch.Tensor, dx: float = 1.0, iters: int = 10,
 project_fused.launches = 0
 project_fused.member_launches = 0
 project_fused.block_launches = 0
+project_fused.window_launches = 0
+project_fused.sequence_launches = 0

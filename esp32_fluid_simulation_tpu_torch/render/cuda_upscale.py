@@ -1,4 +1,5 @@
-"""K3: fused bilinear upscale + RGB565 pack on the GPU (``csrc/upscale.cu``).
+"""K3: fused bilinear upscale + RGB565 pack on the GPU (``csrc/upscale.cu``:
+one thread per source cell writes its ``s x s`` patch).
 
 Replaces ``esp32_fluid_simulation_tpu/render/pallas_upscale.py:
 render_rgb565_pallas``.  ``render_rgb565_kernel`` launches the CUDA kernel
@@ -41,8 +42,9 @@ def render_rgb565_kernel(color: torch.Tensor, s: int, bswap: bool = True,
     if not color.is_contiguous():
         raise ValueError("render_rgb565_kernel: color must be contiguous")
     _, h, w = color.shape
-    # the launch puts output rows on grid.y, 8 a block, at most 65535 blocks
-    if s < 1 or h < 2 or w < 2 or (h - 1) * s > 8 * 65535:
+    # the launch puts source rows on grid.y, 8 a block, at most 65535
+    # blocks; s fractions fit the kernel's table
+    if not 1 <= s <= 4096 or h < 2 or w < 2 or h - 1 > 8 * 65535:
         raise ValueError(f"render_rgb565_kernel: s={s} on {h}x{w} not "
                          "supported")
     out = torch.empty(((h - 1) * s, (w - 1) * s), dtype=torch.uint16,

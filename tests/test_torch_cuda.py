@@ -144,13 +144,60 @@ def test_project_kernel_bit_equal(cuda, rng):
         assert torch.equal(v, rv) and torch.equal(p, rp)
 
 
+def _seam_impulses(shape, iters, dev):
+    """Slots on the seams of K1's window-route tiles and in a neighbour
+    tile's ring, a duplicate and an out-of-range position."""
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.project import window_tile
+    th, tw, _ = window_tile(iters)
+    r = 2 * iters + 2
+    return Impulses.from_lists(
+        SimConfig(shape=shape, max_impulses=8),
+        [(th, tw), (th - 1, tw - 1), (th + r - 1, 5), (th, tw),
+         (3, tw + r - 1), (shape[0] + 50, -3)],
+        [(90.0, -45.0), (33.0, 44.0), (-60.0, 120.0), (-20.0, 65.0),
+         (7.0, 8.0), (5.0, 5.0)], device=dev)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 10, 20])
+@pytest.mark.parametrize("shape", [(61, 81), (130, 200), (250, 310)])
+def test_project_kernel_routes_bit_equal(cuda, rng, shape, iters):
+    """K1's one-launch window route (iters <= WINDOW_MAX_ITERS) and its
+    launch sequence (above) on shapes that are not multiples of the tile,
+    with impulses on the tile seams."""
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
+        WINDOW_MAX_ITERS)
+    vel = _on(rng.normal(0, 40, (2,) + shape).astype(np.float32), cuda)
+    window = iters <= WINDOW_MAX_ITERS
+    before = (project_fused.window_launches, project_fused.sequence_launches)
+    for impulses in (_seam_impulses(shape, iters, cuda), None):
+        v, p = project_fused(vel, 1.0, iters, 1.96, impulses=impulses)
+        rv, rp = project_fused_reference(vel, 1.0, iters, 1.96, impulses)
+        assert torch.equal(v, rv) and torch.equal(p, rp)
+    assert (project_fused.window_launches,
+            project_fused.sequence_launches) == (before[0] + 2 * window,
+                                                 before[1] + 2 * (not window))
+
+
+@pytest.mark.parametrize("iters", [0, 1, 10, 20])
+def test_project_member_window_bit_equal(cuda, rng, iters):
+    """K1 ``member=`` with 48x40 members, whose walls cross the tiles."""
+    shape, member = (144, 200), (48, 40)
+    vel = _on(rng.normal(0, 40, (2,) + shape).astype(np.float32), cuda)
+    for impulses in (_seam_impulses(shape, iters, cuda), None):
+        v, p = project_fused(vel, 1.0, iters, 1.96, impulses=impulses,
+                             member=member)
+        rv, rp = project_fused_reference(vel, 1.0, iters, 1.96, impulses,
+                                         member)
+        assert torch.equal(v, rv) and torch.equal(p, rp)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_render_kernel_bit_equal(cuda, rng, dtype):
     c = rng.random((3,) + SHAPE, dtype=np.float32)
     c[:, ::7, ::5] = 1.0
     c[:, 1::9, ::3] = 0.0
     color = _on(c, cuda).to(dtype)
-    for s in (2, 3, 4):
+    for s in (1, 2, 3, 4, 5):
         for bswap in (True, False):
             for unit_range in (False, True):
                 got = render_rgb565_kernel(color, s, bswap, unit_range)
@@ -404,6 +451,29 @@ def test_block_kernels_bit_equal(cuda, rng, off):
             sor_solve_kernel.block_launches) == (before[0] + 3,
                                                  before[1] + 2,
                                                  before[2] + 1)
+
+
+@pytest.mark.parametrize("iters,member", [(0, None), (1, None), (20, None),
+                                          (10, (65, 40))])
+@pytest.mark.parametrize("off", BLOCK_OFFSETS)
+def test_block_project_iters_bit_equal(cuda, rng, off, iters, member):
+    """K11 K1 at iters 0, 1 and 20 (the launch sequence) and with 65x40
+    members, against its plain version and the crop of whole-grid K1."""
+    kw = dict(global_offset=off, global_shape=BLOCK_GLOBAL)
+    vel = _on((40 * rng.standard_normal((2,) + BLOCK_GLOBAL)).astype(
+        np.float32), cuda)
+    g = 2 * iters + 2
+    vpad = _block_of(vel, off, BLOCK, g)
+    for impulses in (_seam_impulses(BLOCK_GLOBAL, iters, cuda), None):
+        v, p = project_fused(vpad, 1.0, iters, 1.96, impulses=impulses,
+                             member=member, halo=g, **kw)
+        rv, rp = project_fused_reference(vpad, 1.0, iters, 1.96, impulses,
+                                         member, block=_blk(off, g))
+        wv, _ = project_fused(vel, 1.0, iters, 1.96, impulses=impulses,
+                              member=member)
+        assert torch.equal(v, rv) and torch.equal(p, rp)
+        assert torch.equal(v, wv[:, off[0]:off[0] + BLOCK[0],
+                                 off[1]:off[1] + BLOCK[1]])
 
 
 def _blk(off, g):
