@@ -13,13 +13,15 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    upscale, K4 SOR solve, K5 MacCormack advection) against its plain
    PyTorch version on the card, at small odd shapes and at the production
    shapes (K4 at 4096^2, K5 at config 3's 2048^2); bit-equality is expected
-   (``--fmad=false``).  K1 also at 130x200 and 4097x4093, at iters 0, 1,
-   10 (its one-launch window route) and 20 (its launch-sequence route),
-   with impulses on the seams of its tiles and in a neighbour tile's ring;
+   (``--fmad=false``).  K1 and K4 also at 130x200 and 4097x4093, at iters
+   0, 1, 10 (their one-launch window routes) and 20 (their launch-sequence
+   routes), K1 with impulses on the seams of its tiles and in a neighbour
+   tile's ring;
    K3 at s = 1 to 5 (s = 4 its own instance), f32 and bf16, ``bswap`` and
    ``unit_range`` both ways.
 1b. The same for the 3D smoke kernels (K7 advection, K8 divergence and
-   gradient subtract, K9 SOR, K10 MIP render) at (9, 33, 130) and 256^3.
+   gradient subtract, K9 SOR at iters 0, 1 and 10, K10 MIP render) at
+   (9, 33, 130) and 256^3.
 2. The reference workload ``SimConfig()`` against the golden trajectory
    ``tests/golden/ref_61x81_4steps.npz`` (rtol 1e-4, atol 2e-4), on the
    composed path and on the kernel path.
@@ -55,8 +57,8 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    ``overlay=``) against their plain versions on a 2x3 grid of odd 17x21
    members, a 2x2 grid of 32x64 members, a 3x5 grid of 48x40 members (their
    walls cross K1's tiles) and config 4's 4096^2 supergrid of 256^2
-   members (K1 at iters 0, 1, 10 and 20 on the small ones); bit-equality is
-   expected.
+   members (K1 and K4 at iters 0, 1, 10 and 20 on the small ones);
+   bit-equality is expected.
 14. Config 4 (``examples/config4_ensemble_256.json``, 256 members of 256^2
    on one 4096^2 supergrid): 10 steps through ``make_ensemble_step`` (launch
    counters: K2 member = 2*steps, K2 overlay = steps, K1 member = steps),
@@ -69,12 +71,14 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    8192^2 cut into 4096^2 blocks (K2 on the f32 velocity with
    ``return_minmax`` and on the bf16 dye with the clip, K1 with and without
    impulses, K4, at iters 10; K1 also at iters 0, 1 and 20 and with 65x40
-   members on 130x200); bit-equality is expected.
+   members, K4 at iters 0, 1 and 20 with a halo of 2*iters and of 2*iters +
+   3, on 130x200); bit-equality is expected.
 15b. Block mode (K11) of K7 and K9 against the plain versions: every
    block of (9, 130, 200) cut 2x2 and the (0, 0) block of 256^3 cut 2x2
    (K7 on the f32 velocity with no-slip and on bf16 scalars, also against
-   the crop of whole-grid K7; one K9 chunk of 3 sweeps from zero and from
-   a given pressure); bit-equality is expected.
+   the crop of whole-grid K7; K9 chunks of 3 sweeps (one pass), 1 and 4
+   (two passes) from zero and from a given pressure); bit-equality is
+   expected.
 16. The sharded main path: ``examples/config5_8192_sharded.json`` with
    config 0's kernel settings (``fused_pallas``, ``advect_impl="pallas"``)
    on a 2x2 mesh of the one card (four 4096^2 blocks on cuda:0): 10 steps
@@ -109,9 +113,13 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    and of config 4 (whole-ensemble step, member-steps/s, the rollout's step,
    the tiled ``step_render``, and the step's split into kernels, overlay
    build and layout permutes), and ms per call of each kernel and mode and
-   its plain version; K1's device launches per call on both routes (a
-   profiler count), its sequence route at iters 10 beside its window
-   route, and the window route at three tile sizes; the sharded step at
+   its plain version; K1's and K4's device launches per call on both
+   routes and K9's per pass (a profiler count: 1 on the window routes in
+   every mode, 1 per pass for K9 and ``sor3d_chunk``), K1's and K4's
+   sequence routes at iters 10 beside their window routes, K1's window
+   route at five tile sizes, and K9 and the sharded chain's chunk at
+   other pass depths and tiles (each checked against its plain version);
+   the sharded step at
    8192^2 beside the single-device step, its split (K1 block x4, K2 block
    x8, the halo exchanges) and each block mode beside its whole-grid
    kernel at 4096^2; the sharded 256^3
@@ -388,14 +396,7 @@ def phase1_kernels(dev):
 
     err["K1 project_fused"] = max(err["K1 project_fused"],
                                   k1_windows(dev, gen))
-    for shape in (SMALL, (130, 200), PROD):
-        d = torch.randn(shape, generator=gen, device=dev)
-        for iters, dx in ((10, 1.0), (1, 0.7)):
-            err["K4 sor_solve_kernel"] = max(
-                err["K4 sor_solve_kernel"],
-                compare(f"K4 {shape[0]}x{shape[1]} iters={iters} dx={dx}",
-                        sor_solve_kernel(d, dx, iters, 1.96),
-                        sor_solve_reference(d, dx, iters, 1.96)))
+    err["K4 sor_solve_kernel"] = k4_routes(dev, gen)
     for shape in (SMALL, MC_PROD):
         h, w = shape
         print(f"phase 1 K5 vs plain at {h}x{w}")
@@ -419,8 +420,8 @@ def seam_impulses(shape, iters, dev):
     neighbour tile's ring (within 2*iters + 2 cells of a seam), a duplicate
     cell (the last active slot wins) and an out-of-range position."""
     from esp32_fluid_simulation_tpu_torch import SimConfig, Impulses
-    from esp32_fluid_simulation_tpu_torch.ops.cuda import project
-    th, tw = project.TILE[:2]
+    from esp32_fluid_simulation_tpu_torch.ops.cuda import sor
+    th, tw = sor.TILE[:2]
     r = 2 * iters + 2
     return Impulses.from_lists(
         SimConfig(shape=shape, max_impulses=8),
@@ -453,6 +454,37 @@ def k1_windows(dev, gen):
                 err = max(err, compare(label + " velocity", got[0], want[0]),
                           compare(label + " pressure", got[1], want[1]))
         del vel, got, want
+    return err
+
+
+def k4_routes(dev, gen):
+    """K4 whole-grid against its plain version on shapes that are not
+    multiples of its tile, at iters 0, 1, 10 (window route) and 20
+    (sequence route), each route's launch counted; returns the largest
+    difference."""
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import (
+        WINDOW_MAX_ITERS, sor_solve_kernel, sor_solve_reference)
+    if WINDOW_MAX_ITERS >= 20:
+        raise AssertionError("phase 1: iters 20 no longer takes K4's "
+                             "sequence route")
+    err = 0.0
+    for shape in (SMALL, (130, 200), (4097, 4093), PROD):
+        d = torch.randn(shape, generator=gen, device=dev)
+        for iters, dx in ((10, 1.0), (1, 0.7), (0, 1.0), (20, 1.0)):
+            window = iters <= WINDOW_MAX_ITERS
+            before = (sor_solve_kernel.window_launches,
+                      sor_solve_kernel.sequence_launches)
+            got = sor_solve_kernel(d, dx, iters, 1.96)
+            if (sor_solve_kernel.window_launches - before[0],
+                    sor_solve_kernel.sequence_launches - before[1]) != (
+                        (1, 0) if window else (0, 1)):
+                raise AssertionError(f"phase 1: K4 at iters {iters} took "
+                                     "the wrong route")
+            err = max(err, compare(
+                f"K4 {shape[0]}x{shape[1]} iters={iters} dx={dx} "
+                f"({'window' if window else 'sequence'} route)", got,
+                sor_solve_reference(d, dx, iters, 1.96)))
+        del d, got
     return err
 
 
@@ -494,7 +526,7 @@ def phase1b_kernels3d(dev):
         check("K8 subtract_gradient3d", "K8 gradient subtract",
               subtract_gradient3d(vel, p, 1.0),
               subtract_gradient3d_reference(vel, p, 1.0))
-        for iters in (10, 1):
+        for iters in (10, 1, 0):
             check("K9 sor3d_solve", f"K9 iters={iters} chunk=3",
                   sor3d_solve(p, 1.0, iters, 1.5, chunk=3),
                   sor3d_reference(p, 1.0, iters, 1.5))
@@ -979,7 +1011,8 @@ def phase13_k6_kernels(dev):
                 check("K6 K1 project_fused member", f"K1 member pressure "
                       f"({label})", got_p, want_p)
         d = torch.randn(shape, generator=gen, device=dev)
-        for iters, dx in ((10, 1.0), (1, 0.7)):
+        for iters, dx in ((10, 1.0), (1, 0.7)) + (
+                () if h * w > 1 << 20 else ((0, 1.0), (20, 1.0))):
             check("K4 sor_solve_kernel", f"K4 member iters={iters} dx={dx}",
                   sor_solve_kernel(d, dx, iters, 1.96, member=member),
                   sor_solve_reference(d, dx, iters, 1.96, member))
@@ -1394,7 +1427,7 @@ def k1_design(vel, cfg, imp):
     routes (a profiler count; the window route must launch once), its
     sequence route at iters 10 beside its window route, and the window
     route at other tiles (each checked against the plain version)."""
-    from esp32_fluid_simulation_tpu_torch.ops.cuda import project
+    from esp32_fluid_simulation_tpu_torch.ops.cuda import project, sor
     it, om, dx = cfg.sor_iters, cfg.omega, cfg.dx
     res = {}
 
@@ -1402,20 +1435,9 @@ def k1_design(vel, cfg, imp):
         return project.project_fused(vel, dx, iters, om, imp)
 
     seq_iters = project.WINDOW_MAX_ITERS + 1
-    for label, iters in (("window route", it), ("sequence route",
-                                                seq_iters)):
-        names = device_kernels(lambda: call(iters))
-        if names is None:
-            print(f"phase 5 K1 device launches per call ({label}, iters "
-                  f"{iters}): not measured (no device activity in the "
-                  "profiler trace)")
-            continue
-        print(f"phase 5 K1 device launches per call ({label}, iters "
-              f"{iters}): {len(names)} ({sorted(set(names))})")
-        want = 1 if label == "window route" else 2 * iters + 2
-        if len(names) != want:
-            raise AssertionError(f"phase 5: K1's {label} launched "
-                                 f"{len(names)} kernels, not {want}")
+    launches_per_call(f"K1 window route (iters {it})", call, 1)
+    launches_per_call(f"K1 sequence route (iters {seq_iters})",
+                      lambda: call(seq_iters), 2 * seq_iters + 2)
     limit = project.WINDOW_MAX_ITERS
     try:
         project.WINDOW_MAX_ITERS = -1
@@ -1423,11 +1445,11 @@ def k1_design(vel, cfg, imp):
     finally:
         project.WINDOW_MAX_ITERS = limit
     want_v, want_p = project.project_fused_reference(vel, dx, it, om, imp)
-    default = project.TILE
+    default = sor.TILE
     try:
         for tile in ((64, 128, 32), (80, 150, 32), (104, 150, 32),
                      (104, 146, 16), (104, 146, 32)):
-            project.TILE = tile
+            sor.TILE = tile
             got_v, got_p = call()
             if not (torch.equal(got_v, want_v) and torch.equal(got_p,
                                                                want_p)):
@@ -1436,8 +1458,123 @@ def k1_design(vel, cfg, imp):
             res[f"K1 window route, tile {tile[0]}x{tile[1]}, 32x{tile[2]} "
                 "threads"] = cuda_ms(call, 20, warmup=2)
     finally:
-        project.TILE = default
+        sor.TILE = default
     return res
+
+
+def launches_per_call(label, fn, want):
+    """Print the device kernels one call of ``fn`` launches (a profiler
+    count) and fail unless there are ``want``; None if the trace holds no
+    device activity."""
+    names = device_kernels(fn)
+    if names is None:
+        print(f"phase 5 {label}: device launches per call not measured (no "
+              "device activity in the profiler trace)")
+        return None
+    print(f"phase 5 {label}: {len(names)} device launches per call "
+          f"({sorted(set(names))})")
+    if len(names) != want:
+        raise AssertionError(f"phase 5: {label} launched {len(names)} "
+                             f"kernels, not {want}")
+    return len(names)
+
+
+def sor_design(dev, card):
+    """K4 and K9 at their main paths' shapes: device launches per call on
+    every route and mode (a profiler count), K4's sequence route beside its
+    window route, and K9's pass at other depths and tiles, whole grid and
+    the sharded chain's chunk (each checked against its plain version)."""
+    from esp32_fluid_simulation_tpu_torch.ops.cuda import sor, sor3d
+    gen = torch.Generator(device=dev).manual_seed(97531)
+    res = {}
+    it, om = 10, 1.96
+    d = torch.randn(PROD, generator=gen, device=dev)
+    dpad = torch.nn.functional.pad(d, (2 * it,) * 4)
+    block = dict(global_offset=(0, 0), global_shape=(8192, 8192),
+                 halo=2 * it)
+    seq = sor.WINDOW_MAX_ITERS + 1
+    for label, fn, want in (
+            ("K4 window route", lambda: sor.sor_solve_kernel(d, 1.0, it, om),
+             1),
+            ("K6 K4 member window route", lambda: sor.sor_solve_kernel(
+                d, 1.0, it, om, member=(256, 256)), 1),
+            ("K11 K4 block window route", lambda: sor.sor_solve_kernel(
+                dpad, 1.0, it, om, **block), 1),
+            (f"K4 sequence route (iters {seq})", lambda: sor.sor_solve_kernel(
+                d, 1.0, seq, om), 2 * seq + 1)):
+        launches_per_call(label, fn, want)
+    limit = sor.WINDOW_MAX_ITERS
+    try:
+        sor.WINDOW_MAX_ITERS = -1
+        res["K4 sequence route at iters 10"] = cuda_ms(
+            lambda: sor.sor_solve_kernel(d, 1.0, it, om), 10, warmup=2)
+    finally:
+        sor.WINDOW_MAX_ITERS = limit
+    res["K4 window route at iters 10"] = cuda_ms(
+        lambda: sor.sor_solve_kernel(d, 1.0, it, om), 10, warmup=2)
+    del d, dpad
+
+    # K9: the smoke's solve and one shard's chunk of the sharded chain
+    # (256 x 128 x 128 owned, a ring of 2*3 cells)
+    d3 = torch.randn(SMOKE, generator=gen, device=dev)
+    it3, om3, sweeps = 10, 1.5, 3
+    g = 2 * sweeps
+    blk = torch.randn((SMOKE[0], 128 + 2 * g, 128 + 2 * g), generator=gen,
+                      device=dev)
+    p0 = torch.randn(blk.shape, generator=gen, device=dev)
+    chunk = dict(global_offset=(0, -g, -g), global_shape=SMOKE)
+    want3 = sor3d.sor3d_reference(d3, 1.0, it3, om3)
+    want_c = sor3d.sor3d_chunk_reference(blk, p0, 1.0, sweeps, om3,
+                                         (0, -g, -g), SMOKE)
+    passes = len(sor3d.pass_plan(2 * it3)[1])
+    for label, fn, want in (
+            (f"K9 sor3d_solve (iters {it3}, passes "
+             f"{sor3d.pass_plan(2 * it3)[1]})",
+             lambda: sor3d.sor3d_solve(d3, 1.0, it3, om3), passes),
+            (f"K11 K9 sor3d_chunk ({sweeps} sweeps)",
+             lambda: sor3d.sor3d_chunk(blk, p0, 1.0, sweeps, om3, **chunk),
+             len(sor3d.pass_plan(2 * sweeps)[1])),
+            ("K11 K9 sor3d_chunk (4 sweeps)",
+             lambda: sor3d.sor3d_chunk(blk, p0, 1.0, 4, om3, **chunk),
+             len(sor3d.pass_plan(8)[1]))):
+        launches_per_call(label, fn, want)
+    if len(sor3d.pass_plan(2 * sweeps)[1]) != 1:
+        raise AssertionError("phase 5: the sharded chain's chunk is no "
+                             "longer one pass")
+    saved = (sor3d.SOR3D_TILES, sor3d.SOR3D_MAX_DEPTH, sor3d.SOR3D_BLOCKS)
+    try:
+        for tile, deepest, blocks in (
+                (None, 6, 128), ((32, 64, 16), 5, 128),
+                ((32, 64, 14), 4, 128), ((32, 64, 12), 5, 128),
+                ((28, 47, 16), 6, 128), ((28, 47, 10), 3, 128),
+                ((24, 64, 16), 6, 132), ((32, 32, 8), 6, 256),
+                ((16, 32, 8), 6, 264), ((32, 64, 14), 5, 1)):
+            sor3d.SOR3D_TILES = saved[0] if tile is None else (tile,)
+            sor3d.SOR3D_MAX_DEPTH, sor3d.SOR3D_BLOCKS = deepest, blocks
+            label = ("the default tiles" if tile is None else
+                     f"tile {tile[0]}x{tile[1]}, 32x{tile[2]} threads")
+            label += f", depth <= {deepest}, {blocks} blocks wanted"
+
+            def solve():
+                return sor3d.sor3d_solve(d3, 1.0, it3, om3)
+
+            def chunked():
+                return sor3d.sor3d_chunk(blk, p0, 1.0, sweeps, om3, **chunk)
+
+            if not (torch.equal(solve(), want3)
+                    and torch.equal(chunked(), want_c)):
+                raise AssertionError(f"phase 5: K9 at {label} differs from "
+                                     "its plain version")
+            res[f"K9 at 256^3 ({sor3d.pass_plan(2 * it3)}), {label}"] = \
+                cuda_ms(solve, 10, warmup=2)
+            res[f"K9 chunk x4 (one shard's block x4, "
+                f"{sor3d.pass_plan(2 * sweeps)}), {label}"] = 4 * cuda_ms(
+                    chunked, 10, warmup=2)
+    finally:
+        sor3d.SOR3D_TILES, sor3d.SOR3D_MAX_DEPTH, sor3d.SOR3D_BLOCKS = saved
+    print(f"phase 5 K4 and K9 design on {card} (CUDA events, ms per call):")
+    for k, v in res.items():
+        print(f"  {k}: {v:.4f} ms")
 
 
 def time_pair(kern, plain, n_kern=20, n_plain=3):
@@ -1846,10 +1983,16 @@ def phase15_block_kernels(dev):
                                             ("velocity", "pressure")):
                         check("K11 K1 project_fused block",
                               f"K1 block {part} ({label}) at {off}", g_, w_)
-            dpad, blk = cut(d, 2 * it)
-            check("K11 K4 sor_solve_kernel block", f"K4 block at {off}",
-                  sor_solve_kernel(dpad, 1.0, it, 1.96, halo=2 * it, **kw),
-                  sor_solve_reference(dpad, 1.0, it, 1.96, block=blk))
+            for iters in ((it,) if h * w > 1 << 20 else (0, 1, it, 20)):
+                # the halo: exactly 2*iters, and wider
+                for g in {2 * iters, 2 * iters + 3}:
+                    dpad, blk = cut(d, g)
+                    check("K11 K4 sor_solve_kernel block",
+                          f"K4 block iters={iters} halo={g} at {off}",
+                          sor_solve_kernel(dpad, 1.0, iters, 1.96, halo=g,
+                                           **kw),
+                          sor_solve_reference(dpad, 1.0, iters, 1.96,
+                                              block=blk))
         del vel, dye, d
     return err
 
@@ -2303,7 +2446,7 @@ def phase15b_block_kernels3d(dev):
         err[name] = max(err.get(name, 0.0), compare(label, got, want))
 
     dt, md, sweeps = 1.0 / 30.0, 2, 3
-    k, g = md + 1, 2 * sweeps
+    k = md + 1
     for gshape, bshape, offsets in BLOCK3_CASES:
         print(f"phase 15b K11 K7 and K9 block modes vs plain at {gshape}, "
               f"blocks {bshape[0]}x{bshape[1]}")
@@ -2332,16 +2475,21 @@ def phase15b_block_kernels3d(dev):
                 check("K11 K7 advect3d_kernel block",
                       f"K7 block {label} at {off} vs whole-grid K7", got,
                       haloed(whole, off, bshape, 0))
-            dpad = haloed(d, off, bshape, g)
-            origin = (0, off[0] - g, off[1] - g)
-            for p0, label in ((torch.zeros_like(dpad), "from zero"),
-                              (haloed(p, off, bshape, g), "from a given p")):
-                check("K11 K9 sor3d_chunk block",
-                      f"K9 chunk of {sweeps} sweeps {label} at {off}",
-                      sor3d_chunk(dpad, p0, 1.0, sweeps, 1.5,
-                                  global_offset=origin, global_shape=gshape),
-                      sor3d_chunk_reference(dpad, p0, 1.0, sweeps, 1.5,
-                                            origin, gshape))
+            # the chain's chunk (one pass), its last chunk of 1 sweep and
+            # a chunk deeper than one pass (two launches)
+            for n in (sweeps, 1, 4):
+                dpad = haloed(d, off, bshape, 2 * n)
+                origin = (0, off[0] - 2 * n, off[1] - 2 * n)
+                for p0, label in ((torch.zeros_like(dpad), "from zero"),
+                                  (haloed(p, off, bshape, 2 * n),
+                                   "from a given p")):
+                    check("K11 K9 sor3d_chunk block",
+                          f"K9 chunk of {n} sweeps {label} at {off}",
+                          sor3d_chunk(dpad, p0, 1.0, n, 1.5,
+                                      global_offset=origin,
+                                      global_shape=gshape),
+                          sor3d_chunk_reference(dpad, p0, 1.0, n, 1.5,
+                                                origin, gshape))
         del vel, pair, d, p, whole_v, whole_s
     return err
 
@@ -2748,6 +2896,7 @@ def main():
         "config3 step_render": (cfg3, st3, True),
         "sor_pallas step": (cfg_sor, st_sor, False),
         "config2 step_render": (cfg2, st2, True)}))
+    sor_design(dev, card)
     work.update(phase5_config4_timing(dev, card, member_cfg, ens0, sched))
     work.update(phase5_sharded_timing(dev, card, cfg5, mesh, state5, sh5,
                                       k4_path))

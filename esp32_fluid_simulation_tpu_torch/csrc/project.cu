@@ -415,29 +415,8 @@ __global__ void __launch_bounds__(1024)
                      (wi0 + wj0) & 1};
   load_drain(d, imp, g.GH, g.GW, wi0, wi0 + rows - 1, wj0, wj0 + cols - 1);
 
-  // 1. the flags (walls from the global coordinates; outside the domain or
-  // the array) and p = 0
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-  for (int a = tid; a < rows; a += nthreads) {
-    const int i = ai0 + a, gi = wi0 + a;
-    unsigned char f = kOutside;
-    if (i >= 0 && i < g.H && gi >= 0 && gi < g.GH) {
-      const Walls w = walls<MEMBER>(gi, 0, g.GH, g.GW, g.mh, g.mw);
-      f = (w.i_lo ? kWallLo : 0) | (w.i_hi ? kWallHi : 0);
-    }
-    row_flags[a] = f;
-  }
-  for (int b = tid; b < cols; b += nthreads) {
-    const int j = aj0 + b, gj = wj0 + b;
-    unsigned char f = kOutside;
-    if (j >= 0 && j < g.W && gj >= 0 && gj < g.GW) {
-      const Walls w = walls<MEMBER>(0, gj, g.GH, g.GW, g.mh, g.mw);
-      f = (w.j_lo ? kWallLo : 0) | (w.j_hi ? kWallHi : 0);
-    }
-    col_flags[b] = f;
-  }
-  for (int q = tid; q < 2 * stride; q += nthreads) sp[q] = 0.f;
+  // 1. the flags and p = 0
+  rb_window_init<MEMBER>(win, row_flags, col_flags, g, ai0, aj0);
   __syncthreads();
 
   // 2. dx * div on the tile +- (R - 1), 0 outside the domain
@@ -464,29 +443,13 @@ __global__ void __launch_bounds__(1024)
                            ai0, aj0, wi0, wj0, bh, bw, inv2dx);
 }
 
-// The window route's plane stride (planes 16 banks apart) and its
-// shared-memory bytes, for TH x TW tiles; cols = 0 if the window is wider
-// than the planes.
-struct WindowShape {
-  int cols, stride, bytes;
-};
-
-WindowShape window_shape(int TH, int TW, int iters) {
-  const int R = 2 * iters + 1;
-  const int rows = TH + 2 * R;
-  const int cols = TW + 2 * R;
-  const int stride = rows * kWindowPitch + 16;
-  return {cols <= 2 * kWindowPitch ? cols : 0, stride,
-          (int)(4 * stride * sizeof(float)) + rows + cols};
-}
-
 template <bool MEMBER, bool BLOCK>
 cudaError_t project_window(const float* v, float* vo, float* po,
                            const ImpulseArgs& imp, const Geom& g, int halo,
                            int TH, int TW, int threads_y, float dx,
                            float inv2dx, int iters, float omega,
                            float one_m_w, cudaStream_t s) {
-  const WindowShape ws = window_shape(TH, TW, iters);
+  const WindowShape ws = window_shape(TH, TW, 2 * iters + 1);
   if (ws.cols == 0) return cudaErrorInvalidValue;
   // above 48 KB a block's shared memory must be asked for
   cudaError_t err = cudaFuncSetAttribute(

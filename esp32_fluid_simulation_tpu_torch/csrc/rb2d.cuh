@@ -1,9 +1,9 @@
 // The 2D red-black SOR cell update shared by K1 (csrc/project.cu) and K4
 // (csrc/sor.cu), so the two solves cannot drift apart, the wall test both
 // use, and the two ways they run the half-sweeps: one launch per
-// half-sweep over a field in device memory (sor_half_sweep_kernel, K4), or
-// all of them inside one block on a tile's window in shared memory
-// (rb_window_half_sweeps, K1).
+// half-sweep over a field in device memory (sor_half_sweep_kernel, the
+// routes above 15 iters), or all of them inside one block on a tile's
+// window in shared memory (rb_window_half_sweeps, the window routes).
 //
 // Semantics of ops/poisson.py (poisson.cpp:63-112): neighbours summed
 // ((up + dn) + lf) + rt with zero ghosts, the Neumann diagonal through the
@@ -31,12 +31,13 @@
 // one cell per half-sweep and never reach the owned block while the halo
 // is at least the number of half-sweeps.
 //
-// The window (K1's route for iters <= its limit, the TPU kernel's
+// The window (K1's and K4's route for iters <= 15, the TPU kernel's
 // trapezoid, project.py:35-191): a block owns a tile of the output and
-// holds p and dx*d on the tile +- (2*iters + 1) in shared memory.  Half-sweep
-// k (1-based) updates only the tile +- (2*iters + 1 - k): the cells whose
-// value still reaches the tile +- 1 that the gradient reads, so the cells
-// it leaves behind never matter.  The window is stored split by colour, the
+// holds p and dx*d on the tile +- R in shared memory, R = 2*iters + 1 for
+// K1 and 2*iters for K4.  Half-sweep k (1-based) updates only the tile +-
+// (R - k): the cells whose value still reaches the tile +- (R - 2*iters)
+// (K1's gradient reads the tile +- 1), so the cells it leaves behind never
+// matter.  The window is stored split by colour, the
 // packed layout of rb_common.py:55-107: plane c holds the colour-c cells of
 // window row a at column b >> 1, so a half-sweep reads its four neighbours
 // from the other plane at consecutive words, without bank conflicts.
@@ -179,6 +180,52 @@ struct RbWindow {
   const unsigned char* col_flags;
   int rows, cols, stride, base;
 };
+
+// The window's row and column flags (walls from the global coordinates,
+// or the member tiles'; kOutside outside the domain or the array) into
+// row_flags and col_flags (w's, writable), and p = 0.  Window cell (a, b)
+// is array cell (ai0 + a, aj0 + b).  The caller synchronises.
+template <bool MEMBER>
+__device__ void rb_window_init(const RbWindow& w, unsigned char* row_flags,
+                               unsigned char* col_flags, const Geom& g,
+                               int ai0, int aj0) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  for (int a = tid; a < w.rows; a += nthreads) {
+    const int i = ai0 + a, gi = g.oi + i;
+    unsigned char f = kOutside;
+    if (i >= 0 && i < g.H && gi >= 0 && gi < g.GH) {
+      const Walls wl = walls<MEMBER>(gi, 0, g.GH, g.GW, g.mh, g.mw);
+      f = (wl.i_lo ? kWallLo : 0) | (wl.i_hi ? kWallHi : 0);
+    }
+    row_flags[a] = f;
+  }
+  for (int b = tid; b < w.cols; b += nthreads) {
+    const int j = aj0 + b, gj = g.oj + j;
+    unsigned char f = kOutside;
+    if (j >= 0 && j < g.W && gj >= 0 && gj < g.GW) {
+      const Walls wl = walls<MEMBER>(0, gj, g.GH, g.GW, g.mh, g.mw);
+      f = (wl.j_lo ? kWallLo : 0) | (wl.j_hi ? kWallHi : 0);
+    }
+    col_flags[b] = f;
+  }
+  for (int q = tid; q < 2 * w.stride; q += nthreads) w.p[q] = 0.f;
+}
+
+// A window route's plane stride (planes 16 banks apart) and its
+// shared-memory bytes (p and dx*d, then the flags) for TH x TW tiles with a
+// window of the tile +- R; cols = 0 if the window is wider than the planes.
+struct WindowShape {
+  int cols, stride, bytes;
+};
+
+inline WindowShape window_shape(int TH, int TW, int R) {
+  const int rows = TH + 2 * R;
+  const int cols = TW + 2 * R;
+  const int stride = rows * kWindowPitch + 16;
+  return {cols <= 2 * kWindowPitch ? cols : 0, stride,
+          (int)(4 * stride * sizeof(float)) + rows + cols};
+}
 
 // The window's cell (a, b) of p, and of dx*d.
 __device__ __forceinline__ float& rb_at(const RbWindow& w, int a, int b) {

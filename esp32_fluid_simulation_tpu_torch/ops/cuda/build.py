@@ -71,16 +71,20 @@ _SIGNATURES = {
     "fluid_divergence3d": (_P, _P, _I, _I, _I, _F, _P),
     # vel, p, out, D, H, W, inv2dx, stream
     "fluid_subtract_gradient3d": (_P, _P, _P, _I, _I, _I, _F, _P),
-    # d, p, D, H, W, dx, iters, omega, one_m_w, stream
-    "fluid_sor3d": (_P, _P, _I, _I, _I, _F, _I, _F, _F, _P),
-    # d, p_in, p_out, D, H, W, oz, oi, oj, GD, GH, GW, dx, sweeps, omega,
-    # one_m_w, stream
-    "fluid_sor3d_chunk": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _F, _I, _F, _F, _P),
+    # d, p_in, p_out, D, H, W, oz, oi, oj, GD, GH, GW, dx, h0, depth,
+    # omega, one_m_w, tile_h, tile_w, zchunk, threads_y, stream
+    "fluid_sor3d_pass": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                         _I, _I, _F, _F, _I, _I, _I, _I, _P),
+    # tile_h, tile_w, depth, threads_y -> shared-memory bytes (0: refused)
+    "fluid_sor3d_pass_bytes": (_I, _I, _I, _I),
     # d, p, dxd, H, W, mh, mw, oi, oj, GH, GW, halo, p_out, dx, iters,
     # omega, one_m_w, stream
     "fluid_sor": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I,
                   _F, _F, _P),
+    # d, p_out, H, W, mh, mw, oi, oj, GH, GW, halo, dx, iters, omega,
+    # one_m_w, tile_h, tile_w, threads_y, stream
+    "fluid_sor_window": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                         _F, _F, _I, _I, _I, _P),
     # density, out, D, H, W, density_bf16, inv_vmax, bswap, stream
     "fluid_smoke_mip": (_P, _P, _I, _I, _I, _I, _F, _I, _P),
 }
@@ -104,6 +108,10 @@ class KernelLibrary:
         err = getattr(self._lib, name)(*args)
         if err != 0:
             raise RuntimeError(f"{name} failed with CUDA error {err}")
+
+    def value(self, name: str, *args) -> int:
+        """Call query entry ``name`` and return what it returns."""
+        return getattr(self._lib, name)(*args)
 
 
 def _nvcc() -> str:

@@ -8,8 +8,9 @@ CUDA tensors and runs ``project_fused_reference``, its plain PyTorch version
 CPU tensors — only because they lie on the CPU.  Any other device raises.
 
 Two routes, chosen by ``iters`` alone: up to ``WINDOW_MAX_ITERS`` one
-launch (``fluid_project_window``: each block projects a ``TILE`` of the
-output inside its window in shared memory, the TPU kernel's design), above
+launch (``fluid_project_window``: each block projects a tile of the
+output inside its window, the tile +- ``2*iters + 1`` cells, in shared
+memory, the TPU kernel's design; ``sor.window_tile``), above
 it the sequence of ``2*iters + 2`` launches (``fluid_project``) whose
 half-sweeps stream the field through device memory.  Every config's
 ``sor_iters`` (10) takes the window route.  ``project_fused.launches``
@@ -48,26 +49,10 @@ from ..fd import divergence, subtract_gradient
 from ..poisson import _shift_zero, sor_solve
 from .build import load, stream_of
 from .modes import block_coords, check_block, check_member, refuse_unported
-from .sor import member_sor_solve, member_walls, owned, walls_at
+from .sor import (WINDOW_MAX_ITERS, member_sor_solve, member_walls, owned,
+                  walls_at, window_tile)
 
 _MAX_IMPULSES = 64  # kMaxImpulses in csrc/project.cu
-# The window route's tile: (rows, columns) of the output a block owns, and
-# the block's thread rows (32 threads each).  Its window, the tile +-
-# (2*iters + 1) cells, holds at most 146 x 192 cells (p and dx*d: 224,512
-# bytes of the 232,448 a block may use; the planes are 96 words wide):
-# larger iters take a smaller tile (window_tile).
-TILE = (104, 146, 32)
-WINDOW_ROWS, WINDOW_COLS = 146, 192
-# The largest iters the window route takes: at 15 the tile is 84 x 130
-WINDOW_MAX_ITERS = 15
-
-
-def window_tile(iters):
-    """The window route's (rows, columns, thread rows) at ``iters``:
-    ``TILE``, cut so that its window fits."""
-    r = 2 * (2 * iters + 1)
-    th, tw, ny = TILE
-    return min(th, WINDOW_ROWS - r), min(tw, WINDOW_COLS - r), ny
 
 
 def _member_divergence(vel, dx, walls):
@@ -197,7 +182,7 @@ def project_fused(vel: torch.Tensor, dx: float = 1.0, iters: int = 10,
         if iters <= WINDOW_MAX_ITERS:
             lib.call("fluid_project_window", vel.data_ptr(), out.data_ptr(),
                      p_out.data_ptr(), *imp_ptrs, *geometry, *numbers,
-                     *window_tile(iters), stream_of(vel))
+                     *window_tile(2 * iters + 1), stream_of(vel))
             project_fused.window_launches += 1
         else:
             # scratch: the haloed block's pressure in block mode, dx * div

@@ -8,6 +8,14 @@ sor_solve``: zero init, even parity first, the same neighbour order and
 ``-1/a_ii`` LUT), for CPU tensors — only because they lie on the CPU.  Any
 other device raises.  The half-sweep is K1's (``csrc/rb2d.cuh``).
 
+Two routes, chosen by ``iters`` alone, as K1's: up to
+``WINDOW_MAX_ITERS`` one launch (``fluid_sor_window``: each block solves a
+tile of the output inside its window, the tile +- ``2*iters`` cells, in
+shared memory), above it a fill and ``2*iters`` half-sweep launches
+(``fluid_sor``) that stream the field through device memory.
+``sor_solve_kernel.launches`` counts calls; ``window_launches`` and
+``sequence_launches`` count each route's.
+
 ``member=(mh, mw)`` (K6, ``sor.py:83``, ``rb_common.py:145-176``): every
 member tile of the grid is solved on its own — neighbour sums read 0 across
 member walls and ``a_ii`` counts member-local neighbours — while the colour
@@ -37,6 +45,26 @@ import torch
 from ..poisson import _parity, _shift_zero, neg_inv_of, sor_solve
 from .build import load, stream_of
 from .modes import block_coords, check_block, check_member, refuse_unported
+
+
+# The window routes' tile (K4 here, K1 in project.py): (rows, columns) of
+# the output a block owns, and the block's thread rows (32 threads each).
+# A window, the tile +- its halo, holds at most WINDOW_ROWS x WINDOW_COLS
+# cells (p and dx*d: 224,512 bytes of the 232,448 a block may use; the
+# planes are 96 words wide): a larger halo takes a smaller tile
+# (window_tile).
+TILE = (104, 146, 32)
+WINDOW_ROWS, WINDOW_COLS = 146, 192
+# The largest iters the window routes take: at 15 K1's tile is 84 x 130
+WINDOW_MAX_ITERS = 15
+
+
+def window_tile(halo):
+    """A window route's (rows, columns, thread rows) for windows of the
+    tile +- ``halo`` cells: ``TILE``, cut so that its window fits."""
+    th, tw, ny = TILE
+    return (min(th, WINDOW_ROWS - 2 * halo), min(tw, WINDOW_COLS - 2 * halo),
+            ny)
 
 
 def walls_at(gi, gj, gh, gw, member=None):
@@ -148,19 +176,28 @@ def sor_solve_kernel(d: torch.Tensor, dx: float = 1.0, iters: int = 10,
                          f"{iters} not supported (2 <= H <= 524280, W >= 2, "
                          "iters >= 0)")
     mh, mw = member or (0, 0)
-    p = torch.empty_like(d)
-    dxd = torch.empty_like(d)
     g = 0 if blk is None else blk.halo
     oi, oj = (0, 0) if blk is None else blk.origin
     gh, gw = (h, w) if blk is None else (blk.gh, blk.gw)
-    out = (p if g == 0 else
+    out = (torch.empty_like(d) if g == 0 else
            torch.empty((blk.bh, blk.bw), dtype=d.dtype, device=d.device))
+    geometry = (h, w, mh, mw, oi, oj, gh, gw, g)
+    numbers = (float(dx), int(iters), float(omega),
+               float(np.float32(1.0 - omega)))
     lib = load()
     with torch.cuda.device(d.device):
-        lib.call("fluid_sor", d.data_ptr(), p.data_ptr(), dxd.data_ptr(), h,
-                 w, mh, mw, oi, oj, gh, gw, g, out.data_ptr(), float(dx),
-                 int(iters), float(omega), float(np.float32(1.0 - omega)),
-                 stream_of(d))
+        if iters <= WINDOW_MAX_ITERS:
+            lib.call("fluid_sor_window", d.data_ptr(), out.data_ptr(),
+                     *geometry, *numbers, *window_tile(2 * iters),
+                     stream_of(d))
+            sor_solve_kernel.window_launches += 1
+        else:
+            # scratch: the haloed block's pressure in block mode, dx * d
+            p = out if g == 0 else torch.empty_like(d)
+            dxd = torch.empty_like(d)
+            lib.call("fluid_sor", d.data_ptr(), p.data_ptr(), dxd.data_ptr(),
+                     *geometry, out.data_ptr(), *numbers, stream_of(d))
+            sor_solve_kernel.sequence_launches += 1
     sor_solve_kernel.launches += 1
     sor_solve_kernel.member_launches += member is not None
     sor_solve_kernel.block_launches += blk is not None
@@ -170,3 +207,5 @@ def sor_solve_kernel(d: torch.Tensor, dx: float = 1.0, iters: int = 10,
 sor_solve_kernel.launches = 0
 sor_solve_kernel.member_launches = 0
 sor_solve_kernel.block_launches = 0
+sor_solve_kernel.window_launches = 0
+sor_solve_kernel.sequence_launches = 0

@@ -8,9 +8,15 @@ CUDA tensors and run their plain PyTorch versions, ``sor3d_reference``
 neighbour order and ``-1/a_ii`` LUT) and ``sor3d_chunk_reference``, for
 CPU tensors — only because they lie on the CPU.  Any other device raises.
 
-``chunk`` (sweeps per TPU launch) does not change the result there, and
-the CUDA kernel has no counterpart of it: it runs one launch per
-half-sweep.  It is validated as the JAX contract validates it.
+The kernel runs the half-sweeps in passes, one launch each
+(``csrc/sor3d.cu``): a block marches z through its tile's window in shared
+memory and fuses ``depth`` half-sweeps, a trapezoid of ``depth`` cells a
+side.  The depth is the kernel's own choice (``pass_plan``): the fewest
+passes of at most ``SOR3D_MAX_DEPTH`` (``ceil(2*iters / 6)``, 4 passes of
+5 at the plume's 10 iters), on a tile whose window fits them; the result
+does not depend on the depth or the tile.  ``chunk`` (sweeps per TPU
+launch) does not change the result there either and has no counterpart
+here; it is validated as the JAX contract validates it.
 
 ``sor3d_chunk`` is one chunk of the sharded steps' solve
 (``parallel/sharded3d.py``): ``sweeps`` sweeps on a whole haloed block
@@ -20,8 +26,10 @@ the **haloed** array's global origin ``(oz, oi, oj)``.  Cells outside the
 domain hold 0 and neighbours there or beyond the array read 0.  The
 outer ``2*sweeps`` rings of the result are not the whole grid's (in the
 TPU kernel they also depend on its padding); the cells inside them are.
-The TPU kernel's ``chunk <= 64`` lane limit and its tile sizes have no
-counterpart here.  ``sor3d_chunk.launches`` counts its calls.
+It runs the same passes from the given ``p`` (one launch at the sharded
+chain's 3 sweeps).  The TPU kernel's ``chunk <= 64`` lane limit and its
+tile sizes have no counterpart here.  ``sor3d_chunk.launches`` and
+``sor3d_solve.launches`` count their calls.
 """
 
 from __future__ import annotations
@@ -34,6 +42,57 @@ from .build import load, stream_of
 from .modes import chunk_geometry
 
 _LANE = 128  # the TPU kernel's fixed column halo, which bounds ``chunk``
+# A pass's tiles, in order of preference: (rows, columns) of the array's
+# (i, j) a block owns, and its thread rows (32 threads each).  A window, the
+# tile +- depth cells, holds rings of depth + 3 planes of p and of d in
+# shared memory: 32 x 64 takes passes of up to 5 half-sweeps, 28 x 47 the
+# sharded chain's 6.
+SOR3D_TILES = ((32, 64, 14), (28, 47, 10))
+# The deepest pass (half-sweeps fused in one launch): the sharded chain's
+# chunk of 3 sweeps is one pass
+SOR3D_MAX_DEPTH = 6
+# A block marches at least SOR3D_MIN_ZCHUNK planes; the planes are cut into
+# chunks until the grid has about SOR3D_BLOCKS blocks (one a streaming
+# multiprocessor: a window takes most of one's shared memory)
+SOR3D_BLOCKS = 128
+SOR3D_MIN_ZCHUNK = 32
+
+
+def fits(tile, depth):
+    """Whether ``csrc/sor3d.cu`` takes a pass of ``depth`` on ``tile`` on the
+    current CUDA device (its shared memory, its threads' registers)."""
+    th, tw, ny = tile
+    return load().value("fluid_sor3d_pass_bytes", th, tw, depth, ny) > 0
+
+
+def pass_depths(levels, deepest):
+    """``levels`` half-sweeps as the fewest passes of at most ``deepest``,
+    their depths as even as they come (one pass of depth 0 for none)."""
+    n = max(1, -(-levels // deepest))
+    return [levels // n + (k < levels % n) for k in range(n)]
+
+
+def pass_plan(levels):
+    """``(tile, depths)`` for ``levels`` half-sweeps: the fewest passes of
+    at most ``SOR3D_MAX_DEPTH``, on the first of ``SOR3D_TILES`` whose
+    window fits the deepest; else the last tile, with passes as deep as fit
+    on it."""
+    depths = pass_depths(levels, SOR3D_MAX_DEPTH)
+    for tile in SOR3D_TILES:
+        if fits(tile, max(depths)):
+            return tile, depths
+    deepest = max(depths) - 1
+    while deepest > 1 and not fits(tile, deepest):
+        deepest -= 1
+    return tile, pass_depths(levels, deepest)
+
+
+def z_chunk(depth_planes, tiles):
+    """Planes per block: all of them, or fewer (at least
+    ``SOR3D_MIN_ZCHUNK``) until ``tiles`` tiles make about
+    ``SOR3D_BLOCKS`` blocks."""
+    n = min(-(-SOR3D_BLOCKS // tiles), depth_planes // SOR3D_MIN_ZCHUNK)
+    return -(-depth_planes // max(1, n))
 
 
 def sor3d_reference(d, dx=1.0, iters=10, omega=1.5):
@@ -79,6 +138,41 @@ def sor3d_chunk_reference(d, p, dx, sweeps, omega, origin, domain):
     return p
 
 
+def _passes(name, d, p, dx, levels, omega, origin, domain):
+    """``levels`` half-sweeps from ``p`` (None: from zero) on a CUDA ``d``,
+    one launch per pass, into a fresh tensor."""
+    if d.dtype != torch.float32 or (p is not None
+                                    and p.dtype != torch.float32):
+        raise ValueError(f"{name}: d and p must be float32")
+    if p is not None and p.device != d.device:
+        raise ValueError(f"{name}: d and p on different devices")
+    if not (d.is_contiguous() and (p is None or p.is_contiguous())):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    dd, h, w = d.shape
+    with torch.cuda.device(d.device):
+        (th, tw, ny), depths = pass_plan(levels)
+    if min(dd, h, w) < 2 or -(-h // th) > 65535 or h * w >= 1 << 31:
+        raise ValueError(f"{name}: shape {tuple(d.shape)} not supported "
+                         f"(each extent >= 2, H <= {65535 * th}, "
+                         "H * W < 2^31)")
+    zc = z_chunk(dd, -(-h // th) * -(-w // tw))
+    out = torch.empty_like(d)
+    # ping-pong: the last pass writes out
+    scratch = torch.empty_like(d) if len(depths) > 1 else None
+    src, h0 = p, 0
+    lib = load()
+    with torch.cuda.device(d.device):
+        for k, depth in enumerate(depths):
+            dst = out if (len(depths) - 1 - k) % 2 == 0 else scratch
+            lib.call("fluid_sor3d_pass", d.data_ptr(),
+                     None if src is None else src.data_ptr(), dst.data_ptr(),
+                     dd, h, w, *origin, *domain, float(dx), h0, depth,
+                     float(omega), float(np.float32(1.0 - omega)), th, tw,
+                     zc, ny, stream_of(d))
+            src, h0 = dst, h0 + depth
+    return out
+
+
 def sor3d_chunk(d: torch.Tensor, p: torch.Tensor, dx: float, sweeps: int,
                 omega: float, global_offset=None,
                 global_shape=None) -> torch.Tensor:
@@ -95,25 +189,7 @@ def sor3d_chunk(d: torch.Tensor, p: torch.Tensor, dx: float, sweeps: int,
         return sor3d_chunk_reference(d, p, dx, sweeps, omega, origin, domain)
     if not d.is_cuda:
         raise ValueError(f"sor3d_chunk: unsupported device {d.device}")
-    if d.dtype != torch.float32 or p.dtype != torch.float32:
-        raise ValueError("sor3d_chunk: d and p must be float32")
-    if p.device != d.device:
-        raise ValueError("sor3d_chunk: d and p on different devices")
-    if not (d.is_contiguous() and p.is_contiguous()):
-        raise ValueError("sor3d_chunk: inputs must be contiguous")
-    dd, h, w = d.shape
-    # the launch puts planes on grid.z and rows on grid.y, 8 a block
-    if min(dd, h, w) < 2 or dd > 65535 or h > 8 * 65535:
-        raise ValueError(f"sor3d_chunk: shape {tuple(d.shape)} not "
-                         "supported (2 <= D <= 65535, 2 <= H <= 524280, "
-                         "W >= 2)")
-    out = torch.empty_like(d)
-    lib = load()
-    with torch.cuda.device(d.device):
-        lib.call("fluid_sor3d_chunk", d.data_ptr(), p.data_ptr(),
-                 out.data_ptr(), dd, h, w, *origin, *domain, float(dx),
-                 int(sweeps), float(omega), float(np.float32(1.0 - omega)),
-                 stream_of(d))
+    out = _passes("sor3d_chunk", d, p, dx, 2 * sweeps, omega, origin, domain)
     sor3d_chunk.launches += 1
     return out
 
@@ -124,7 +200,9 @@ sor3d_chunk.launches = 0
 def sor3d_solve(d: torch.Tensor, dx: float = 1.0, iters: int = 10,
                 omega: float = 1.5, chunk: int = 3) -> torch.Tensor:
     """Pressure ``p`` with ``lap(p) = d`` after ``iters`` red-black SOR
-    sweeps from zero, for a ``[D, H, W]`` float32 ``d``."""
+    sweeps from zero, for a ``[D, H, W]`` float32 ``d``.  ``chunk`` is the
+    TPU kernel's sweeps per launch: validated, and without effect here (the
+    kernel picks its own pass depth, module docstring)."""
     if chunk < 1:
         raise ValueError(f"chunk={chunk} must be >= 1")
     need = 2 * min(chunk, iters)
@@ -136,22 +214,12 @@ def sor3d_solve(d: torch.Tensor, dx: float = 1.0, iters: int = 10,
         return sor3d_reference(d, dx, iters, omega)
     if not d.is_cuda:
         raise ValueError(f"sor3d_solve: unsupported device {d.device}")
-    if d.dim() != 3 or d.dtype != torch.float32:
+    if d.dim() != 3:
         raise ValueError("sor3d_solve: d must be float32 [D, H, W]")
-    if not d.is_contiguous():
-        raise ValueError("sor3d_solve: d must be contiguous")
-    dd, h, w = d.shape
-    # the launch puts planes on grid.z and rows on grid.y, 8 a block
-    if min(dd, h, w) < 2 or dd > 65535 or h > 8 * 65535 or iters < 0:
-        raise ValueError(f"sor3d_solve: shape {tuple(d.shape)} / iters "
-                         f"{iters} not supported (2 <= D <= 65535, "
-                         "2 <= H <= 524280, W >= 2, iters >= 0)")
-    p = torch.empty_like(d)
-    lib = load()
-    with torch.cuda.device(d.device):
-        lib.call("fluid_sor3d", d.data_ptr(), p.data_ptr(), dd, h, w,
-                 float(dx), int(iters), float(omega),
-                 float(np.float32(1.0 - omega)), stream_of(d))
+    if iters < 0:
+        raise ValueError(f"sor3d_solve: iters={iters} must be >= 0")
+    p = _passes("sor3d_solve", d, None, dx, 2 * iters, omega, (0, 0, 0),
+                tuple(d.shape))
     sor3d_solve.launches += 1
     return p
 

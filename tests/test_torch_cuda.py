@@ -131,6 +131,38 @@ def test_sor_kernel_bit_equal(cuda, rng, iters):
         assert torch.equal(got, sor_solve_reference(d, 0.7, iters, 1.96))
 
 
+@pytest.mark.parametrize("iters", [0, 1, 10, 20])
+@pytest.mark.parametrize("shape", [(61, 81), (130, 200), (250, 310)])
+def test_sor_kernel_routes_bit_equal(cuda, rng, shape, iters):
+    """K4's one-launch window route (iters <= WINDOW_MAX_ITERS) and its
+    launch sequence (above) on shapes that are not multiples of the tile,
+    whole grid, with 2x2 member tiles and as the (0, 1) block of a 2x2
+    cut with a halo of 2*iters."""
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import (
+        WINDOW_MAX_ITERS)
+    h, w = shape
+    d = _on(rng.standard_normal(shape).astype(np.float32), cuda)
+    window = iters <= WINDOW_MAX_ITERS
+    before = (sor_solve_kernel.window_launches,
+              sor_solve_kernel.sequence_launches)
+    member = (h // 2, w // 2) if h % 2 == 0 and w % 2 == 0 else None
+    assert torch.equal(sor_solve_kernel(d, 0.7, iters, 1.96),
+                       sor_solve_reference(d, 0.7, iters, 1.96))
+    assert torch.equal(sor_solve_kernel(d, 0.7, iters, 1.96, member=member),
+                       sor_solve_reference(d, 0.7, iters, 1.96, member))
+    g, (bh, bw) = 2 * iters, (h // 2, w - w // 2)
+    dpad = torch.nn.functional.pad(d, (g, g, g, g))[:bh + 2 * g,
+                                                    w // 2:w + 2 * g]
+    got = sor_solve_kernel(dpad.contiguous(), 0.7, iters, 1.96,
+                           global_offset=(0, w // 2), global_shape=shape,
+                           halo=g)
+    assert torch.equal(got, sor_solve_kernel(d, 0.7, iters, 1.96)[
+        :bh, w // 2:])
+    assert (sor_solve_kernel.window_launches,
+            sor_solve_kernel.sequence_launches) == (
+                before[0] + 4 * window, before[1] + 4 * (not window))
+
+
 def test_project_kernel_bit_equal(cuda, rng):
     cfg = SimConfig(shape=SHAPE)
     vel = _on(rng.normal(0, 40, (2,) + SHAPE).astype(np.float32), cuda)
@@ -147,8 +179,8 @@ def test_project_kernel_bit_equal(cuda, rng):
 def _seam_impulses(shape, iters, dev):
     """Slots on the seams of K1's window-route tiles and in a neighbour
     tile's ring, a duplicate and an out-of-range position."""
-    from esp32_fluid_simulation_tpu_torch.ops.cuda.project import window_tile
-    th, tw, _ = window_tile(iters)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import window_tile
+    th, tw, _ = window_tile(2 * iters + 1)
     r = 2 * iters + 2
     return Impulses.from_lists(
         SimConfig(shape=shape, max_impulses=8),
@@ -233,11 +265,57 @@ def test_fd3d_kernels_bit_equal(cuda, rng):
                            subtract_gradient3d_reference(vel, p, dx))
 
 
-@pytest.mark.parametrize("iters", [1, 10])
+@pytest.mark.parametrize("iters", [0, 1, 10])
 def test_sor3d_kernel_bit_equal(cuda, rng, iters):
     d = _on(rng.standard_normal(SHAPE3).astype(np.float32), cuda)
     assert torch.equal(sor3d_solve(d, 1.0, iters, 1.5, chunk=3),
                        sor3d_reference(d, 1.0, iters, 1.5))
+
+
+@pytest.mark.parametrize("tile, deepest, blocks", [
+    ((16, 32, 8), 6, 264), ((7, 12, 4), 1, 264), ((16, 32, 8), 2, 1 << 20),
+    ((13, 40, 16), 6, 1), ((32, 64, 8), 10, 264), ((28, 47, 10), 6, 128)])
+def test_sor3d_passes_do_not_depend_on_depth_or_tile(cuda, rng, monkeypatch,
+                                                     tile, deepest, blocks):
+    """K9's z-marching passes at other pass depths, ragged tiles and chunks
+    of planes: whole grid from zero and a chunk of a larger domain from a
+    given p, both bit-equal to their plain versions."""
+    from esp32_fluid_simulation_tpu_torch.ops.cuda import sor3d
+    monkeypatch.setattr(sor3d, "SOR3D_TILES", (tile,))
+    monkeypatch.setattr(sor3d, "SOR3D_MAX_DEPTH", deepest)
+    monkeypatch.setattr(sor3d, "SOR3D_BLOCKS", blocks)
+    monkeypatch.setattr(sor3d, "SOR3D_MIN_ZCHUNK", 2)
+    d = _on(rng.standard_normal((20, 45, 70)).astype(np.float32), cuda)
+    p = _on(rng.standard_normal((20, 45, 70)).astype(np.float32), cuda)
+    assert torch.equal(sor3d_solve(d, 0.7, 7, 1.5),
+                       sor3d_reference(d, 0.7, 7, 1.5))
+    for sweeps in (1, 3, 4):
+        kw = dict(global_offset=(0, -2 * sweeps, 9),
+                  global_shape=(20, 80, 90))
+        assert torch.equal(
+            sor3d_chunk(d, p, 0.7, sweeps, 1.5, **kw),
+            sor3d_chunk_reference(d, p, 0.7, sweeps, 1.5, kw["global_offset"],
+                                  kw["global_shape"]))
+
+
+def test_sor3d_pass_plan_follows_the_kernel(cuda):
+    """``pass_plan`` asks ``csrc/sor3d.cu`` what fits: the plume's 10 iters
+    are 4 passes of 5 on 32x64 tiles (a pass of 6 overruns a block's shared
+    memory there), a sharded chunk of 3 sweeps one pass of 6 on 28x47;
+    depths past the deepest instance and windows too large for a thread's
+    share are refused, and the pass entry refuses them too."""
+    from esp32_fluid_simulation_tpu_torch.ops.cuda import sor3d
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.build import load
+    assert sor3d.pass_plan(20) == ((32, 64, 14), [5, 5, 5, 5])
+    assert sor3d.pass_plan(6) == ((28, 47, 10), [6])
+    assert sor3d.fits((32, 64, 14), 5) and not sor3d.fits((32, 64, 14), 6)
+    assert not sor3d.fits((8, 8, 1), 7)
+    assert not sor3d.fits((64, 64, 4), 1)
+    d = torch.zeros((4, 8, 8), device=cuda)
+    with pytest.raises(RuntimeError, match="fluid_sor3d_pass failed"):
+        load().call("fluid_sor3d_pass", d.data_ptr(), None, d.data_ptr(),
+                    4, 8, 8, 0, 0, 0, 4, 8, 8, 1.0, 0, 7, 1.5, -0.5, 8, 8,
+                    4, 1, None)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
