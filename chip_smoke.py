@@ -13,7 +13,10 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    upscale, K4 SOR solve, K5 MacCormack advection) against its plain
    PyTorch version on the card, at small odd shapes and at the production
    shapes (K4 at 4096^2, K5 at config 3's 2048^2); bit-equality is expected
-   (``--fmad=false``).  K1 and K4 also at 130x200 and 4097x4093, at iters
+   (``--fmad=false``).  K5 on its one-launch window route also at full
+   reach (the CFL clamp binding everywhere) and with a NaN and an inf
+   velocity cell, and on its two-launch route at a max_disp whose window
+   does not fit a block.  K1 and K4 also at 130x200 and 4097x4093, at iters
    0, 1, 10 (their one-launch window routes) and 20 (their launch-sequence
    routes), K1 with impulses on the seams of its tiles and in a neighbour
    tile's ring;
@@ -39,8 +42,9 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    once per frame; the plume checked and held against the same steps on
    the plain path on the card.
 8. Config 3: ``examples/config3_2048_maccormack_multigrid.json`` through
-   ``make_step_render`` for 20 steps (K5 forward = K5 backward = 2 per
-   step, no K2 launch), bit-identical to the plain path on the card.
+   ``make_step_render`` for 20 steps (K5 = 2 one-launch calls per step,
+   no two-launch call, no K2 launch), bit-identical to the plain path on
+   the card.
 9. Config 0 with ``solver="sor_pallas"`` through ``make_step`` for 10
    steps at 4096^2 (K4 once and K2 twice per step, K1 never), bit-identical
    to the plain path.
@@ -75,8 +79,9 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    3, on 130x200); bit-equality is expected.
 15b. Block mode (K11) of K7 and K9 against the plain versions: every
    block of (9, 130, 200) cut 2x2 and the (0, 0) block of 256^3 cut 2x2
-   (K7 on the f32 velocity with no-slip and on bf16 scalars, also against
-   the crop of whole-grid K7; K9 chunks of 3 sweeps (one pass), 1 and 4
+   (K7 on the f32 velocity with no-slip, its self-advect (the velocity
+   read from the haloed field) and on bf16 scalars, also against the crop
+   of whole-grid K7; K9 chunks of 3 sweeps (one pass), 1 and 4
    (two passes) from zero and from a given pressure); bit-equality is
    expected.
 16. The sharded main path: ``examples/config5_8192_sharded.json`` with
@@ -98,7 +103,8 @@ file; it exits non-zero on any failure and imports nothing of JAX.
 18. Config 5's 3D half: the default 256^3 ``SmokeConfig`` with
    ``advect_impl="pallas"``, ``sor_impl="pallas"`` on the 2x2 mesh of the
    card (four 256x128x128 blocks): 10 steps of ``make_sharded_smoke_step``
-   (launch counters: K7 block = 3*4*steps, K9 block = 4*ceil(10/3)*steps,
+   (launch counters: K7 block = 2*4*steps (the velocity self-advect and
+   the stacked density + temperature), K9 block = 4*ceil(10/3)*steps,
    no whole-grid K8 or K9), against the single-device ``make_smoke_step``
    and the plain path; then the default ``"auto"`` plume (eager route)
    for 2 steps against the single-device eager step at the bf16 bounds.
@@ -114,8 +120,10 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    the tiled ``step_render``, and the step's split into kernels, overlay
    build and layout permutes), and ms per call of each kernel and mode and
    its plain version; K1's and K4's device launches per call on both
-   routes and K9's per pass (a profiler count: 1 on the window routes in
-   every mode, 1 per pass for K9 and ``sor3d_chunk``), K1's and K4's
+   routes, K5's per call, and K9's per pass (a profiler count: 1 on the
+   window routes in every mode, K5's included, 1 per pass for K9 and
+   ``sor3d_chunk``), K5 at four tile sizes and K7 at three run lengths
+   (each checked against its plain version), K1's and K4's
    sequence routes at iters 10 beside their window routes, K1's window
    route at five tile sizes, and K9 and the sharded chain's chunk at
    other pass depths and tiles (each checked against its plain version);
@@ -123,7 +131,7 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    8192^2 beside the single-device step, its split (K1 block x4, K2 block
    x8, the halo exchanges) and each block mode beside its whole-grid
    kernel at 4096^2; the sharded 256^3
-   smoke step beside the single-device one, its split (K7 block x12, the
+   smoke step beside the single-device one, its split (K7 block x8, the
    K9 block chain, the exchanges, the eager ops), and the 3D dye-bed step
    on both routes.
 
@@ -404,14 +412,47 @@ def phase1_kernels(dev):
         vel = 200.0 * torch.randn((2, h, w), generator=gen, device=dev)
         dye = torch.rand((3, h, w), generator=gen,
                          device=dev).to(torch.bfloat16)
+        # the window route at full reach (the CFL clamp binds everywhere:
+        # sigma 2000 cells/s) and with a NaN and an inf velocity cell (each
+        # counts as max_disp)
+        fast = 2000.0 * torch.randn((2, h, w), generator=gen, device=dev)
+        odd = vel.clone()
+        odd[0, h // 2, w // 3] = float("nan")
+        odd[1, 7, w - 5] = float("inf")
+        f32 = torch.rand((2, h, w), generator=gen, device=dev)
+        cases = [(vel, vel, True, "f32 2ch no_slip"),
+                 (dye, vel, False, "bf16 3ch"),
+                 (f32, fast, True, "f32 2ch no_slip full reach"),
+                 (dye, fast, False, "bf16 3ch full reach"),
+                 (f32, odd, True, "f32 2ch no_slip NaN velocity"),
+                 (dye, odd, False, "bf16 3ch NaN velocity")]
+        n0 = advect_maccormack_kernel.launches
+        for field, v, no_slip, label in cases:
+            err["K5 advect_maccormack_kernel"] = max(
+                err["K5 advect_maccormack_kernel"],
+                compare(f"K5 {label}",
+                        advect_maccormack_kernel(field, v, dt, no_slip, 12),
+                        advect_maccormack_reference(field, v, dt, no_slip,
+                                                    12)))
+        if advect_maccormack_kernel.launches - n0 != len(cases):
+            raise AssertionError("phase 1: K5 at max_disp 12 left the window "
+                                 "route")
+        # the two-launch route: a max_disp whose worst-case window does not
+        # fit a block's shared memory
+        md = 120
+        n0 = advect_maccormack_kernel.two_launch_calls
         for field, no_slip, label in ((vel, True, "f32 2ch no_slip"),
                                       (dye, False, "bf16 3ch")):
             err["K5 advect_maccormack_kernel"] = max(
                 err["K5 advect_maccormack_kernel"],
-                compare(f"K5 {label}",
-                        advect_maccormack_kernel(field, vel, dt, no_slip, 12),
-                        advect_maccormack_reference(field, vel, dt, no_slip,
-                                                    12)))
+                compare(f"K5 two-launch route max_disp {md} {label}",
+                        advect_maccormack_kernel(field, fast, dt, no_slip,
+                                                 md),
+                        advect_maccormack_reference(field, fast, dt, no_slip,
+                                                    md)))
+        if advect_maccormack_kernel.two_launch_calls - n0 != 2:
+            raise AssertionError(f"phase 1: K5 at max_disp {md} did not take "
+                                 "the two-launch route")
     return err
 
 
@@ -570,7 +611,7 @@ def phase2_golden(dev):
 def reset_counts():
     """Set every launch counter to 0; returns a function that reads them."""
     from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
-        advect_kernel, maccormack_backward, maccormack_forward)
+        advect_kernel, advect_maccormack_kernel)
     from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import sor_solve_kernel
     from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
         project_fused)
@@ -589,9 +630,12 @@ def reset_counts():
         "K2 advect_kernel": (advect_kernel, "launches"),
         "K3 render_rgb565_kernel": (render_rgb565_kernel, "launches"),
         "K4 sor_solve_kernel": (sor_solve_kernel, "launches"),
-        # K5's two launches: the forward pass counts as the kernel's
-        "K5 advect_maccormack_kernel": (maccormack_forward, "launches"),
-        "K5 backward": (maccormack_backward, "launches"),
+        # K5's window route, one launch per call; its two-launch route
+        # (a max_disp whose window does not fit a block) counted apart
+        "K5 advect_maccormack_kernel": (advect_maccormack_kernel,
+                                        "launches"),
+        "K5 two-launch route": (advect_maccormack_kernel,
+                                "two_launch_calls"),
         "K7 advect3d_kernel": (advect3d_kernel, "launches"),
         "K8 divergence3d": (divergence3d, "launches"),
         "K8 subtract_gradient3d": (subtract_gradient3d, "launches"),
@@ -602,8 +646,7 @@ def reset_counts():
         "K6 K2 advect_kernel overlay": (advect_kernel, "overlay_launches"),
         "K6 K1 project_fused member": (project_fused, "member_launches"),
         "K6 K4 member": (sor_solve_kernel, "member_launches"),
-        "K6 K5 member": (maccormack_forward, "member_launches"),
-        "K6 K5 backward member": (maccormack_backward, "member_launches"),
+        "K6 K5 member": (advect_maccormack_kernel, "member_launches"),
         # block mode (K11)
         "K11 K1 project_fused block": (project_fused, "block_launches"),
         "K11 K2 advect_kernel block": (advect_kernel, "block_launches"),
@@ -804,8 +847,9 @@ def phase8_config3(dev):
     s2 = 2 * CONFIG3_STEPS
     n, st = check_against_plain(
         8, dev, cfg, init_state(cfg, device=dev), make_step_render(cfg),
-        CONFIG3_STEPS, {"K5 advect_maccormack_kernel": s2, "K5 backward": s2,
-                        "K2 advect_kernel": 0, "K1 project_fused": 0}, True)
+        CONFIG3_STEPS, {"K5 advect_maccormack_kernel": s2,
+                        "K5 two-launch route": 0, "K2 advect_kernel": 0,
+                        "K1 project_fused": 0}, True)
     return n["K5 advect_maccormack_kernel"], cfg, st
 
 
@@ -1281,6 +1325,8 @@ def phase5_config4_timing(dev, card, member_cfg, state0, sched):
                                              member=m),
             lambda: advect_maccormack_reference(field, vel, dt, no_slip, md,
                                                 member=m))
+        launches_per_call(f"K6 {name}", lambda: advect_maccormack_kernel(
+            field, vel, dt, no_slip, md, member=m), 1)
     print(f"phase 5 timing of config 4 ({n} members of {m[0]}x{m[1]}, "
           f"{h}x{w} supergrid) on {card} (CUDA events, ms per call):")
     for k, v in res.items():
@@ -1592,9 +1638,10 @@ def phase5_k4_k5_timing(dev, card, paths):
     plain paths) and of K4 and K5; returns K4's and K5's work."""
     from esp32_fluid_simulation_tpu_torch import make_step, make_step_render
     from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
+    from esp32_fluid_simulation_tpu_torch.ops.cuda import advect
     from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
         advect_maccormack_kernel, advect_maccormack_reference,
-        maccormack_backward, maccormack_forward)
+        maccormack_reach)
     from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import (
         sor_solve_kernel, sor_solve_reference)
     from esp32_fluid_simulation_tpu_torch.ops.fd import (
@@ -1645,18 +1692,43 @@ def phase5_k4_k5_timing(dev, card, paths):
 
     vel, dye = st3.velocity, st3.color
     md, dt = cfg3.advect_max_disp, cfg3.dt
-    for name, field, no_slip in (("K5 velocity", vel, True),
-                                 ("K5 dye", dye, False)):
+    calls = (("K5 velocity", vel, True), ("K5 dye", dye, False))
+    for name, field, no_slip in calls:
         res[name], res[name + " plain"] = time_pair(
             lambda: advect_maccormack_kernel(field, vel, dt, no_slip, md),
             lambda: advect_maccormack_reference(field, vel, dt, no_slip, md))
-        fwd = maccormack_forward(field, vel, dt, no_slip, md)
-        res[name + " forward"] = cuda_ms(
-            lambda: maccormack_forward(field, vel, dt, no_slip, md), 20,
-            warmup=2)
-        res[name + " backward"] = cuda_ms(
-            lambda: maccormack_backward(field, *fwd, vel, dt, no_slip, md),
+        # the two-launch route (the parent's design) at the same shapes
+        res[name + " two-launch route"] = cuda_ms(
+            lambda: advect._launch_two(field, vel, dt, no_slip, md, None),
             20, warmup=2)
+        launches_per_call(f"K5 {name[3:]} at config 3",
+                          lambda: advect_maccormack_kernel(field, vel, dt,
+                                                           no_slip, md), 1)
+    # the window route's tile sweep (each checked bit-equal)
+    default = advect.MACCORMACK_TILE
+    try:
+        for tile in ((16, 32), (32, 32), (32, 64), (64, 64)):
+            advect.MACCORMACK_TILE = tile
+            for name, field, no_slip in calls:
+                compare(f"phase 5 {name} tile {tile[0]}x{tile[1]}",
+                        advect_maccormack_kernel(field, vel, dt, no_slip, md),
+                        advect_maccormack_reference(field, vel, dt, no_slip,
+                                                    md))
+            res[f"K5 pair tile {tile[0]}x{tile[1]}"] = cuda_ms(
+                lambda: [advect_maccormack_kernel(f, vel, dt, ns, md)
+                         for _, f, ns in calls], 20, warmup=2)
+    finally:
+        advect.MACCORMACK_TILE = default
+    # each tile's reach per axis (maccormack_reach of its velocities)
+    th, tw = default
+    h, w = vel.shape[1:]
+    tiles = vel.reshape(2, h // th, th, w // tw, tw).permute(1, 3, 0, 2, 4)
+    reach = torch.tensor([maccormack_reach(t, dt, md)
+                          for t in tiles.reshape(-1, 2, th, tw).cpu()],
+                         dtype=torch.float32)
+    print(f"phase 5 K5 at config 3: reach per axis over the {len(reach)} "
+          f"tiles of {th}x{tw}: mean {reach.mean(0).tolist()}, max "
+          f"{reach.amax(0).tolist()} (max_disp {md})")
     print(f"phase 5 timing of K4, K5 and their paths on {card} (CUDA "
           "events, ms per call):")
     for k, v in res.items():
@@ -1863,6 +1935,10 @@ def phase5_smoke_timing(dev, cfg, state, card):
         res[name + " plain"] = (p1 + p2) / 2
     res["render_smoke mip"] = cuda_ms(lambda: render_smoke(rho), 20,
                                       warmup=2)
+    k7 = [per_kernel["K7 velocity"], per_kernel["K7 scalars"]]
+    k7_runs(res, "K7 velocity + scalars", *(kern for kern, _ in k7),
+            lambda: [kern() for kern, _ in k7],
+            lambda: [plain() for _, plain in k7])
     print(f"phase 5 timing at {cfg.shape} on {card} (CUDA events, ms per "
           "call):")
     for k, v in res.items():
@@ -2432,7 +2508,8 @@ def phase5_sharded_timing(dev, card, cfg, mesh, state0, sh, k4_path):
 def phase15b_block_kernels3d(dev):
     """K11 for K7 and K9: block mode against the plain versions, on every
     65x100 block of (9, 130, 200) and on the corner block of 256^3 cut
-    2x2.  Returns the largest difference per summary row."""
+    2x2 (K7 also in its self-advect mode).  Returns the largest difference
+    per summary row."""
     from esp32_fluid_simulation_tpu_torch.ops.cuda.advect3d import (
         advect3d_kernel, advect3d_reference)
     from esp32_fluid_simulation_tpu_torch.ops.cuda.modes import check_block3d
@@ -2475,6 +2552,17 @@ def phase15b_block_kernels3d(dev):
                 check("K11 K7 advect3d_kernel block",
                       f"K7 block {label} at {off} vs whole-grid K7", got,
                       haloed(whole, off, bshape, 0))
+            # the self-advect: the velocity read from the haloed field
+            vpad = haloed(vel, off, bshape, k)
+            blk = check_block3d("phase 15b", off, gshape, k, vpad.shape, 0,
+                                "")
+            got = advect3d_kernel(vpad, None, dt, True, md, **kw)
+            check("K11 K7 advect3d_kernel block",
+                  f"K7 block self-advect at {off}", got,
+                  advect3d_reference(vpad, None, dt, True, md, blk))
+            check("K11 K7 advect3d_kernel block",
+                  f"K7 block self-advect at {off} vs whole-grid K7", got,
+                  haloed(whole_v, off, bshape, 0))
             # the chain's chunk (one pass), its last chunk of 1 sweep and
             # a chunk deeper than one pass (two launches)
             for n in (sweeps, 1, 4):
@@ -2536,9 +2624,11 @@ def phase18_sharded_smoke(dev, mesh):
     torch.cuda.synchronize()
     n = counts()
     chunks = -(-cfg.sor_iters // min(cfg.sor_chunk, cfg.sor_iters))
-    want = {"K11 K7 advect3d_kernel block": 3 * 4 * steps,
+    # K7 block: the velocity self-advect and the stacked density +
+    # temperature, per shard and step
+    want = {"K11 K7 advect3d_kernel block": 2 * 4 * steps,
             "K11 K9 sor3d_chunk block": 4 * chunks * steps}
-    check_counts(18, n, dict(want, **{"K7 advect3d_kernel": 3 * 4 * steps,
+    check_counts(18, n, dict(want, **{"K7 advect3d_kernel": 2 * 4 * steps,
                                       "K8 divergence3d": 0,
                                       "K8 subtract_gradient3d": 0,
                                       "K9 sor3d_solve": 0}))
@@ -2677,6 +2767,24 @@ def phase19_dyebed3d(dev, mesh):
     return kcfg, sk
 
 
+def k7_runs(res, label, *calls_and_check):
+    """Time ``label``'s calls (the first entries of ``calls_and_check``) at
+    each of K7's run lengths, after holding the checked calls (the last
+    two: kernel, plain) bit-equal at that run length."""
+    from esp32_fluid_simulation_tpu_torch.ops.cuda import advect3d
+    *calls, kern, plain = calls_and_check
+    default = advect3d.ADVECT3D_RUN
+    try:
+        for run in (1, 2, 4):
+            advect3d.ADVECT3D_RUN = run
+            for i, (g, w) in enumerate(zip(kern(), plain())):
+                compare(f"phase 5 {label} run {run} ({i})", g, w)
+            res[f"{label} run {run}"] = cuda_ms(
+                lambda: [c() for c in calls], 10, warmup=2)
+    finally:
+        advect3d.ADVECT3D_RUN = default
+
+
 def phase5_sharded3d_timing(dev, card, cfg, mesh, sh, cfg19, sh19):
     """Times of the sharded 256^3 smoke step beside the single-device one,
     its split, and the 3D dye-bed step on both routes; returns the K11 K7
@@ -2726,13 +2834,21 @@ def phase5_sharded3d_timing(dev, card, cfg, mesh, sh, cfg19, sh19):
     k, g = md + 1, 2 * ck
     vel, rho, temp = st.velocity, st.density, st.temperature
     cells = [(a, b) for a in range(lay.nx) for b in range(lay.ny)]
-    vpad, rpad, tpad = (_exchange2(x, k) for x in (vel, rho, temp))
 
-    def k7(pads, no_slip, plain=False):
+    def stacked():
+        return lay.map(lambda a, b, r, t: torch.stack([r, t]), rho, temp)
+
+    vpad, rpad, tpad, ppad = (_exchange2(x, k)
+                              for x in (vel, rho, temp, stacked()))
+
+    def k7(pads, no_slip, self_advect=False, plain=False):
+        """K7 block on each shard's block of each of ``pads``; the
+        self-advect reads the velocity from the pad."""
         def run():
             for pad in pads:
                 for a, b in cells:
-                    f, v = pad[a][b], vel[a][b]
+                    f = pad[a][b]
+                    v = None if self_advect else vel[a][b]
                     if plain:
                         advect3d_reference(f, v, dt, no_slip, md, check_block3d(
                             "phase 5", lay.origin(a, b), cfg.shape, k,
@@ -2745,13 +2861,38 @@ def phase5_sharded3d_timing(dev, card, cfg, mesh, sh, cfg19, sh19):
 
     res["exchange velocity k=3"] = cuda_ms(lambda: _exchange2(vel, k), 10,
                                            warmup=2)
-    res["exchange density + temperature k=3"] = cuda_ms(
-        lambda: (_exchange2(rho, k), _exchange2(temp, k)), 10, warmup=2)
+    res["stack + exchange density + temperature k=3"] = cuda_ms(
+        lambda: _exchange2(stacked(), k), 10, warmup=2)
     res["K7 block velocity x4"], res["K7 block velocity x4 plain"] = \
-        time_pair(k7([vpad], True), k7([vpad], True, True), 10, 1)
-    res["K7 block scalars x8"], res["K7 block scalars x8 plain"] = \
-        time_pair(k7([rpad, tpad], False), k7([rpad, tpad], False, True),
-                  10, 1)
+        time_pair(k7([vpad], True, True), k7([vpad], True, True, True), 10,
+                  1)
+    res["K7 block scalar pair x4"], res["K7 block scalar pair x4 plain"] = \
+        time_pair(k7([ppad], False), k7([ppad], False, plain=True), 10, 1)
+    # the parent's route: the owned velocity as a second input, and the
+    # scalars apart, each with its own exchange
+    res["K7 block x12 (owned velocity, scalars apart)"] = cuda_ms(
+        lambda: (k7([vpad], True)(), k7([rpad, tpad], False)()), 10,
+        warmup=2)
+    res["exchange density, temperature apart k=3"] = cuda_ms(
+        lambda: (_exchange2(rho, k), _exchange2(temp, k)), 10, warmup=2)
+    # K7's run lengths on the sharded route (each checked bit-equal)
+    k7_runs(res, "K7 block x8", k7([vpad], True, True), k7([ppad], False),
+            lambda: [advect3d_kernel(vpad[0][0], None, dt, True, md,
+                                     global_offset=(0, 0),
+                                     global_shape=cfg.shape, halo=k),
+                     advect3d_kernel(ppad[0][0], vel[0][0], dt, False, md,
+                                     global_offset=(0, 0),
+                                     global_shape=cfg.shape, halo=k)],
+            lambda: [advect3d_reference(vpad[0][0], None, dt, True, md,
+                                        check_block3d("phase 5", (0, 0),
+                                                      cfg.shape, k,
+                                                      vpad[0][0].shape, 0,
+                                                      "")),
+                     advect3d_reference(ppad[0][0], vel[0][0], dt, False, md,
+                                        check_block3d("phase 5", (0, 0),
+                                                      cfg.shape, k,
+                                                      ppad[0][0].shape, 0,
+                                                      ""))])
     div = ops.divergence(vel)
     res["divergence (its exchanges + eager stencil)"] = cuda_ms(
         lambda: ops.divergence(vel), 10, warmup=2)
@@ -2802,12 +2943,12 @@ def phase5_sharded3d_timing(dev, card, cfg, mesh, sh, cfg19, sh19):
           "ms per call; x4 = the four shards' calls of one step):")
     for key, v in res.items():
         print(f"  {key}: {v:.4f} ms")
-    k7_ms = res["K7 block velocity x4"] + res["K7 block scalars x8"]
-    parts = {"K7 block x12": k7_ms,
+    k7_ms = res["K7 block velocity x4"] + res["K7 block scalar pair x4"]
+    parts = {"K7 block x8": k7_ms,
              "K9 block chain (exchanges included)":
                  res["K9 block chain (its exchanges included)"],
              "advection exchanges": res["exchange velocity k=3"]
-             + res["exchange density + temperature k=3"],
+             + res["stack + exchange density + temperature k=3"],
              "divergence": res["divergence (its exchanges + eager stencil)"],
              "gradient subtract":
                  res["gradient subtract (its exchanges + eager stencil)"]}
@@ -2824,17 +2965,15 @@ def phase5_sharded3d_timing(dev, card, cfg, mesh, sh, cfg19, sh19):
     n = sum(x[0].numel() for row in vel for x in row)
     # K7 block, counted as the single-device K7 row counts its work: the
     # velocity pass reads the velocity once (its haloed copy) and writes
-    # the owned block; the scalars read their haloed blocks, the owned
-    # velocity once and one backtrace between them, and write their owned
-    # blocks. The second velocity read and backtrace of the two separate
-    # scalar launches are a cost of that design, not of the function.
+    # the owned block; the scalar pair reads its haloed blocks and the
+    # owned velocity, with one backtrace, and writes its owned blocks
     k7_bytes = (tot(vpad) + tot(vel)) + tot(vel) \
-        + (tot(rpad) + tot(rho)) + (tot(tpad) + tot(temp))
+        + (tot(ppad) + tot(rho) + tot(temp))
     haloed_cells = sum(x.numel() for row in dg for x in row)
     return {
         "K11 K7 advect3d_kernel block": (
             k7_ms, res["K7 block velocity x4 plain"]
-            + res["K7 block scalars x8 plain"], k7_bytes,
+            + res["K7 block scalar pair x4 plain"], k7_bytes,
             n * ((34 + 3 * 19 + 17) + (34 + 2 * 19))),
         # each chunk call reads the haloed d and p and writes the haloed p
         "K11 K9 sor3d_chunk block": (

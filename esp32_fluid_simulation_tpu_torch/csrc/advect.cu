@@ -27,21 +27,30 @@
 // K5 replaces esp32_fluid_simulation_tpu/ops/pallas/advect.py
 // (advect_maccormack_pallas): a forward pass with the extrema of the four
 // bilinear taps (the sloop kernel's return_minmax), a backward pass through
-// -vel, then the limiter.  The backward pass samples phi_hat at points that
-// other blocks write, so K5 takes two launches:
-//   1. the advect kernel with MM = kCombined: phi_hat and the bounds
-//      lo = min(cmin, phi_hat), hi = max(cmax, phi_hat) (min and max are
-//      exact, so folding phi_hat in here equals doing it later);
-//   2. maccormack_correct_kernel: backtrace through -vel, bilinear sample of
-//      phi_hat, no-slip factor, phi_back rounded to the field dtype (as the
-//      stored intermediate is), then phi_hat + 0.5 (field - phi_back)
-//      clamped to [lo, hi], rounding to the field dtype after each op as
-//      PyTorch's bf16 ops do.
-// Bound: device-memory bytes.  The function needs the field and vel read
-// once and the output written once; the two launches also write and re-read
-// phi_hat, lo and hi (about 5x the field bytes in all).  Recomputing the
-// extrema inside launch 2 instead of storing them is a later change.
-//
+// -vel, then the limiter.  The backward pass samples phi_hat only a few
+// cells from each node, so K5 is one launch (maccormack_tile_kernel): each
+// block owns a TH x TW tile and
+//   1. reads its cells' velocities and works out its reach per axis,
+//      r = min(ceil(max |v*dt|), max_disp) + 1 over the tile (a NaN or inf
+//      velocity counts as max_disp: the CFL clamp sends its source there);
+//      the backward taps of its cells lie within r of them;
+//   2. computes phi_hat (K2's forward arithmetic, rounded to the field
+//      dtype, as the stored intermediate was) over the tile +- r, clipped to
+//      the domain or, with MEMBER, to the member tiles the tile touches,
+//      into shared memory; its own cells' tap extrema, combined with
+//      phi_hat, stay in registers (min and max are exact);
+//   3. after one barrier, backtraces each own cell through -vel, samples
+//      phi_hat from shared memory, and applies the limiter: phi_back
+//      rounded to the field dtype, then phi_hat + 0.5 (field - phi_back)
+//      clamped to [lo, hi], rounding after each op as PyTorch's bf16 ops do.
+// Only the output goes to device memory.  Bound: device-memory bytes (the
+// field and vel read once, the output written once); the ring of the
+// window repeats K2's gathers for (TH + 2r)(TW + 2r) / (TH TW) - 1 of the
+// tile, served by L1/L2.  The window's shared memory is sized for the
+// worst case, r = max_disp + 1; where that does not fit a block, the
+// wrapper takes the two-launch route: K2 with the raw extrema, then
+// maccormack_correct_kernel, which combines them with phi_hat.
+
 // Tiled-domain mode (K6, the member= argument of advect_pallas,
 // advect.py:112-165): the grid is a supergrid of independent mh x mw member
 // tiles, and every domain clamp and the no-slip test act per tile.  The
@@ -129,10 +138,9 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// What the advect kernel writes beside the field: nothing, the raw extrema
-// of the four taps (return_minmax), or those combined with the stored value
-// (K5's forward pass).
-enum MinMax { kNone = 0, kRaw = 1, kCombined = 2 };
+// What the advect kernel writes beside the field: nothing, or the raw
+// extrema of the four taps (return_minmax).
+enum MinMax { kNone = 0, kRaw = 1 };
 
 __device__ __forceinline__ int quant_unit(float v, int bits) {
   // clip01 bounds v to [0, 1], so min() alone bounds the code
@@ -267,16 +275,10 @@ __global__ void advect_kernel(const T* __restrict__ field,
     if (clip01) a = fminf(fmaxf(a, 0.f), 1.f);
     if (drain) a = overlay[ch * plane + c];
     stored[ch] = store(out + ch * plane, c, a);
-    if (MM != kNone) {
+    if (MM == kRaw) {
       // extrema of the undiscounted taps, exact in the field dtype
-      float mn = min_nan(min_nan(t00, t01), min_nan(t10, t11));
-      float mx = max_nan(max_nan(t00, t01), max_nan(t10, t11));
-      if (MM == kCombined) {
-        mn = min_nan(mn, stored[ch]);
-        mx = max_nan(mx, stored[ch]);
-      }
-      store(lo + ch * plane, c, mn);
-      store(hi + ch * plane, c, mx);
+      store(lo + ch * plane, c, min_nan(min_nan(t00, t01), min_nan(t10, t11)));
+      store(hi + ch * plane, c, max_nan(max_nan(t00, t01), max_nan(t10, t11)));
     }
   }
 
@@ -304,18 +306,14 @@ cudaError_t launch(const AdvectArgs& a) {
 }
 
 // The member, overlay and block modes; the overlay only without extrema,
-// block mode alone and without K5's combined extrema.
+// block mode alone.
 template <typename T, int C, int MM>
 cudaError_t dispatch_mode(const AdvectArgs& a) {
   const bool member = a.mh > 0;
   if (a.blk.halo > 0) {
-    if constexpr (MM != kCombined) {
-      if (member || a.overlay != nullptr || a.frame != nullptr)
-        return cudaErrorInvalidValue;
-      return launch<T, C, MM, false, false, true>(a);
-    } else {
+    if (member || a.overlay != nullptr || a.frame != nullptr)
       return cudaErrorInvalidValue;
-    }
+    return launch<T, C, MM, false, false, true>(a);
   }
   if (a.overlay != nullptr) {
     if constexpr (MM == kNone) {
@@ -336,8 +334,6 @@ cudaError_t dispatch_minmax(int minmax, const AdvectArgs& a) {
       return dispatch_mode<T, C, kNone>(a);
     case kRaw:
       return dispatch_mode<T, C, kRaw>(a);
-    case kCombined:
-      return dispatch_mode<T, C, kCombined>(a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -357,13 +353,14 @@ cudaError_t dispatch_channels(int C, int minmax, const AdvectArgs& a) {
   }
 }
 
-// K5 launch 2: phi_back = advect(phi_hat, -vel), then the limiter.  The
-// backtrace x - dt*(-v) is written x + v*dt: negation is exact, so the two
-// are bit-equal.
+// K5's two-launch route, launch 2: phi_back = advect(phi_hat, -vel), then
+// the limiter, with the raw tap extrema cmin, cmax of launch 1 (K2 with
+// kRaw) combined with phi_hat here.  The backtrace x - dt*(-v) is written
+// x + v*dt: negation is exact, so the two are bit-equal.
 template <typename T, int C, bool MEMBER>
 __global__ void maccormack_correct_kernel(
     const T* __restrict__ field, const T* __restrict__ phi_hat,
-    const T* __restrict__ lo, const T* __restrict__ hi,
+    const T* __restrict__ cmin, const T* __restrict__ cmax,
     const float* __restrict__ vel, T* __restrict__ out, int H, int W, int mh,
     int mw, float dt, float max_disp, int no_slip) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
@@ -385,64 +382,278 @@ __global__ void maccormack_correct_kernel(
         bilerp(s, load(f, base), load(f, base + 1), load(f, base + W),
                load(f, base + W + 1), no_slip));
     // phi_hat + 0.5 * (field - phi_back), rounded after each op
+    const float ph = load(phi_hat, k);
     const float diff = round_to<T>(load(field, k) - back);
     const float half = round_to<T>(0.5f * diff);
-    const float corr = round_to<T>(load(phi_hat, k) + half);
-    store(out, k, min_nan(max_nan(corr, load(lo, k)), load(hi, k)));
+    const float corr = round_to<T>(ph + half);
+    const float lo = min_nan(load(cmin, k), ph);
+    const float hi = max_nan(load(cmax, k), ph);
+    store(out, k, min_nan(max_nan(corr, lo), hi));
   }
 }
 
 template <typename T, int C, bool MEMBER>
 cudaError_t launch_correct(const void* field, const void* phi_hat,
-                           const void* lo, const void* hi, const void* vel,
-                           void* out, int H, int W, int mh, int mw, float dt,
-                           float max_disp, int no_slip, cudaStream_t stream) {
+                           const void* cmin, const void* cmax,
+                           const void* vel, void* out, int H, int W, int mh,
+                           int mw, float dt, float max_disp, int no_slip,
+                           cudaStream_t stream) {
   const dim3 block(32, 8);
   const dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
   maccormack_correct_kernel<T, C, MEMBER><<<grid, block, 0, stream>>>(
       static_cast<const T*>(field), static_cast<const T*>(phi_hat),
-      static_cast<const T*>(lo), static_cast<const T*>(hi),
+      static_cast<const T*>(cmin), static_cast<const T*>(cmax),
       static_cast<const float*>(vel), static_cast<T*>(out), H, W, mh, mw, dt,
       max_disp, no_slip);
   return cudaGetLastError();
 }
 
-template <typename T, int C>
-cudaError_t dispatch_correct_member(const void* field, const void* phi_hat,
-                                    const void* lo, const void* hi,
-                                    const void* vel, void* out, int H, int W,
-                                    int mh, int mw, float dt, float max_disp,
-                                    int no_slip, cudaStream_t stream) {
-  if (mh > 0)
-    return launch_correct<T, C, true>(field, phi_hat, lo, hi, vel, out, H, W,
-                                      mh, mw, dt, max_disp, no_slip, stream);
-  return launch_correct<T, C, false>(field, phi_hat, lo, hi, vel, out, H, W,
-                                     mh, mw, dt, max_disp, no_slip, stream);
+// K5's window route.  A block of 32 x 8 threads owns a tile of TH = 8 TY
+// rows and TW = 32 TX columns; thread (x, y) owns the cells (y + 8 b,
+// x + 32 a), so a warp's loads and stores of a row are contiguous.
+
+// The reach of a backtrace moved by d = v*dt cells along one axis, less the
+// tap beyond it: the CFL clamp bounds it by max_disp, and a NaN or inf
+// velocity clamps the source to x - max_disp, so anything that is not
+// <= max_disp counts as max_disp.
+__device__ __forceinline__ int reach_of(float d, float max_disp) {
+  const float a = fabsf(d);
+  return a <= max_disp ? (int)ceilf(a) : (int)max_disp;
 }
 
-template <typename T>
-cudaError_t dispatch_correct(int C, const void* field, const void* phi_hat,
-                             const void* lo, const void* hi, const void* vel,
-                             void* out, int H, int W, int mh, int mw,
-                             float dt, float max_disp, int no_slip,
-                             cudaStream_t stream) {
+// K2's forward pass at node (i, j) displaced by (d0, d1) = v*dt: phi_hat
+// of each channel, rounded to the field dtype, into dst (channel planes
+// wplane apart) and, with EXT, the four taps' extrema combined with it.
+template <typename T, int C, bool MEMBER, bool EXT>
+__device__ __forceinline__ void forward_cell(const T* __restrict__ field,
+                                             int i, int j, float d0, float d1,
+                                             int H, int W, int mh, int mw,
+                                             float max_disp, int no_slip,
+                                             T* dst, int wplane, float* lo,
+                                             float* hi) {
+  const Stencil s = stencil<MEMBER>(i, j, (float)i - d0, (float)j - d1, H,
+                                    W, max_disp, no_slip, mh, mw);
+  const long plane = (long)H * W;
+  const long base = (long)s.i0 * W + s.j0;
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) {
+    const T* f = field + ch * plane;
+    const float t00 = load(f, base);
+    const float t01 = load(f, base + 1);
+    const float t10 = load(f, base + W);
+    const float t11 = load(f, base + W + 1);
+    const float v = store(dst + ch * wplane, 0,
+                          bilerp(s, t00, t01, t10, t11, no_slip));
+    if constexpr (EXT) {
+      lo[ch] = min_nan(min_nan(min_nan(t00, t01), min_nan(t10, t11)), v);
+      hi[ch] = max_nan(max_nan(max_nan(t00, t01), max_nan(t10, t11)), v);
+    }
+  }
+}
+
+template <typename T, int C, bool MEMBER, int TX, int TY>
+__global__ void __launch_bounds__(256)
+    maccormack_tile_kernel(const T* __restrict__ field,
+                           const float* __restrict__ vel, T* __restrict__ out,
+                           int H, int W, int mh, int mw, float dt,
+                           float max_disp, int no_slip) {
+  constexpr int TH = 8 * TY, TW = 32 * TX;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int reach[2];
+  T* win = reinterpret_cast<T*>(smem);
+  // the window's layout, sized for the largest reach R: node (i, j) at
+  // win[ch * wplane + (i - wo_i) * pw + (j - wo_j)]
+  const int R = (int)max_disp + 1;
+  const int pw = TW + 2 * R;
+  const int wplane = (TH + 2 * R) * pw;
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  const int ti0 = blockIdx.y * TH, tj0 = blockIdx.x * TW;
+  const int ti1 = min(ti0 + TH, H), tj1 = min(tj0 + TW, W);
+  const int wo_i = ti0 - R, wo_j = tj0 - R;
+  const long plane = (long)H * W;
+  if (tid == 0) reach[0] = reach[1] = 0;
+
+  // own cells: displacements, phi_hat and the limiter's bounds
+  float d0[TY][TX], d1[TY][TX], lo[TY][TX][C], hi[TY][TX][C];
+  int ri = 0, rj = 0;
+#pragma unroll
+  for (int b = 0; b < TY; ++b)
+#pragma unroll
+    for (int a = 0; a < TX; ++a) {
+      const int i = ti0 + threadIdx.y + 8 * b;
+      const int j = tj0 + threadIdx.x + 32 * a;
+      d0[b][a] = d1[b][a] = 0.f;
+      if (i >= H || j >= W) continue;
+      const long c = (long)i * W + j;
+      d0[b][a] = vel[c] * dt;
+      d1[b][a] = vel[plane + c] * dt;
+      ri = max(ri, reach_of(d0[b][a], max_disp));
+      rj = max(rj, reach_of(d1[b][a], max_disp));
+      forward_cell<T, C, MEMBER, true>(
+          field, i, j, d0[b][a], d1[b][a], H, W, mh, mw, max_disp, no_slip,
+          win + (i - wo_i) * pw + (j - wo_j), wplane, lo[b][a], hi[b][a]);
+    }
+  ri = __reduce_max_sync(0xffffffffu, ri);
+  rj = __reduce_max_sync(0xffffffffu, rj);
+  __syncthreads();  // reach[] zeroed
+  if (threadIdx.x == 0) {
+    atomicMax(&reach[0], ri);
+    atomicMax(&reach[1], rj);
+  }
+  __syncthreads();
+
+  // the window: the tile +- the reach, clipped to the domain or to the
+  // member tiles that the tile touches
+  int lo_i = 0, hi_i = H, lo_j = 0, hi_j = W;
+  if constexpr (MEMBER) {
+    lo_i = (ti0 / mh) * mh;
+    hi_i = ((ti1 - 1) / mh) * mh + mh;
+    lo_j = (tj0 / mw) * mw;
+    hi_j = ((tj1 - 1) / mw) * mw + mw;
+  }
+  const int wi0 = max(ti0 - reach[0] - 1, lo_i);
+  const int wi1 = min(ti1 + reach[0] + 1, hi_i);
+  const int wj0 = max(tj0 - reach[1] - 1, lo_j);
+  const int wj1 = min(tj1 + reach[1] + 1, hi_j);
+  // phi_hat on the ring: the bands above and below the tile, then left
+  // and right of it
+  for (int q = 0; q < 4; ++q) {
+    const int a0 = q == 0 ? wi0 : q == 1 ? ti1 : ti0;
+    const int a1 = q == 0 ? ti0 : q == 1 ? wi1 : ti1;
+    const int b0 = q == 3 ? tj1 : wj0;
+    const int b1 = q == 2 ? tj0 : wj1;
+    const int bw = b1 - b0;
+    const int n = a1 > a0 && bw > 0 ? (a1 - a0) * bw : 0;
+    for (int k = tid; k < n; k += 256) {
+      const int i = a0 + k / bw;
+      const int j = b0 + k % bw;
+      const long c = (long)i * W + j;
+      forward_cell<T, C, MEMBER, false>(
+          field, i, j, vel[c] * dt, vel[plane + c] * dt, H, W, mh, mw,
+          max_disp, no_slip, win + (i - wo_i) * pw + (j - wo_j), wplane,
+          nullptr, nullptr);
+    }
+  }
+  __syncthreads();
+
+  // own cells: the backward pass from the window, and the limiter
+#pragma unroll
+  for (int b = 0; b < TY; ++b)
+#pragma unroll
+    for (int a = 0; a < TX; ++a) {
+      const int i = ti0 + threadIdx.y + 8 * b;
+      const int j = tj0 + threadIdx.x + 32 * a;
+      if (i >= H || j >= W) continue;
+      const long c = (long)i * W + j;
+      const Stencil s = stencil<MEMBER>(i, j, (float)i + d0[b][a],
+                                        (float)j + d1[b][a], H, W, max_disp,
+                                        no_slip, mh, mw);
+      const int tap = (s.i0 - wo_i) * pw + (s.j0 - wo_j);
+      const int own = (i - wo_i) * pw + (j - wo_j);
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) {
+        const T* w = win + ch * wplane;
+        const float back = round_to<T>(bilerp(s, load(w, tap),
+                                              load(w, tap + 1),
+                                              load(w, tap + pw),
+                                              load(w, tap + pw + 1),
+                                              no_slip));
+        const long k = ch * plane + c;
+        const float diff = round_to<T>(load(field, k) - back);
+        const float half = round_to<T>(0.5f * diff);
+        const float corr = round_to<T>(load(w, own) + half);
+        store(out, k, min_nan(max_nan(corr, lo[b][a][ch]), hi[b][a][ch]));
+      }
+    }
+}
+
+// The window route's shared memory for a tile_h x tile_w tile of C
+// channels of `elem` bytes at max_disp, or 0 where the route does not take
+// the tile or the window does not fit a block of the current device.
+int window_bytes(int C, int elem, int max_disp, int tile_h, int tile_w) {
+  if (C < 1 || C > 3 || max_disp < 0 || tile_h % 8 || tile_w % 32)
+    return 0;
+  const long R = (long)max_disp + 1;
+  const long bytes = C * (tile_h + 2 * R) * (tile_w + 2 * R) * elem;
+  int dev, limit;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return bytes + (long)sizeof(int[2]) <= limit ? (int)bytes : 0;
+}
+
+template <typename T, int C, bool MEMBER, int TX, int TY>
+cudaError_t launch_tile(const void* field, const void* vel, void* out, int H,
+                        int W, int mh, int mw, float dt, int max_disp,
+                        int no_slip, cudaStream_t stream) {
+  const int bytes =
+      window_bytes(C, (int)sizeof(T), max_disp, 8 * TY, 32 * TX);
+  if (bytes == 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      maccormack_tile_kernel<T, C, MEMBER, TX, TY>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((W + 32 * TX - 1) / (32 * TX), (H + 8 * TY - 1) / (8 * TY));
+  maccormack_tile_kernel<T, C, MEMBER, TX, TY>
+      <<<grid, dim3(32, 8), bytes, stream>>>(
+          static_cast<const T*>(field), static_cast<const float*>(vel),
+          static_cast<T*>(out), H, W, mh, mw, dt, (float)max_disp, no_slip);
+  return cudaGetLastError();
+}
+
+// The tiles the window route takes: (rows, columns) = (8 TY, 32 TX).
+template <typename T, int C, bool MEMBER>
+cudaError_t dispatch_tile(int tile_h, int tile_w, const void* field,
+                          const void* vel, void* out, int H, int W, int mh,
+                          int mw, float dt, int max_disp, int no_slip,
+                          cudaStream_t s) {
+#define FLUID_MC_TILE(TX, TY)                                                \
+  if (tile_h == 8 * (TY) && tile_w == 32 * (TX))                             \
+    return launch_tile<T, C, MEMBER, TX, TY>(field, vel, out, H, W, mh, mw, \
+                                             dt, max_disp, no_slip, s);
+  FLUID_MC_TILE(1, 2)
+  FLUID_MC_TILE(1, 4)
+  FLUID_MC_TILE(2, 4)
+  FLUID_MC_TILE(2, 8)
+#undef FLUID_MC_TILE
+  return cudaErrorInvalidValue;
+}
+
+// Dispatch on the channel count and the member flag; K is a functor
+// template over <T, C, MEMBER>.
+template <typename T, template <typename, int, bool> class K, typename... A>
+cudaError_t dispatch_cm(int C, int mh, A... args) {
   switch (C) {
     case 1:
-      return dispatch_correct_member<T, 1>(field, phi_hat, lo, hi, vel, out,
-                                           H, W, mh, mw, dt, max_disp,
-                                           no_slip, stream);
+      return mh > 0 ? K<T, 1, true>::run(args...)
+                    : K<T, 1, false>::run(args...);
     case 2:
-      return dispatch_correct_member<T, 2>(field, phi_hat, lo, hi, vel, out,
-                                           H, W, mh, mw, dt, max_disp,
-                                           no_slip, stream);
+      return mh > 0 ? K<T, 2, true>::run(args...)
+                    : K<T, 2, false>::run(args...);
     case 3:
-      return dispatch_correct_member<T, 3>(field, phi_hat, lo, hi, vel, out,
-                                           H, W, mh, mw, dt, max_disp,
-                                           no_slip, stream);
+      return mh > 0 ? K<T, 3, true>::run(args...)
+                    : K<T, 3, false>::run(args...);
     default:
       return cudaErrorInvalidValue;
   }
 }
+
+template <typename T, int C, bool MEMBER>
+struct Correct {
+  template <typename... A>
+  static cudaError_t run(A... args) {
+    return launch_correct<T, C, MEMBER>(args...);
+  }
+};
+
+template <typename T, int C, bool MEMBER>
+struct Tile {
+  template <typename... A>
+  static cudaError_t run(A... args) {
+    return dispatch_tile<T, C, MEMBER>(args...);
+  }
+};
 
 }  // namespace
 
@@ -472,13 +683,13 @@ extern "C" int fluid_advect(const void* field, const void* vel,
   return (int)dispatch_channels<float>(C, minmax, a);
 }
 
-// K5 launch 2.  field, phi_hat, lo, hi, out: [C, H, W] in the field dtype
-// (phi_hat, lo, hi from fluid_advect with minmax = 2); vel: [2, H, W]
-// float32, the forward velocity (the kernel backtraces through -vel); mh, mw
-// as for fluid_advect.
+// K5's two-launch route, launch 2.  field, phi_hat, cmin, cmax, out:
+// [C, H, W] in the field dtype (phi_hat, cmin, cmax from fluid_advect with
+// minmax = 1); vel: [2, H, W] float32, the forward velocity (the kernel
+// backtraces through -vel); mh, mw as for fluid_advect.
 extern "C" int fluid_maccormack_correct(const void* field,
-                                        const void* phi_hat, const void* lo,
-                                        const void* hi, const void* vel,
+                                        const void* phi_hat, const void* cmin,
+                                        const void* cmax, const void* vel,
                                         void* out, int C, int H, int W,
                                         int field_bf16, float dt,
                                         int max_disp, int mh, int mw,
@@ -486,9 +697,44 @@ extern "C" int fluid_maccormack_correct(const void* field,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float md = (float)max_disp;
   if (field_bf16)
-    return (int)dispatch_correct<__nv_bfloat16>(
-        C, field, phi_hat, lo, hi, vel, out, H, W, mh, mw, dt, md, no_slip,
-        s);
-  return (int)dispatch_correct<float>(C, field, phi_hat, lo, hi, vel, out, H,
-                                      W, mh, mw, dt, md, no_slip, s);
+    return (int)dispatch_cm<__nv_bfloat16, Correct>(
+        C, mh, field, phi_hat, cmin, cmax, vel, out, H, W, mh, mw, dt, md,
+        no_slip, s);
+  return (int)dispatch_cm<float, Correct>(C, mh, field, phi_hat, cmin, cmax,
+                                          vel, out, H, W, mh, mw, dt, md,
+                                          no_slip, s);
+}
+
+// K5's window route, one launch.  field, out: [C, H, W] float32
+// (field_bf16 = 0) or bfloat16 (= 1); vel: [2, H, W] float32; mh, mw as for
+// fluid_advect; tiles of tile_h x tile_w cells (16 x 32, 32 x 32, 32 x 64
+// or 64 x 64), whose window must fit (fluid_maccormack_window_bytes).
+extern "C" int fluid_maccormack(const void* field, const void* vel,
+                                void* out, int C, int H, int W,
+                                int field_bf16, float dt, int max_disp,
+                                int mh, int mw, int no_slip, int tile_h,
+                                int tile_w, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (field_bf16)
+    return (int)dispatch_cm<__nv_bfloat16, Tile>(
+        C, mh, tile_h, tile_w, field, vel, out, H, W, mh, mw, dt, max_disp,
+        no_slip, s);
+  return (int)dispatch_cm<float, Tile>(C, mh, tile_h, tile_w, field, vel,
+                                       out, H, W, mh, mw, dt, max_disp,
+                                       no_slip, s);
+}
+
+// The window route's shared-memory bytes for C channels (field_bf16 as
+// above) at max_disp on a tile_h x tile_w tile, or 0 if fluid_maccormack
+// refuses it on the current device: the wrapper then takes the two-launch
+// route.
+extern "C" int fluid_maccormack_window_bytes(int C, int field_bf16,
+                                             int max_disp, int tile_h,
+                                             int tile_w) {
+  const bool tile_ok = (tile_h == 16 && tile_w == 32) ||
+                       (tile_h == 32 && (tile_w == 32 || tile_w == 64)) ||
+                       (tile_h == 64 && tile_w == 64);
+  return tile_ok ? window_bytes(C, field_bf16 ? 2 : 4, max_disp, tile_h,
+                                tile_w)
+                 : 0;
 }

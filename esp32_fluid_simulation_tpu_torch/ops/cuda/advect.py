@@ -20,8 +20,14 @@ coordinate; the optional [0, 1] clip; the store in the field dtype; with
 K5 (both versions): ``phi_hat, cmin, cmax = K2(field, vel, return_minmax)``,
 ``phi_back = K2(phi_hat, -vel)``, then ``phi_hat + 0.5*(field - phi_back)``
 clamped to ``[min(cmin, phi_hat), max(cmax, phi_hat)]``, each op rounding
-to the field dtype.  The kernel takes two launches, ``maccormack_forward``
-and ``maccormack_backward``, each with its own launch counter.
+to the field dtype.  The kernel is one launch per call (the window route,
+``csrc/advect.cu`` ``maccormack_tile_kernel``): each block of
+``MACCORMACK_TILE`` cells computes ``phi_hat`` over its tile +- its reach
+(``maccormack_reach``) in shared memory and applies the backward pass and
+the limiter there.  Where the worst-case window (reach ``max_disp + 1``)
+does not fit a block's shared memory, the call takes the two-launch route
+(K2 with the raw extrema, then the backward pass and the limiter): a route
+chosen by shape, counted by ``advect_maccormack_kernel.two_launch_calls``.
 
 K6, the tiled-domain modes (``advect.py:112-165, 601-607``):
 
@@ -52,8 +58,9 @@ package) raise ``NotImplementedError``.  K5 refuses block mode with
 
 Each mode has its own launch counter beside ``launches``:
 ``advect_kernel.member_launches``, ``.overlay_launches`` and
-``.block_launches``, ``maccormack_forward.member_launches`` and
-``maccormack_backward.member_launches``.
+``.block_launches``; ``advect_maccormack_kernel.launches`` counts the
+window route's launches, ``.member_launches`` those with ``member=``, and
+``.two_launch_calls`` the calls of the two-launch route.
 """
 
 from __future__ import annotations
@@ -65,7 +72,11 @@ from ..advect import noslip_axis_factor
 from .build import load, stream_of
 from .modes import BLOCK_MODE, check_block, check_member, refuse_unported
 
-_NONE, _RAW, _COMBINED = 0, 1, 2   # enum MinMax in csrc/advect.cu
+_NONE, _RAW = 0, 1   # enum MinMax in csrc/advect.cu
+
+# K5's window route: (rows, columns) of a block's tile; csrc/advect.cu
+# takes 16 x 32, 32 x 32, 32 x 64 and 64 x 64.
+MACCORMACK_TILE = (32, 32)
 
 
 def _origin(n, m, device):
@@ -97,8 +108,10 @@ def advect_reference(field, vel, dt, no_slip, max_disp=12, clip01=False,
     v = vel.to(torch.float32)
     si_raw = fi - v[0] * dt
     sj_raw = fj - v[1] * dt
-    si = torch.minimum(torch.maximum(si_raw, fi - max_disp), fi + max_disp)
-    sj = torch.minimum(torch.maximum(sj_raw, fj - max_disp), fj + max_disp)
+    # fmax / fmin drop a NaN as the kernel's fmaxf / fminf do: a NaN
+    # velocity's source clamps to x - max_disp
+    si = torch.fmin(torch.fmax(si_raw, fi - max_disp), fi + max_disp)
+    sj = torch.fmin(torch.fmax(sj_raw, fj - max_disp), fj + max_disp)
     if member is None:
         si = torch.clamp(si, 0.0, gh - 1.0)
         sj = torch.clamp(sj, 0.0, gw - 1.0)
@@ -310,40 +323,54 @@ advect_kernel.overlay_launches = 0
 advect_kernel.block_launches = 0
 
 
-def maccormack_forward(f3, vel, dt, no_slip, max_disp=12, member=None):
-    """K5 launch 1: ``(phi_hat, lo, hi)`` with the bounds already combined
-    with ``phi_hat``, for a checked ``[C, H, W]`` CUDA field."""
-    out, _, lo, hi = _launch_advect(f3, vel, dt, no_slip, max_disp,
-                                    minmax=_COMBINED, member=member)
-    maccormack_forward.launches += 1
-    maccormack_forward.member_launches += member is not None
-    return out, lo, hi
+def maccormack_reach(vel, dt, max_disp):
+    """Plain version of the window route's reach over a tile's velocities
+    ``vel`` (``[2, h, w]``): per axis, ``min(ceil(max |v*dt|), max_disp) +
+    1``, a NaN or inf displacement counting as ``max_disp``.  The backward
+    taps of the tile's cells lie within it."""
+    d = torch.abs(vel.to(torch.float32) * dt)
+    r = torch.where(d <= max_disp, torch.ceil(d),
+                    torch.full_like(d, float(max_disp)))
+    return tuple(int(x) + 1 for x in r.amax(dim=(1, 2)))
 
 
-maccormack_forward.launches = 0
-maccormack_forward.member_launches = 0
+def maccormack_window_bytes(c, dtype, max_disp, tile=None):
+    """Shared memory of the window route for ``c`` channels of ``dtype`` at
+    ``max_disp`` on ``tile`` (default ``MACCORMACK_TILE``), or 0 where the
+    window does not fit a block of the current device."""
+    th, tw = tile or MACCORMACK_TILE
+    return load().value("fluid_maccormack_window_bytes", c,
+                        int(dtype == torch.bfloat16), int(max_disp), th, tw)
 
 
-def maccormack_backward(f3, phi_hat, lo, hi, vel, dt, no_slip, max_disp=12,
-                        member=None):
-    """K5 launch 2: the backward pass through ``-vel`` and the limiter."""
+def _launch_maccormack(f3, vel, dt, no_slip, max_disp, member):
+    """The window route: one launch."""
     c, h, w = f3.shape
     mh, mw = member or (0, 0)
     out = torch.empty_like(f3)
-    lib = load()
     with torch.cuda.device(f3.device):
-        lib.call("fluid_maccormack_correct", f3.data_ptr(),
-                 phi_hat.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-                 vel.data_ptr(), out.data_ptr(), c, h, w,
-                 int(f3.dtype == torch.bfloat16), float(dt), int(max_disp),
-                 mh, mw, int(no_slip), stream_of(f3))
-    maccormack_backward.launches += 1
-    maccormack_backward.member_launches += member is not None
+        load().call("fluid_maccormack", f3.data_ptr(), vel.data_ptr(),
+                    out.data_ptr(), c, h, w, int(f3.dtype == torch.bfloat16),
+                    float(dt), int(max_disp), mh, mw, int(no_slip),
+                    *MACCORMACK_TILE, stream_of(f3))
     return out
 
 
-maccormack_backward.launches = 0
-maccormack_backward.member_launches = 0
+def _launch_two(f3, vel, dt, no_slip, max_disp, member):
+    """The two-launch route: K2 with the raw extrema, then the backward
+    pass and the limiter."""
+    c, h, w = f3.shape
+    mh, mw = member or (0, 0)
+    phi_hat, _, cmin, cmax = _launch_advect(f3, vel, dt, no_slip, max_disp,
+                                            minmax=_RAW, member=member)
+    out = torch.empty_like(f3)
+    with torch.cuda.device(f3.device):
+        load().call("fluid_maccormack_correct", f3.data_ptr(),
+                    phi_hat.data_ptr(), cmin.data_ptr(), cmax.data_ptr(),
+                    vel.data_ptr(), out.data_ptr(), c, h, w,
+                    int(f3.dtype == torch.bfloat16), float(dt),
+                    int(max_disp), mh, mw, int(no_slip), stream_of(f3))
+    return out
 
 
 def advect_maccormack_kernel(field: torch.Tensor, vel: torch.Tensor,
@@ -367,8 +394,16 @@ def advect_maccormack_kernel(field: torch.Tensor, vel: torch.Tensor,
         return advect_maccormack_reference(field, vel, dt, no_slip,
                                            max_disp=max_disp, member=member)
     f3 = _checked_3d("advect_maccormack_kernel", field, vel, max_disp)
-    phi_hat, lo, hi = maccormack_forward(f3, vel, dt, no_slip, max_disp,
-                                         member)
-    out = maccormack_backward(f3, phi_hat, lo, hi, vel, dt, no_slip,
-                              max_disp, member)
+    if maccormack_window_bytes(f3.shape[0], f3.dtype, max_disp):
+        out = _launch_maccormack(f3, vel, dt, no_slip, max_disp, member)
+        advect_maccormack_kernel.launches += 1
+        advect_maccormack_kernel.member_launches += member is not None
+    else:
+        out = _launch_two(f3, vel, dt, no_slip, max_disp, member)
+        advect_maccormack_kernel.two_launch_calls += 1
     return out[0] if field.dim() == 2 else out
+
+
+advect_maccormack_kernel.launches = 0
+advect_maccormack_kernel.member_launches = 0
+advect_maccormack_kernel.two_launch_calls = 0

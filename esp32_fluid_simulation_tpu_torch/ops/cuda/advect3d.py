@@ -30,6 +30,15 @@ the taps are read from the haloed field, so the owned result equals the
 whole grid's to the bit.  The TPU kernel's ``halo <= pr`` limit (its
 aligned sublane halo) is dropped.  ``advect3d_kernel.block_launches``
 counts these launches.
+
+Self-advect: ``vel=None`` means the field is the velocity.  On the whole
+grid that is ``vel = field``; in block mode the backtrace reads the
+velocity from the haloed field's owned interior (``field[:, :, halo:-halo,
+halo:-halo]``), so a shard's owned velocity is read once, not a second time
+as its own array (``csrc/advect3d.cu``, the ``SELF`` flag).
+
+``ADVECT3D_RUN`` is the cells a thread owns along W (1, 2 or 4; the source
+says what a run does).
 """
 
 from __future__ import annotations
@@ -40,6 +49,9 @@ from ..advect import noslip_axis_factor
 from .build import load, stream_of
 from .modes import check_block3d
 
+# cells a thread of csrc/advect3d.cu owns along W: 1, 2 or 4
+ADVECT3D_RUN = 1
+
 
 def _clamped_source(x, raw, max_disp, n):
     s = torch.minimum(torch.maximum(raw, x - max_disp), x + max_disp)
@@ -49,9 +61,14 @@ def _clamped_source(x, raw, max_disp, n):
 def advect3d_reference(field, vel, dt, no_slip, max_disp=4, block=None):
     """Plain PyTorch version of the kernel (same arithmetic, same order);
     ``block`` (a ``modes.Block``) is block mode: ``field`` haloed on the
-    trailing two axes, ``vel`` and the result the owned block."""
+    trailing two axes, ``vel`` and the result the owned block.  ``vel=None``
+    is the self-advect: the velocity is ``field`` (its owned interior in
+    block mode)."""
     squeeze = field.dim() == 3
     f = (field[None] if squeeze else field).to(torch.float32)
+    if vel is None:
+        g = 0 if block is None else block.halo
+        vel = field[:, :, g:field.shape[-2] - g, g:field.shape[-1] - g]
     d, h, w = vel.shape[-3:]
     dev = field.device
     # the owned cells' global origin, the domain, and the shift from a
@@ -96,10 +113,11 @@ def advect3d_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
                     global_shape=None, halo: int = 0):
     """Advect ``field`` (``[C, D, H, W]`` or ``[D, H, W]``, float32 or
     bfloat16, C <= 4) through ``vel`` (``[3, D, H, W]``, float32 or
-    bfloat16) into a fresh tensor.  ``field`` may be ``vel`` itself (the
-    velocity self-advect).  ``global_offset``, ``global_shape`` and
-    ``halo`` are block mode (module docstring): ``field`` haloed, ``vel``
-    and the result the owned block."""
+    bfloat16) into a fresh tensor.  ``field`` may be ``vel`` itself, or
+    ``vel`` None (the velocity self-advect; in block mode it reads the
+    velocity from the haloed field).  ``global_offset``, ``global_shape``
+    and ``halo`` are block mode (module docstring): ``field`` haloed,
+    ``vel`` and the result the owned block."""
     f4 = field[None] if field.dim() == 3 else field
     if f4.dim() != 4:
         raise ValueError(f"advect3d_kernel: field shape "
@@ -109,7 +127,14 @@ def advect3d_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
     c, d, h, w = f4.shape
     if blk is not None:
         h, w = blk.bh, blk.bw
-    if tuple(vel.shape) != (3, d, h, w):
+    if vel is None:
+        if c != 3:
+            raise ValueError(f"advect3d_kernel: vel=None (self-advect) needs "
+                             f"the [3, D, H, W] velocity as field, got "
+                             f"{tuple(field.shape)}")
+        if blk is None:
+            vel = field
+    elif tuple(vel.shape) != (3, d, h, w):
         raise ValueError(f"advect3d_kernel: vel must be [3, {d}, {h}, {w}]"
                          + (" (the owned block)" if blk is not None else ""))
     if field.device.type == "cpu":
@@ -123,14 +148,16 @@ def advect3d_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
         raise ValueError(f"advect3d_kernel: field shape "
                          f"{tuple(field.shape)} not supported (C <= 4, "
                          "2 <= D <= 65535, 2 <= H <= 524280, W >= 2)")
-    for name, t in (("field", f4), ("vel", vel)):
+    # the self-advect in block mode reads the velocity from the field
+    v = f4 if vel is None else vel
+    for name, t in (("field", f4), ("vel", v)):
         if t.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"advect3d_kernel: {name} dtype {t.dtype} not "
                              "supported (float32, bfloat16)")
-    if vel.device != field.device:
+    if v.device != field.device:
         raise ValueError("advect3d_kernel: field and vel on different "
                          "devices")
-    if not (f4.is_contiguous() and vel.is_contiguous()):
+    if not (f4.is_contiguous() and v.is_contiguous()):
         raise ValueError("advect3d_kernel: inputs must be contiguous")
     if not 0 <= max_disp < 2 ** 24:
         raise ValueError(f"advect3d_kernel: max_disp={max_disp} out of "
@@ -141,11 +168,12 @@ def advect3d_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
     out = f4.new_empty((c, d, h, w))
     lib = load()
     with torch.cuda.device(field.device):
-        lib.call("fluid_advect3d", f4.data_ptr(), vel.data_ptr(),
-                 out.data_ptr(), c, d, h, w,
-                 int(f4.dtype == torch.bfloat16),
-                 int(vel.dtype == torch.bfloat16), float(dt), int(max_disp),
-                 int(no_slip), ox, oy, g, gh, gw, stream_of(field))
+        lib.call("fluid_advect3d", f4.data_ptr(),
+                 None if vel is None else vel.data_ptr(), out.data_ptr(), c,
+                 d, h, w, int(f4.dtype == torch.bfloat16),
+                 int(v.dtype == torch.bfloat16), float(dt), int(max_disp),
+                 int(no_slip), ox, oy, g, gh, gw, ADVECT3D_RUN,
+                 stream_of(field))
     advect3d_kernel.launches += 1
     advect3d_kernel.block_launches += blk is not None
     return out[0] if field.dim() == 3 else out

@@ -47,10 +47,17 @@ _SIGNATURES = {
     # minmax, stream
     "fluid_advect": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # field, phi_hat, lo, hi, vel, out, C, H, W, field_bf16, dt, max_disp,
-    # mh, mw, no_slip, stream
+    # field, phi_hat, cmin, cmax, vel, out, C, H, W, field_bf16, dt,
+    # max_disp, mh, mw, no_slip, stream
     "fluid_maccormack_correct": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                  _I, _I, _I, _I, _P),
+    # field, vel, out, C, H, W, field_bf16, dt, max_disp, mh, mw, no_slip,
+    # tile_h, tile_w, stream
+    "fluid_maccormack": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
+                         _I, _P),
+    # C, field_bf16, max_disp, tile_h, tile_w -> shared-memory bytes (0:
+    # refused)
+    "fluid_maccormack_window_bytes": (_I, _I, _I, _I, _I),
     # vel, vel_out, p, dxd, ipos, ivel, iact, n_imp, H, W, mh, mw, oi, oj,
     # GH, GW, halo, p_out, dx, inv2dx, iters, omega, one_m_w, stream
     "fluid_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -64,9 +71,9 @@ _SIGNATURES = {
     # color, out, H, W, color_bf16, s, bswap, unit_range, stream
     "fluid_render_rgb565": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     # field, vel, out, C, D, H, W, field_bf16, vel_bf16, dt, max_disp,
-    # no_slip, ox, oy, halo, GH, GW, stream
+    # no_slip, ox, oy, halo, GH, GW, run, stream
     "fluid_advect3d": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
-                       _I, _I, _I, _I, _P),
+                       _I, _I, _I, _I, _I, _P),
     # vel, out, D, H, W, inv2dx, stream
     "fluid_divergence3d": (_P, _P, _I, _I, _I, _F, _P),
     # vel, p, out, D, H, W, inv2dx, stream

@@ -119,8 +119,11 @@ class Stencils3D:
         return sh.map(one, fpad, vel)
 
     def advect_kernel(self, fpad, vel, dt, max_disp, no_slip):
-        """K7 in block mode on every shard."""
+        """K7 in block mode on every shard; ``vel`` None is the velocity
+        self-advect, which reads the velocity from ``fpad``'s owned
+        cells."""
         sh = self.sh
+        vel = [[None] * sh.ny for _ in range(sh.nx)] if vel is None else vel
         return sh.map(lambda a, b, f, v: advect3d_kernel(
             f, v, dt, no_slip, max_disp=max_disp,
             global_offset=sh.origin(a, b), global_shape=sh.shape,
@@ -412,7 +415,9 @@ def make_sharded_step_3d(cfg: SimConfig, mesh: Mesh,
     def advect_local(field, vel, no_slip, sign=1.0, return_minmax=False):
         fpad = _exchange2(field, k)
         if use_kernel_advect:
-            return ops.advect_kernel(fpad, vel, dt, max_disp, no_slip)
+            # the velocity self-advect reads its velocity from fpad
+            return ops.advect_kernel(fpad, None if vel is field else vel, dt,
+                                     max_disp, no_slip)
         return ops.advect_eager(fpad, vel, dt, max_disp, no_slip, sign,
                                 return_minmax)
 

@@ -11,9 +11,13 @@ pressure exchange per SOR half-sweep, the hybrid sharded multigrid and
 vorticity confinement.  The plume source is the global mask sliced at
 each shard's origin.
 
-Kernel routes, as in JAX: ``advect_impl="pallas"`` advects through K7 in
-block mode, three launches per shard per step (velocity, density,
-temperature, ``sharded_smoke.py:66-73, 339-341``); ``solver="sor"`` with
+Kernel routes: ``advect_impl="pallas"`` advects through K7 in block
+mode, two launches per shard per step: the velocity self-advect, which
+reads the velocity from its own haloed block, and density + temperature
+stacked into one 2-channel block with one exchange, as the single-device
+step stacks them (JAX makes three exchanges and launches,
+``sharded_smoke.py:66-73, 339-341``; each cell's arithmetic is the same,
+so the result is too); ``solver="sor"`` with
 ``sor_impl="pallas"`` solves through the K9 block chain, one
 ``2*sor_chunk``-wide exchange per chunk (``:151-173``).  ``"auto"`` takes
 the eager routes, as the 2D sharded step does.  On the kernel routes a
@@ -97,15 +101,25 @@ def make_sharded_smoke_step(cfg: SmokeConfig, mesh: Mesh,
         return sources[dev][:, ox:ox + sh.lh, oy:oy + sh.lw]
 
     def advect(field, vel, no_slip):
+        """``vel`` None: ``field`` is the velocity and advects itself."""
         fpad = _exchange2(field, k)
         if use_kernel_advect:
             return ops.advect_kernel(fpad, vel, dt, max_disp, no_slip)
-        return ops.advect_eager(fpad, vel, dt, max_disp, no_slip)
+        return ops.advect_eager(fpad, field if vel is None else vel, dt,
+                                max_disp, no_slip)
 
     def step(state: SmokeState) -> SmokeState:
-        vel = advect(state.velocity, state.velocity, no_slip=True)
-        rho = advect(state.density, vel, no_slip=False)
-        temp = advect(state.temperature, vel, no_slip=False)
+        vel = advect(state.velocity, None, no_slip=True)
+        if use_kernel_advect:
+            # rho + temp share one backtrace: one exchange and one
+            # 2-channel launch per shard
+            pair = sh.map(lambda a, b, r, t: torch.stack([r, t]),
+                          state.density, state.temperature)
+            rho, temp = unzip(sh.map(lambda a, b, x: (x[0], x[1]),
+                                     advect(pair, vel, no_slip=False)), 2)
+        else:
+            rho = advect(state.density, vel, no_slip=False)
+            temp = advect(state.temperature, vel, no_slip=False)
         out = sh.map(lambda a, b, v, r, t: inject_and_buoy(
             v, r, t, source(a, b), cfg), vel, rho, temp)
         vel, rho, temp = unzip(out, 3)

@@ -24,7 +24,8 @@ from esp32_fluid_simulation_tpu_torch.models.stable_fluids import (
     impulse_overlay)
 from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
     advect_kernel, advect_maccormack_kernel, advect_maccormack_reference,
-    advect_reference, maccormack_backward, maccormack_forward)
+    advect_reference, maccormack_window_bytes)
+from esp32_fluid_simulation_tpu_torch.ops.cuda import advect3d as advect3d_mod
 from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
     project_fused, project_fused_reference)
 from esp32_fluid_simulation_tpu_torch.ops.cuda.advect3d import (
@@ -112,13 +113,66 @@ def test_maccormack_kernel_bit_equal(cuda, rng, dtype, channels, no_slip):
     field = vel if channels == 2 else _on(
         rng.random((channels,) + SHAPE, dtype=np.float32) * 2 - 0.5,
         cuda).to(dtype)
-    before = (maccormack_forward.launches, maccormack_backward.launches)
+    before = advect_maccormack_kernel.launches
     got = advect_maccormack_kernel(field, vel, 1 / 30, no_slip)
-    assert (maccormack_forward.launches, maccormack_backward.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert advect_maccormack_kernel.launches == before + 1
     want = advect_maccormack_reference(field, vel, 1 / 30, no_slip)
     assert got.dtype == field.dtype
     assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("velocity", ["full_reach", "nan", "zero"])
+@pytest.mark.parametrize("tile", [(16, 32), (32, 32), (32, 64), (64, 64)])
+def test_maccormack_window_reach_bit_equal(cuda, rng, monkeypatch, velocity,
+                                           tile):
+    """K5's window route on every tile it takes: the CFL clamp binding
+    everywhere (the reach is max_disp + 1), a NaN and an inf velocity cell
+    (they count as max_disp), and a velocity at rest (reach 1)."""
+    from esp32_fluid_simulation_tpu_torch.ops.cuda import advect
+    monkeypatch.setattr(advect, "MACCORMACK_TILE", tile)
+    scale = {"full_reach": 2000.0, "nan": 30.0, "zero": 0.0}[velocity]
+    vel = (scale * rng.standard_normal((2,) + SHAPE)).astype(np.float32)
+    if velocity == "nan":
+        vel[0, 30, 40] = np.nan
+        vel[1, 7, 3] = np.inf
+    vel = _on(vel, cuda)
+    for field, no_slip in (
+            (_on(rng.random((2,) + SHAPE, dtype=np.float32), cuda), True),
+            (_on(rng.random((3,) + SHAPE, dtype=np.float32),
+                 cuda).to(torch.bfloat16), False)):
+        before = advect_maccormack_kernel.launches
+        got = advect_maccormack_kernel(field, vel, 1 / 30, no_slip)
+        assert advect_maccormack_kernel.launches == before + 1
+        want = advect_maccormack_reference(field, vel, 1 / 30, no_slip)
+        assert not torch.isnan(want).any()
+        assert torch.equal(_bits(got), _bits(want))
+
+
+def test_maccormack_two_launch_route_bit_equal(cuda, rng):
+    """A max_disp whose worst-case window does not fit a block takes the
+    two-launch route, counted on its own, bit-equal too (with and without
+    members)."""
+    md = 120
+    assert maccormack_window_bytes(2, torch.float32, md) == 0
+    assert maccormack_window_bytes(3, torch.bfloat16, 12) > 0
+    vel = _on((3000 * rng.standard_normal((2,) + SHAPE)).astype(np.float32),
+              cuda)
+    dye = _on(rng.random((3,) + SHAPE, dtype=np.float32),
+              cuda).to(torch.bfloat16)
+    before = (advect_maccormack_kernel.launches,
+              advect_maccormack_kernel.two_launch_calls)
+    for field, no_slip in ((vel, True), (dye, False)):
+        got = advect_maccormack_kernel(field, vel, 1 / 30, no_slip, md)
+        want = advect_maccormack_reference(field, vel, 1 / 30, no_slip, md)
+        assert torch.equal(_bits(got), _bits(want))
+    shape, member = TILINGS["odd"]
+    v = vel[:, :shape[0], :shape[1]].contiguous()
+    got = advect_maccormack_kernel(v, v, 1 / 30, True, md, member=member)
+    assert torch.equal(got, advect_maccormack_reference(
+        v, v, 1 / 30, True, md, member=member))
+    assert (advect_maccormack_kernel.launches,
+            advect_maccormack_kernel.two_launch_calls) == (before[0],
+                                                           before[1] + 3)
 
 
 @pytest.mark.parametrize("iters", [0, 1, 10])
@@ -253,6 +307,46 @@ def test_advect3d_kernel_bit_equal(cuda, rng, vel_dtype):
     want = advect3d_reference(pair, vel, 1 / 30, False, max_disp=2)
     assert torch.equal(_bits(got), _bits(want))
     assert advect3d_kernel.launches == before + 3
+
+
+@pytest.mark.parametrize("run", [1, 2, 4])
+def test_advect3d_runs_bit_equal(cuda, rng, monkeypatch, run):
+    """Every run length of K7 (cells a thread owns along W), on rows that
+    take vector accesses (W = 128) and rows that do not (W = 130, and the
+    self-advect's odd halo), in every mode."""
+    monkeypatch.setattr(advect3d_mod, "ADVECT3D_RUN", run)
+    for shape in ((5, 12, 128), SHAPE3):
+        vel = _on((40 * rng.standard_normal((3,) + shape)).astype(
+            np.float32), cuda)
+        pair = _on(rng.random((2,) + shape, dtype=np.float32),
+                   cuda).to(torch.bfloat16)
+        for field, v, no_slip in ((vel, vel, True), (pair, vel, False),
+                                  (vel.to(torch.bfloat16),
+                                   vel.to(torch.bfloat16), True)):
+            assert torch.equal(_bits(advect3d_kernel(field, v, 1 / 30,
+                                                     no_slip, max_disp=2)),
+                               _bits(advect3d_reference(field, v, 1 / 30,
+                                                        no_slip, 2)))
+        gshape = shape[1:]
+        off, bshape = (0, 0), (shape[1] // 2, shape[2] // 2)
+        for k in (3, 4):
+            blk = _block3(off, k, gshape, bshape)
+            vpad = _block_of(vel, off, bshape, k)
+            vown = _block_of(vel, off, bshape, 0)
+            for field, v, no_slip in ((vpad, None, True),
+                                      (vpad, vown, True),
+                                      (_block_of(pair, off, bshape, k), vown,
+                                       False)):
+                got = advect3d_kernel(field, v, 1 / 30, no_slip, max_disp=2,
+                                      global_offset=off,
+                                      global_shape=shape, halo=k)
+                assert torch.equal(_bits(got), _bits(advect3d_reference(
+                    field, v, 1 / 30, no_slip, 2, blk)))
+
+
+def _block3(off, g, gshape, bshape):
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.modes import Block
+    return Block(off[0], off[1], *gshape, g, *bshape)
 
 
 def test_fd3d_kernels_bit_equal(cuda, rng):
@@ -412,16 +506,13 @@ def test_maccormack_member_kernel_bit_equal(cuda, rng, dtype, channels,
               cuda)
     field = vel if channels == 2 else _on(
         rng.random((channels,) + shape, dtype=np.float32), cuda).to(dtype)
-    before = (maccormack_forward.member_launches,
-              maccormack_backward.member_launches)
+    before = advect_maccormack_kernel.member_launches
     got = advect_maccormack_kernel(field, vel, 1 / 30, no_slip,
                                    member=member)
     want = advect_maccormack_reference(field, vel, 1 / 30, no_slip,
                                        member=member)
     assert torch.equal(_bits(got), _bits(want))
-    assert (maccormack_forward.member_launches,
-            maccormack_backward.member_launches) == (before[0] + 1,
-                                                     before[1] + 1)
+    assert advect_maccormack_kernel.member_launches == before + 1
 
 
 def test_tiled_ensemble_step_kernel_route(cuda, rng):
@@ -586,6 +677,17 @@ def test_block_kernels3d_bit_equal(cuda, rng, off):
             fpad, vown, 1 / 30, no_slip, md, _blk(off, k))))
         whole = advect3d_kernel(field, vel, 1 / 30, no_slip, max_disp=md)
         assert torch.equal(_bits(got), _bits(_block_of(whole, off, BLOCK, 0)))
+    # the self-advect reads the velocity from the haloed field
+    vpad = _block_of(vel, off, BLOCK, k)
+    got = advect3d_kernel(vpad, None, 1 / 30, True, max_disp=md,
+                          global_offset=off, global_shape=BLOCK3_GLOBAL,
+                          halo=k)
+    assert torch.equal(got, advect3d_reference(vpad, None, 1 / 30, True, md,
+                                               _blk(off, k)))
+    assert torch.equal(got, advect3d_kernel(vpad, vown, 1 / 30, True,
+                                            max_disp=md, global_offset=off,
+                                            global_shape=BLOCK3_GLOBAL,
+                                            halo=k))
     d = _on(rng.standard_normal(BLOCK3_GLOBAL).astype(np.float32), cuda)
     dpad = _block_of(d, off, BLOCK, g)
     origin = (0, off[0] - g, off[1] - g)
@@ -599,13 +701,14 @@ def test_block_kernels3d_bit_equal(cuda, rng, off):
         assert torch.equal(got[:, g:g + BLOCK[0], g:g + BLOCK[1]], _block_of(
             sor3d_solve(d, 0.7, total, 1.5), off, BLOCK, 0))
     assert (advect3d_kernel.block_launches, sor3d_chunk.launches) == (
-        before[0] + 2, before[1] + 2)
+        before[0] + 4, before[1] + 2)
 
 
 def test_sharded_smoke_kernel_step_on_one_card(cuda):
     """The sharded plume on a 2x2 mesh of one card equals the single-device
-    kernel step bit for bit, with K7 in block mode three times and the K9
-    block chunk ceil(iters/chunk) times per shard and step."""
+    kernel step bit for bit, with K7 in block mode twice (the velocity
+    self-advect and the stacked scalars) and the K9 block chunk
+    ceil(iters/chunk) times per shard and step."""
     from esp32_fluid_simulation_tpu_torch import (SmokeConfig, init_smoke,
                                                   make_smoke_step)
     from esp32_fluid_simulation_tpu_torch.parallel import (
@@ -625,7 +728,7 @@ def test_sharded_smoke_kernel_step_on_one_card(cuda):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
     chunks = -(-cfg.sor_iters // cfg.sor_chunk)
     assert (advect3d_kernel.block_launches, sor3d_chunk.launches) == (
-        before[0] + 3 * 4 * 3, before[1] + 4 * chunks * 3)
+        before[0] + 2 * 4 * 3, before[1] + 4 * chunks * 3)
 
 
 @pytest.mark.parametrize("solver", ["fused_pallas", "sor_pallas"])

@@ -135,6 +135,30 @@ def test_advect3d_block_bf16_pair_matches_pallas(rng, where):
     assert torch.equal(got, _owned(whole, off))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("where", list(OFFSETS))
+def test_advect3d_block_self_advect_matches_pallas(rng, where, dtype):
+    """The self-advect (``vel=None``: the velocity read from the haloed
+    field's owned cells) equals the call with the owned velocity to the
+    bit, and follows the TPU kernel's block mode on the owned cells."""
+    off = OFFSETS[where]
+    vel = jnp.asarray(_smooth_vel(rng, GLOBAL, 45.0)).astype(dtype)
+    vel = np.asarray(vel)
+    g = MD + 1
+    vpad = _haloed(vel, off, g)
+    kw = dict(max_disp=MD, global_offset=off, global_shape=GLOBAL, halo=g)
+    got = advect3d_kernel(_t(vpad), None, DT, True, **kw)
+    own = advect3d_kernel(_t(vpad), _t(np.ascontiguousarray(
+        _owned(vel, off))), DT, True, **kw)
+    assert got.dtype == own.dtype and got.shape == (3, 12) + BLOCK
+    assert torch.equal(got, own)
+    _, want = _advect_both(vel, vel, True, off)
+    tol = (dict(rtol=1e-4, atol=5e-5) if dtype == "float32" else
+           dict(rtol=2 ** -7, atol=1e-6))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)), **tol)
+
+
 @pytest.mark.parametrize("where,p0", [("corner", "zero"), ("far", "zero"),
                                       ("corner", "given"),
                                       ("interior", "given")])

@@ -18,14 +18,17 @@ Tolerances, each with its reason (test_sharded_smoke.py):
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import jax
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from esp32_fluid_simulation_tpu.models.smoke3d import (
     SmokeConfig as JSmokeConfig)
+from esp32_fluid_simulation_tpu.ops.pallas import advect3d as jadvect3d
 from esp32_fluid_simulation_tpu.parallel import make_mesh as jmake_mesh
 from esp32_fluid_simulation_tpu.parallel.sharded_smoke import (
     make_sharded_smoke_step as jmake_sharded_smoke_step,
@@ -80,6 +83,36 @@ def _close(got, want, tol):
                                    getattr(want, name).float().numpy(), **t)
 
 
+def test_sharded_smoke_kernel_route_follows_jax_sharded_step(mesh,
+                                                            monkeypatch):
+    """The kernel advection route (the port's K7 block: the velocity
+    self-advect and the stacked density + temperature, two launches per
+    shard; JAX's three, its Pallas kernel in interpret mode) through both
+    packages' sharded steps, 3 steps of float32 scalars at ``max_disp=4``,
+    at the float32 tolerances (interpret mode contracts the backtrace into
+    an FMA, test_torch_kernels3d_block_ref.py)."""
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    # small tiles keep the interpret-mode trace short (a few seconds)
+    monkeypatch.setattr(jadvect3d, "advect3d_pallas", functools.partial(
+        jadvect3d.advect3d_pallas, tile_d=1, tile_h=8))
+    kw = dict(SOR16, sor_iters=6, advect_impl="pallas", advect_max_disp=4,
+              **F32)
+    cfg, jcfg = SmokeConfig(**kw), JSmokeConfig(**kw)
+    st = _single(dataclasses.replace(cfg, advect_impl="jnp"), 4)
+    jmesh = jmake_mesh(jax.devices()[:8], grid_shape=(2, 4))
+    jst = jax.device_put(JSmokeState(*smoke_state_to_numpy(st)),
+                         jsharding(jcfg, jmesh))
+    jfn = jmake_sharded_smoke_step(jcfg, jmesh, max_disp=4, donate=False)
+    fn = make_sharded_smoke_step(cfg, mesh)
+    sh = shard_smoke_state(st, cfg, mesh)
+    for _ in range(3):
+        jst, sh = jfn(jst), fn(sh)
+    want = smoke_state_from_numpy(*(np.asarray(x) for x in jst),
+                                  device="cpu")
+    _close(unshard_smoke_state(sh, "cpu"), want, F32_TOL)
+
+
 @pytest.mark.parametrize("kw,steps,tol", [
     (dict(SOR16, sor_iters=6, **F32), 8, F32_TOL),
     (dict(SOR16, sor_iters=6), 8, BF16_TOL),
@@ -101,8 +134,9 @@ def test_sharded_smoke_matches_single_device(mesh, kw, steps, tol):
 @pytest.mark.parametrize("scalar_dtype", ["float32", "bfloat16"])
 def test_sharded_smoke_kernel_routes_match_single_device(
         mesh, monkeypatch, scalar_dtype):
-    """``advect_impl="pallas"`` (K7 block, three launches per shard per
-    step) and ``sor_impl="pallas"`` with ``sor_chunk=2`` (the K9 block
+    """``advect_impl="pallas"`` (K7 block, two launches per shard per
+    step: the velocity self-advect and the stacked density + temperature)
+    and ``sor_impl="pallas"`` with ``sor_chunk=2`` (the K9 block
     chain, ceil(5/2) chunks per shard per step): bit-equal to the
     single-device kernel step; with float32 scalars within the float32
     tolerances of the eager single-device step."""
@@ -122,7 +156,7 @@ def test_sharded_smoke_kernel_routes_match_single_device(
     kcfg = SmokeConfig(advect_impl="pallas", sor_impl="pallas", sor_chunk=2,
                        **kw)
     got = _sharded(kcfg, mesh, 4)
-    assert calls == {"advect": 3 * 8 * 4, "chunk": 8 * 3 * 4}
+    assert calls == {"advect": 2 * 8 * 4, "chunk": 8 * 3 * 4}
     want = _single(kcfg, 4)
     for name in ("velocity", "density", "temperature"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
