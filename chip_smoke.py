@@ -122,8 +122,9 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    its plain version; K1's and K4's device launches per call on both
    routes, K5's per call, and K9's per pass (a profiler count: 1 on the
    window routes in every mode, K5's included, 1 per pass for K9 and
-   ``sor3d_chunk``), K5 at four tile sizes and K7 at three run lengths
-   (each checked against its plain version), K1's and K4's
+   ``sor3d_chunk``), K5's two-launch route beside its window route and
+   the window route at three tile sizes (each checked against its plain
+   version), K1's and K4's
    sequence routes at iters 10 beside their window routes, K1's window
    route at five tile sizes, and K9 and the sharded chain's chunk at
    other pass depths and tiles (each checked against its plain version);
@@ -1707,7 +1708,7 @@ def phase5_k4_k5_timing(dev, card, paths):
     # the window route's tile sweep (each checked bit-equal)
     default = advect.MACCORMACK_TILE
     try:
-        for tile in ((16, 32), (32, 32), (32, 64), (64, 64)):
+        for tile in ((16, 64), (32, 32), (32, 64)):
             advect.MACCORMACK_TILE = tile
             for name, field, no_slip in calls:
                 compare(f"phase 5 {name} tile {tile[0]}x{tile[1]}",
@@ -1935,10 +1936,6 @@ def phase5_smoke_timing(dev, cfg, state, card):
         res[name + " plain"] = (p1 + p2) / 2
     res["render_smoke mip"] = cuda_ms(lambda: render_smoke(rho), 20,
                                       warmup=2)
-    k7 = [per_kernel["K7 velocity"], per_kernel["K7 scalars"]]
-    k7_runs(res, "K7 velocity + scalars", *(kern for kern, _ in k7),
-            lambda: [kern() for kern, _ in k7],
-            lambda: [plain() for _, plain in k7])
     print(f"phase 5 timing at {cfg.shape} on {card} (CUDA events, ms per "
           "call):")
     for k, v in res.items():
@@ -2767,24 +2764,6 @@ def phase19_dyebed3d(dev, mesh):
     return kcfg, sk
 
 
-def k7_runs(res, label, *calls_and_check):
-    """Time ``label``'s calls (the first entries of ``calls_and_check``) at
-    each of K7's run lengths, after holding the checked calls (the last
-    two: kernel, plain) bit-equal at that run length."""
-    from esp32_fluid_simulation_tpu_torch.ops.cuda import advect3d
-    *calls, kern, plain = calls_and_check
-    default = advect3d.ADVECT3D_RUN
-    try:
-        for run in (1, 2, 4):
-            advect3d.ADVECT3D_RUN = run
-            for i, (g, w) in enumerate(zip(kern(), plain())):
-                compare(f"phase 5 {label} run {run} ({i})", g, w)
-            res[f"{label} run {run}"] = cuda_ms(
-                lambda: [c() for c in calls], 10, warmup=2)
-    finally:
-        advect3d.ADVECT3D_RUN = default
-
-
 def phase5_sharded3d_timing(dev, card, cfg, mesh, sh, cfg19, sh19):
     """Times of the sharded 256^3 smoke step beside the single-device one,
     its split, and the 3D dye-bed step on both routes; returns the K11 K7
@@ -2875,24 +2854,6 @@ def phase5_sharded3d_timing(dev, card, cfg, mesh, sh, cfg19, sh19):
         warmup=2)
     res["exchange density, temperature apart k=3"] = cuda_ms(
         lambda: (_exchange2(rho, k), _exchange2(temp, k)), 10, warmup=2)
-    # K7's run lengths on the sharded route (each checked bit-equal)
-    k7_runs(res, "K7 block x8", k7([vpad], True, True), k7([ppad], False),
-            lambda: [advect3d_kernel(vpad[0][0], None, dt, True, md,
-                                     global_offset=(0, 0),
-                                     global_shape=cfg.shape, halo=k),
-                     advect3d_kernel(ppad[0][0], vel[0][0], dt, False, md,
-                                     global_offset=(0, 0),
-                                     global_shape=cfg.shape, halo=k)],
-            lambda: [advect3d_reference(vpad[0][0], None, dt, True, md,
-                                        check_block3d("phase 5", (0, 0),
-                                                      cfg.shape, k,
-                                                      vpad[0][0].shape, 0,
-                                                      "")),
-                     advect3d_reference(ppad[0][0], vel[0][0], dt, False, md,
-                                        check_block3d("phase 5", (0, 0),
-                                                      cfg.shape, k,
-                                                      ppad[0][0].shape, 0,
-                                                      ""))])
     div = ops.divergence(vel)
     res["divergence (its exchanges + eager stencil)"] = cuda_ms(
         lambda: ops.divergence(vel), 10, warmup=2)

@@ -37,19 +37,26 @@
 //   2. computes phi_hat (K2's forward arithmetic, rounded to the field
 //      dtype, as the stored intermediate was) over the tile +- r, clipped to
 //      the domain or, with MEMBER, to the member tiles the tile touches,
-//      into shared memory; its own cells' tap extrema, combined with
-//      phi_hat, stay in registers (min and max are exact);
-//   3. after one barrier, backtraces each own cell through -vel, samples
+//      into shared memory, and its own cells' tap extrema, combined with
+//      phi_hat (min and max are exact), beside it;
+//   3. after a barrier, backtraces each own cell through -vel, samples
 //      phi_hat from shared memory, and applies the limiter: phi_back
 //      rounded to the field dtype, then phi_hat + 0.5 (field - phi_back)
 //      clamped to [lo, hi], rounding after each op as PyTorch's bf16 ops do.
-// Only the output goes to device memory.  Bound: device-memory bytes (the
-// field and vel read once, the output written once); the ring of the
-// window repeats K2's gathers for (TH + 2r)(TW + 2r) / (TH TW) - 1 of the
-// tile, served by L1/L2.  The window's shared memory is sized for the
-// worst case, r = max_disp + 1; where that does not fit a block, the
-// wrapper takes the two-launch route: K2 with the raw extrema, then
-// maccormack_correct_kernel, which combines them with phi_hat.
+// Only the output goes to device memory.  The function's bound is
+// device-memory bytes (the field and vel read once, the output written
+// once), but at config 3 (2048^2, mean reach 2) the kernel is bound by
+// the latency of its chains of dependent loads between the barriers (vel,
+// then the taps, then shared memory), not by bytes: the parent's
+// intermediates mostly stayed in the 50 MB L2.  Holding the extrema and
+// the displacements in registers (16-24 values a thread) cost occupancy
+// and time; a thread keeps no cell state across the barriers instead, and
+// re-reads its cells' velocities (L1/L2 hits).  The ring of the window
+// repeats K2's gathers for (TH + 2r)(TW + 2r) / (TH TW) - 1 of the tile.
+// The window's shared memory is sized for the worst case, r = max_disp +
+// 1; where that does not fit a block, the wrapper takes the two-launch
+// route: K2 with the raw extrema, then maccormack_correct_kernel, which
+// combines them with phi_hat.
 
 // Tiled-domain mode (K6, the member= argument of advect_pallas,
 // advect.py:112-165): the grid is a supergrid of independent mh x mw member
@@ -408,9 +415,10 @@ cudaError_t launch_correct(const void* field, const void* phi_hat,
   return cudaGetLastError();
 }
 
-// K5's window route.  A block of 32 x 8 threads owns a tile of TH = 8 TY
-// rows and TW = 32 TX columns; thread (x, y) owns the cells (y + 8 b,
-// x + 32 a), so a warp's loads and stores of a row are contiguous.
+// K5's window route.  A block of kThreads threads owns a TH x TW tile;
+// thread t takes the tile's cells t, t + kThreads, ... in row-major order,
+// so a warp's loads and stores of a row are contiguous.
+constexpr int kThreads = 256;
 
 // The reach of a backtrace moved by d = v*dt cells along one axis, less the
 // tap beyond it: the CFL clamp bounds it by max_disp, and a NaN or inf
@@ -451,52 +459,56 @@ __device__ __forceinline__ void forward_cell(const T* __restrict__ field,
   }
 }
 
-template <typename T, int C, bool MEMBER, int TX, int TY>
-__global__ void __launch_bounds__(256)
+// Shared memory: the window of phi_hat, [C][TH + 2R][TW + 2R] for the
+// largest reach R = max_disp + 1, then the tile's bounds lo and hi,
+// [2][C][TH * TW], all in the field dtype (the bounds are exact there: the
+// extrema of values of that dtype).
+template <typename T, int C, bool MEMBER, int TH, int TW>
+__global__ void __launch_bounds__(kThreads)
     maccormack_tile_kernel(const T* __restrict__ field,
                            const float* __restrict__ vel, T* __restrict__ out,
                            int H, int W, int mh, int mw, float dt,
                            float max_disp, int no_slip) {
-  constexpr int TH = 8 * TY, TW = 32 * TX;
+  constexpr int NC = TH * TW;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int reach[2];
-  T* win = reinterpret_cast<T*>(smem);
-  // the window's layout, sized for the largest reach R: node (i, j) at
-  // win[ch * wplane + (i - wo_i) * pw + (j - wo_j)]
+  // node (i, j) at win[ch * wplane + (i - wo_i) * pw + (j - wo_j)]
   const int R = (int)max_disp + 1;
   const int pw = TW + 2 * R;
   const int wplane = (TH + 2 * R) * pw;
-  const int tid = threadIdx.y * 32 + threadIdx.x;
+  T* win = reinterpret_cast<T*>(smem);
+  T* bounds = win + C * wplane;
+  const int tid = threadIdx.x;
   const int ti0 = blockIdx.y * TH, tj0 = blockIdx.x * TW;
   const int ti1 = min(ti0 + TH, H), tj1 = min(tj0 + TW, W);
   const int wo_i = ti0 - R, wo_j = tj0 - R;
   const long plane = (long)H * W;
   if (tid == 0) reach[0] = reach[1] = 0;
 
-  // own cells: displacements, phi_hat and the limiter's bounds
-  float d0[TY][TX], d1[TY][TX], lo[TY][TX][C], hi[TY][TX][C];
+  // own cells: the reach, phi_hat and the limiter's bounds
   int ri = 0, rj = 0;
+  for (int k = tid; k < NC; k += kThreads) {
+    const int i = ti0 + k / TW, j = tj0 + k % TW;
+    if (i >= H || j >= W) continue;
+    const long c = (long)i * W + j;
+    const float d0 = vel[c] * dt;
+    const float d1 = vel[plane + c] * dt;
+    ri = max(ri, reach_of(d0, max_disp));
+    rj = max(rj, reach_of(d1, max_disp));
+    float lo[C], hi[C];
+    forward_cell<T, C, MEMBER, true>(
+        field, i, j, d0, d1, H, W, mh, mw, max_disp, no_slip,
+        win + (i - wo_i) * pw + (j - wo_j), wplane, lo, hi);
 #pragma unroll
-  for (int b = 0; b < TY; ++b)
-#pragma unroll
-    for (int a = 0; a < TX; ++a) {
-      const int i = ti0 + threadIdx.y + 8 * b;
-      const int j = tj0 + threadIdx.x + 32 * a;
-      d0[b][a] = d1[b][a] = 0.f;
-      if (i >= H || j >= W) continue;
-      const long c = (long)i * W + j;
-      d0[b][a] = vel[c] * dt;
-      d1[b][a] = vel[plane + c] * dt;
-      ri = max(ri, reach_of(d0[b][a], max_disp));
-      rj = max(rj, reach_of(d1[b][a], max_disp));
-      forward_cell<T, C, MEMBER, true>(
-          field, i, j, d0[b][a], d1[b][a], H, W, mh, mw, max_disp, no_slip,
-          win + (i - wo_i) * pw + (j - wo_j), wplane, lo[b][a], hi[b][a]);
+    for (int ch = 0; ch < C; ++ch) {
+      store(bounds, ch * NC + k, lo[ch]);
+      store(bounds, (C + ch) * NC + k, hi[ch]);
     }
+  }
   ri = __reduce_max_sync(0xffffffffu, ri);
   rj = __reduce_max_sync(0xffffffffu, rj);
   __syncthreads();  // reach[] zeroed
-  if (threadIdx.x == 0) {
+  if (tid % 32 == 0) {
     atomicMax(&reach[0], ri);
     atomicMax(&reach[1], rj);
   }
@@ -515,66 +527,73 @@ __global__ void __launch_bounds__(256)
   const int wi1 = min(ti1 + reach[0] + 1, hi_i);
   const int wj0 = max(tj0 - reach[1] - 1, lo_j);
   const int wj1 = min(tj1 + reach[1] + 1, hi_j);
-  // phi_hat on the ring: the bands above and below the tile, then left
-  // and right of it
-  for (int q = 0; q < 4; ++q) {
-    const int a0 = q == 0 ? wi0 : q == 1 ? ti1 : ti0;
-    const int a1 = q == 0 ? ti0 : q == 1 ? wi1 : ti1;
-    const int b0 = q == 3 ? tj1 : wj0;
-    const int b1 = q == 2 ? tj0 : wj1;
-    const int bw = b1 - b0;
-    const int n = a1 > a0 && bw > 0 ? (a1 - a0) * bw : 0;
-    for (int k = tid; k < n; k += 256) {
-      const int i = a0 + k / bw;
-      const int j = b0 + k % bw;
-      const long c = (long)i * W + j;
-      forward_cell<T, C, MEMBER, false>(
-          field, i, j, vel[c] * dt, vel[plane + c] * dt, H, W, mh, mw,
-          max_disp, no_slip, win + (i - wo_i) * pw + (j - wo_j), wplane,
-          nullptr, nullptr);
+  // phi_hat on the ring, its cells numbered in one sequence (the bands
+  // above and below the tile, then the rows' cells left and right of it)
+  // so that the block takes it in as few rounds as it can: a round per
+  // band cost a chain of dependent loads each
+  const int ww = wj1 - wj0;
+  const int n_top = (ti0 - wi0) * ww;
+  const int n_rows = n_top + (wi1 - ti1) * ww;
+  const int lw = tj0 - wj0, sw = lw + (wj1 - tj1);
+  const int n_ring = n_rows + (ti1 - ti0) * sw;
+  for (int k = tid; k < n_ring; k += kThreads) {
+    int i, j;
+    if (k < n_rows) {
+      const bool top = k < n_top;
+      const int q = top ? k : k - n_top;
+      i = (top ? wi0 : ti1) + q / ww;
+      j = wj0 + q % ww;
+    } else {
+      const int q = k - n_rows;
+      const int col = q % sw;
+      i = ti0 + q / sw;
+      j = col < lw ? wj0 + col : tj1 + (col - lw);
     }
+    const long c = (long)i * W + j;
+    forward_cell<T, C, MEMBER, false>(
+        field, i, j, vel[c] * dt, vel[plane + c] * dt, H, W, mh, mw,
+        max_disp, no_slip, win + (i - wo_i) * pw + (j - wo_j), wplane,
+        nullptr, nullptr);
   }
   __syncthreads();
 
   // own cells: the backward pass from the window, and the limiter
+  for (int k = tid; k < NC; k += kThreads) {
+    const int i = ti0 + k / TW, j = tj0 + k % TW;
+    if (i >= H || j >= W) continue;
+    const long c = (long)i * W + j;
+    const Stencil s = stencil<MEMBER>(i, j, (float)i + vel[c] * dt,
+                                      (float)j + vel[plane + c] * dt, H, W,
+                                      max_disp, no_slip, mh, mw);
+    const int tap = (s.i0 - wo_i) * pw + (s.j0 - wo_j);
+    const int own = (i - wo_i) * pw + (j - wo_j);
 #pragma unroll
-  for (int b = 0; b < TY; ++b)
-#pragma unroll
-    for (int a = 0; a < TX; ++a) {
-      const int i = ti0 + threadIdx.y + 8 * b;
-      const int j = tj0 + threadIdx.x + 32 * a;
-      if (i >= H || j >= W) continue;
-      const long c = (long)i * W + j;
-      const Stencil s = stencil<MEMBER>(i, j, (float)i + d0[b][a],
-                                        (float)j + d1[b][a], H, W, max_disp,
-                                        no_slip, mh, mw);
-      const int tap = (s.i0 - wo_i) * pw + (s.j0 - wo_j);
-      const int own = (i - wo_i) * pw + (j - wo_j);
-#pragma unroll
-      for (int ch = 0; ch < C; ++ch) {
-        const T* w = win + ch * wplane;
-        const float back = round_to<T>(bilerp(s, load(w, tap),
-                                              load(w, tap + 1),
-                                              load(w, tap + pw),
-                                              load(w, tap + pw + 1),
-                                              no_slip));
-        const long k = ch * plane + c;
-        const float diff = round_to<T>(load(field, k) - back);
-        const float half = round_to<T>(0.5f * diff);
-        const float corr = round_to<T>(load(w, own) + half);
-        store(out, k, min_nan(max_nan(corr, lo[b][a][ch]), hi[b][a][ch]));
-      }
+    for (int ch = 0; ch < C; ++ch) {
+      const T* w = win + ch * wplane;
+      const float back = round_to<T>(bilerp(s, load(w, tap),
+                                            load(w, tap + 1),
+                                            load(w, tap + pw),
+                                            load(w, tap + pw + 1),
+                                            no_slip));
+      const long kk = ch * plane + c;
+      const float diff = round_to<T>(load(field, kk) - back);
+      const float half = round_to<T>(0.5f * diff);
+      const float corr = round_to<T>(load(w, own) + half);
+      store(out, kk,
+            min_nan(max_nan(corr, load(bounds, ch * NC + k)),
+                    load(bounds, (C + ch) * NC + k)));
     }
+  }
 }
 
 // The window route's shared memory for a tile_h x tile_w tile of C
-// channels of `elem` bytes at max_disp, or 0 where the route does not take
-// the tile or the window does not fit a block of the current device.
+// channels of `elem` bytes at max_disp, or 0 where the window does not fit
+// a block of the current device.
 int window_bytes(int C, int elem, int max_disp, int tile_h, int tile_w) {
-  if (C < 1 || C > 3 || max_disp < 0 || tile_h % 8 || tile_w % 32)
-    return 0;
   const long R = (long)max_disp + 1;
-  const long bytes = C * (tile_h + 2 * R) * (tile_w + 2 * R) * elem;
+  const long bytes =
+      C * ((tile_h + 2 * R) * (tile_w + 2 * R) + 2L * tile_h * tile_w) *
+      elem;
   int dev, limit;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -583,40 +602,45 @@ int window_bytes(int C, int elem, int max_disp, int tile_h, int tile_w) {
   return bytes + (long)sizeof(int[2]) <= limit ? (int)bytes : 0;
 }
 
-template <typename T, int C, bool MEMBER, int TX, int TY>
+template <typename T, int C, bool MEMBER, int TH, int TW>
 cudaError_t launch_tile(const void* field, const void* vel, void* out, int H,
                         int W, int mh, int mw, float dt, int max_disp,
                         int no_slip, cudaStream_t stream) {
-  const int bytes =
-      window_bytes(C, (int)sizeof(T), max_disp, 8 * TY, 32 * TX);
+  const int bytes = window_bytes(C, (int)sizeof(T), max_disp, TH, TW);
   if (bytes == 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      maccormack_tile_kernel<T, C, MEMBER, TX, TY>,
+      maccormack_tile_kernel<T, C, MEMBER, TH, TW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((W + 32 * TX - 1) / (32 * TX), (H + 8 * TY - 1) / (8 * TY));
-  maccormack_tile_kernel<T, C, MEMBER, TX, TY>
-      <<<grid, dim3(32, 8), bytes, stream>>>(
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
+  maccormack_tile_kernel<T, C, MEMBER, TH, TW>
+      <<<grid, kThreads, bytes, stream>>>(
           static_cast<const T*>(field), static_cast<const float*>(vel),
           static_cast<T*>(out), H, W, mh, mw, dt, (float)max_disp, no_slip);
   return cudaGetLastError();
 }
 
-// The tiles the window route takes: (rows, columns) = (8 TY, 32 TX).
+// The tiles the window route takes (rows x columns).
+#define FLUID_MC_TILES(X) X(16, 64) X(32, 32) X(32, 64)
+
+bool tile_taken(int tile_h, int tile_w) {
+#define FLUID_MC_IS(TH, TW) if (tile_h == (TH) && tile_w == (TW)) return true;
+  FLUID_MC_TILES(FLUID_MC_IS)
+#undef FLUID_MC_IS
+  return false;
+}
+
 template <typename T, int C, bool MEMBER>
 cudaError_t dispatch_tile(int tile_h, int tile_w, const void* field,
                           const void* vel, void* out, int H, int W, int mh,
                           int mw, float dt, int max_disp, int no_slip,
                           cudaStream_t s) {
-#define FLUID_MC_TILE(TX, TY)                                                \
-  if (tile_h == 8 * (TY) && tile_w == 32 * (TX))                             \
-    return launch_tile<T, C, MEMBER, TX, TY>(field, vel, out, H, W, mh, mw, \
+#define FLUID_MC_LAUNCH(TH, TW)                                           \
+  if (tile_h == (TH) && tile_w == (TW))                                   \
+    return launch_tile<T, C, MEMBER, TH, TW>(field, vel, out, H, W, mh, mw, \
                                              dt, max_disp, no_slip, s);
-  FLUID_MC_TILE(1, 2)
-  FLUID_MC_TILE(1, 4)
-  FLUID_MC_TILE(2, 4)
-  FLUID_MC_TILE(2, 8)
-#undef FLUID_MC_TILE
+  FLUID_MC_TILES(FLUID_MC_LAUNCH)
+#undef FLUID_MC_LAUNCH
   return cudaErrorInvalidValue;
 }
 
@@ -707,8 +731,8 @@ extern "C" int fluid_maccormack_correct(const void* field,
 
 // K5's window route, one launch.  field, out: [C, H, W] float32
 // (field_bf16 = 0) or bfloat16 (= 1); vel: [2, H, W] float32; mh, mw as for
-// fluid_advect; tiles of tile_h x tile_w cells (16 x 32, 32 x 32, 32 x 64
-// or 64 x 64), whose window must fit (fluid_maccormack_window_bytes).
+// fluid_advect; tiles of tile_h x tile_w cells (16 x 64, 32 x 32 or
+// 32 x 64), whose window must fit (fluid_maccormack_window_bytes).
 extern "C" int fluid_maccormack(const void* field, const void* vel,
                                 void* out, int C, int H, int W,
                                 int field_bf16, float dt, int max_disp,
@@ -731,10 +755,7 @@ extern "C" int fluid_maccormack(const void* field, const void* vel,
 extern "C" int fluid_maccormack_window_bytes(int C, int field_bf16,
                                              int max_disp, int tile_h,
                                              int tile_w) {
-  const bool tile_ok = (tile_h == 16 && tile_w == 32) ||
-                       (tile_h == 32 && (tile_w == 32 || tile_w == 64)) ||
-                       (tile_h == 64 && tile_w == 64);
-  return tile_ok ? window_bytes(C, field_bf16 ? 2 : 4, max_disp, tile_h,
-                                tile_w)
-                 : 0;
+  if (C < 1 || C > 3 || max_disp < 0 || !tile_taken(tile_h, tile_w))
+    return 0;
+  return window_bytes(C, field_bf16 ? 2 : 4, max_disp, tile_h, tile_w);
 }

@@ -14,11 +14,7 @@
 // moves at most max_disp cells per axis, so neighbouring threads read
 // neighbouring taps and the field is fetched from device memory about once.
 // At 256^3 the velocity self-advect moves ~403 MB and the bf16 density +
-// temperature pair ~336 MB.  A thread owns a run of RUN cells along W
-// (RUN = 1, 2 or 4, chosen by the wrapper): it loads their velocities, and
-// stores their outputs, with one 8- or 16-byte access where the rows are
-// aligned for it, works out the RUN stencils, then gathers their taps
-// channel by channel.
+// temperature pair ~336 MB.
 //
 // Arithmetic follows the TPU kernel (advect3d.py:83-243): the backtrace
 // s = x - v*dt per axis, clamped to x +- max_disp, then to the domain; the
@@ -48,7 +44,11 @@
 // Self-advect in block mode (SELF): the field is the haloed velocity, and
 // the backtrace reads the velocity from its owned interior, (z, i + halo,
 // j + halo), so the owned block is not read a second time.  A template
-// flag: the other modes compile to the code they had.
+// flag: the other modes compile to the code they had.  A thread owning a
+// run of 2 or 4 cells along W, with 8- or 16-byte velocity loads and
+// stores where the rows allow them, was timed against a thread per cell
+// and lost at 256^3 on the whole grid (PERF.md, PR 9), so a thread owns one
+// cell.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -92,240 +92,101 @@ struct Block {
   int ox, oy, halo, GH, GW;
 };
 
-// A run of RUN values from p + k as float: one vector access where vec
-// (p + k aligned to the run, all n = RUN values inside the row), else n
-// scalar loads and zeros past them.
-__device__ __forceinline__ void load_vec(const float* p, float (&d)[1]) {
-  d[0] = p[0];
-}
-__device__ __forceinline__ void load_vec(const float* p, float (&d)[2]) {
-  const float2 x = *reinterpret_cast<const float2*>(p);
-  d[0] = x.x;
-  d[1] = x.y;
-}
-__device__ __forceinline__ void load_vec(const float* p, float (&d)[4]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  d[0] = x.x;
-  d[1] = x.y;
-  d[2] = x.z;
-  d[3] = x.w;
-}
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float (&d)[1]) {
-  d[0] = __bfloat162float(p[0]);
-}
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float (&d)[2]) {
-  const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(p);
-  d[0] = __low2float(x);
-  d[1] = __high2float(x);
-}
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float (&d)[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 y = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  d[0] = __low2float(x);
-  d[1] = __high2float(x);
-  d[2] = __low2float(y);
-  d[3] = __high2float(y);
-}
-
-__device__ __forceinline__ void store_vec(float* p, const float (&v)[1]) {
-  p[0] = v[0];
-}
-__device__ __forceinline__ void store_vec(float* p, const float (&v)[2]) {
-  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-}
-__device__ __forceinline__ void store_vec(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
-                                          const float (&v)[1]) {
-  p[0] = __float2bfloat16_rn(v[0]);
-}
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
-                                          const float (&v)[2]) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
-}
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
-                                          const float (&v)[4]) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 y = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 u;
-  u.x = *reinterpret_cast<const unsigned*>(&x);
-  u.y = *reinterpret_cast<const unsigned*>(&y);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
-template <int RUN, typename P>
-__device__ __forceinline__ void load_run(const P* p, long long k, int n,
-                                         bool vec, float (&d)[RUN]) {
-  if (vec && n == RUN) {
-    load_vec(p + k, d);
-    return;
-  }
-#pragma unroll
-  for (int r = 0; r < RUN; ++r) d[r] = r < n ? load(p, k + r) : 0.f;
-}
-
-template <int RUN, typename P>
-__device__ __forceinline__ void store_run(P* p, long long k, int n, bool vec,
-                                          const float (&v)[RUN]) {
-  if (vec && n == RUN) {
-    store_vec(p + k, v);
-    return;
-  }
-#pragma unroll
-  for (int r = 0; r < RUN; ++r)
-    if (r < n) store(p, k + r, v[r]);
-}
-
-// The flags of one launch: vector accesses to the velocity and the output.
-struct Vec {
-  int vel, out;
-};
-
-template <typename T, typename V, bool BLOCK, bool SELF, int RUN>
+template <typename T, typename V, bool BLOCK, bool SELF>
 __global__ void advect3d_kernel(const T* __restrict__ field,
                                 const V* __restrict__ vel,
                                 T* __restrict__ out, int C, int D, int H,
                                 int W, float dt, float md, int no_slip,
-                                const Block b, const Vec vec) {
-  const int j0 = (blockIdx.x * blockDim.x + threadIdx.x) * RUN;
+                                const Block b) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   const int z = blockIdx.z;
-  if (i >= H || j0 >= W) return;
-  const int n = min(RUN, W - j0);
+  if (i >= H || j >= W) return;
   const long long plane = (long long)H * W;
   const long long vol = plane * D;
-  const long long c = z * plane + (long long)i * W + j0;
+  const long long c = z * plane + (long long)i * W + j;
   // the domain, and the field's strides (the haloed block's in block mode)
   const int GH = BLOCK ? b.GH : H;
   const int GW = BLOCK ? b.GW : W;
   const int FW = BLOCK ? W + 2 * b.halo : W;
   const long long fplane = BLOCK ? (long long)(H + 2 * b.halo) * FW : plane;
   const long long fvol = fplane * D;
-  // the run's velocity: the owned block's, or (SELF) the haloed field's
-  // owned interior
+  const float zf = (float)z;
+  const float xi = (float)(BLOCK ? i + b.ox : i);
+  const float xj = (float)(BLOCK ? j + b.oy : j);
+  // the velocity: the owned block's, or (SELF) the haloed field's owned
+  // interior
   const long long vc =
-      SELF ? z * fplane + (long long)(i + b.halo) * FW + (j0 + b.halo) : c;
+      SELF ? z * fplane + (long long)(i + b.halo) * FW + (j + b.halo) : c;
   const long long vvol = SELF ? fvol : vol;
-  float vz[RUN], vi[RUN], vj[RUN];
-  load_run<RUN>(vel, vc, n, vec.vel, vz);
-  load_run<RUN>(vel, vc + vvol, n, vec.vel, vi);
-  load_run<RUN>(vel, vc + 2 * vvol, n, vec.vel, vj);
+  const float sz_raw = zf - load(vel, vc) * dt;
+  const float si_raw = xi - load(vel, vvol + vc) * dt;
+  const float sj_raw = xj - load(vel, 2 * vvol + vc) * dt;
+  const float sz = source(zf, sz_raw, md, D);
+  const float si = source(xi, si_raw, md, GH);
+  const float sj = source(xj, sj_raw, md, GW);
+  const float z0 = fminf(fmaxf(floorf(sz), 0.f), (float)(D - 2));
+  const float i0 = fminf(fmaxf(floorf(si), 0.f), (float)(GH - 2));
+  const float j0 = fminf(fmaxf(floorf(sj), 0.f), (float)(GW - 2));
+  const float dz = sz - z0;
+  const float di = si - i0;
+  const float dj = sj - j0;
+  const float one_m_dj = 1.f - dj;
+  const float w00 = (1.f - dz) * (1.f - di);
+  const float w01 = (1.f - dz) * di;
+  const float w10 = dz * (1.f - di);
+  const float w11 = dz * di;
   // the base tap's global row and column, shifted into the field
   const int ti = BLOCK ? b.halo - b.ox : 0;
   const int tj = BLOCK ? b.halo - b.oy : 0;
-  const float zf = (float)z;
-  const float xi = (float)(BLOCK ? i + b.ox : i);
-  long long t[RUN];
-  float dj[RUN], one_m_dj[RUN], w00[RUN], w01[RUN], w10[RUN], w11[RUN],
-      ns[RUN];
-#pragma unroll
-  for (int r = 0; r < RUN; ++r) {
-    // past the row's end: cell W - 1's stencil at rest, never stored
-    const int j = min(j0 + r, W - 1);
-    const float xj = (float)(BLOCK ? j + b.oy : j);
-    const float sz_raw = zf - vz[r] * dt;
-    const float si_raw = xi - vi[r] * dt;
-    const float sj_raw = xj - vj[r] * dt;
-    const float sz = source(zf, sz_raw, md, D);
-    const float si = source(xi, si_raw, md, GH);
-    const float sj = source(xj, sj_raw, md, GW);
-    const float z0 = fminf(fmaxf(floorf(sz), 0.f), (float)(D - 2));
-    const float i0 = fminf(fmaxf(floorf(si), 0.f), (float)(GH - 2));
-    const float jb = fminf(fmaxf(floorf(sj), 0.f), (float)(GW - 2));
-    const float dz = sz - z0;
-    const float di = si - i0;
-    dj[r] = sj - jb;
-    one_m_dj[r] = 1.f - dj[r];
-    w00[r] = (1.f - dz) * (1.f - di);
-    w01[r] = (1.f - dz) * di;
-    w10[r] = dz * (1.f - di);
-    w11[r] = dz * di;
-    t[r] = (long long)z0 * fplane + ((long long)i0 + ti) * FW +
-           ((int)jb + tj);
-    ns[r] = 1.f;
-    if (no_slip)
-      ns[r] = (noslip_factor(sz_raw, D) * noslip_factor(si_raw, GH)) *
-              noslip_factor(sj_raw, GW);
-  }
+  const long long t = (long long)z0 * fplane + ((long long)i0 + ti) * FW +
+                      ((int)j0 + tj);
+  float ns = 1.f;
+  if (no_slip)
+    ns = (noslip_factor(sz_raw, D) * noslip_factor(si_raw, GH)) *
+         noslip_factor(sj_raw, GW);
   for (int ch = 0; ch < C; ++ch) {
-    float acc[RUN];
-#pragma unroll
-    for (int r = 0; r < RUN; ++r) {
-      const T* f = field + ch * fvol + t[r];
-      const float c00 =
-          (load(f, 0) * one_m_dj[r] + load(f, 1) * dj[r]) * w00[r];
-      const float c01 =
-          (load(f, FW) * one_m_dj[r] + load(f, FW + 1) * dj[r]) * w01[r];
-      const float c10 =
-          (load(f, fplane) * one_m_dj[r] + load(f, fplane + 1) * dj[r]) *
-          w10[r];
-      const float c11 = (load(f, fplane + FW) * one_m_dj[r] +
-                         load(f, fplane + FW + 1) * dj[r]) *
-                        w11[r];
-      acc[r] = ((c00 + c01) + c10) + c11;
-      if (no_slip) acc[r] = acc[r] * ns[r];
-    }
-    store_run<RUN>(out, ch * vol + c, n, vec.out, acc);
+    const T* f = field + ch * fvol + t;
+    const float c00 = (load(f, 0) * one_m_dj + load(f, 1) * dj) * w00;
+    const float c01 = (load(f, FW) * one_m_dj + load(f, FW + 1) * dj) * w01;
+    const float c10 =
+        (load(f, fplane) * one_m_dj + load(f, fplane + 1) * dj) * w10;
+    const float c11 =
+        (load(f, fplane + FW) * one_m_dj + load(f, fplane + FW + 1) * dj) *
+        w11;
+    float acc = ((c00 + c01) + c10) + c11;
+    if (no_slip) acc = acc * ns;
+    store(out, ch * vol + c, acc);
   }
-}
-
-template <typename T, typename V, bool BLOCK, bool SELF, int RUN>
-cudaError_t launch_run(const void* field, const void* vel, void* out, int C,
-                       int D, int H, int W, float dt, float md, int no_slip,
-                       const Block& b, cudaStream_t stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((W + 32 * RUN - 1) / (32 * RUN), (H + 7) / 8, D);
-  // vector accesses need every row's start aligned to the run
-  const unsigned long vbytes = RUN * sizeof(V), obytes = RUN * sizeof(T);
-  const bool rows = W % RUN == 0 && (!SELF || b.halo % RUN == 0);
-  const Vec vec{rows && (unsigned long)(size_t)vel % vbytes == 0,
-                W % RUN == 0 && (unsigned long)(size_t)out % obytes == 0};
-  advect3d_kernel<T, V, BLOCK, SELF, RUN><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(field), static_cast<const V*>(vel),
-      static_cast<T*>(out), C, D, H, W, dt, md, no_slip, b, vec);
-  return cudaGetLastError();
 }
 
 template <typename T, typename V, bool BLOCK, bool SELF>
-cudaError_t dispatch_run(int run, const void* field, const void* vel,
-                         void* out, int C, int D, int H, int W, float dt,
-                         float md, int no_slip, const Block& b,
-                         cudaStream_t s) {
-  switch (run) {
-    case 1:
-      return launch_run<T, V, BLOCK, SELF, 1>(field, vel, out, C, D, H, W,
-                                              dt, md, no_slip, b, s);
-    case 2:
-      return launch_run<T, V, BLOCK, SELF, 2>(field, vel, out, C, D, H, W,
-                                              dt, md, no_slip, b, s);
-    case 4:
-      return launch_run<T, V, BLOCK, SELF, 4>(field, vel, out, C, D, H, W,
-                                              dt, md, no_slip, b, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+cudaError_t launch_mode(const void* field, const void* vel, void* out, int C,
+                        int D, int H, int W, float dt, float md, int no_slip,
+                        const Block& b, cudaStream_t stream) {
+  const dim3 block(32, 8);
+  const dim3 grid((W + 31) / 32, (H + 7) / 8, D);
+  advect3d_kernel<T, V, BLOCK, SELF><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(field), static_cast<const V*>(vel),
+      static_cast<T*>(out), C, D, H, W, dt, md, no_slip, b);
+  return cudaGetLastError();
 }
 
 // The whole grid, block mode, or block mode's self-advect (vel null: the
 // velocity is the field's owned interior, in the field's dtype).
 template <typename T, typename V>
-cudaError_t launch(int run, const void* field, const void* vel, void* out,
-                   int C, int D, int H, int W, float dt, float md,
-                   int no_slip, const Block& b, cudaStream_t s) {
+cudaError_t launch(const void* field, const void* vel, void* out, int C,
+                   int D, int H, int W, float dt, float md, int no_slip,
+                   const Block& b, cudaStream_t s) {
   if (b.halo == 0)
-    return dispatch_run<T, V, false, false>(run, field, vel, out, C, D, H, W,
-                                            dt, md, no_slip, b, s);
+    return launch_mode<T, V, false, false>(field, vel, out, C, D, H, W, dt,
+                                           md, no_slip, b, s);
   if (vel != nullptr)
-    return dispatch_run<T, V, true, false>(run, field, vel, out, C, D, H, W,
-                                           dt, md, no_slip, b, s);
+    return launch_mode<T, V, true, false>(field, vel, out, C, D, H, W, dt,
+                                          md, no_slip, b, s);
   if (C != 3) return cudaErrorInvalidValue;
-  return dispatch_run<T, T, true, true>(run, field, field, out, C, D, H, W,
-                                        dt, md, no_slip, b, s);
+  return launch_mode<T, T, true, true>(field, field, out, C, D, H, W, dt, md,
+                                       no_slip, b, s);
 }
 
 }  // namespace
@@ -335,26 +196,26 @@ cudaError_t launch(int run, const void* field, const void* vel, void* out,
 // when halo > 0: vel and out are the owned block at global (ox, oy) of a
 // D x GH x GW domain and field is [C, D, H + 2 halo, W + 2 halo]; there a
 // null vel is the self-advect (field the haloed velocity, C = 3, vel_bf16
-// ignored).  run: cells a thread owns along W (1, 2 or 4).
+// ignored).
 extern "C" int fluid_advect3d(const void* field, const void* vel, void* out,
                               int C, int D, int H, int W, int field_bf16,
                               int vel_bf16, float dt, int max_disp,
                               int no_slip, int ox, int oy, int halo, int GH,
-                              int GW, int run, void* stream) {
+                              int GW, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float md = (float)max_disp;
   const Block b{ox, oy, halo, GH, GW};
   if (vel == nullptr && halo == 0) return (int)cudaErrorInvalidValue;
   if (field_bf16)
     return (int)(vel_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(
-                                run, field, vel, out, C, D, H, W, dt, md,
-                                no_slip, b, s)
+                                field, vel, out, C, D, H, W, dt, md, no_slip,
+                                b, s)
                           : launch<__nv_bfloat16, float>(
-                                run, field, vel, out, C, D, H, W, dt, md,
-                                no_slip, b, s));
-  return (int)(vel_bf16 ? launch<float, __nv_bfloat16>(run, field, vel, out,
-                                                        C, D, H, W, dt, md,
+                                field, vel, out, C, D, H, W, dt, md, no_slip,
+                                b, s));
+  return (int)(vel_bf16 ? launch<float, __nv_bfloat16>(field, vel, out, C, D,
+                                                        H, W, dt, md,
                                                         no_slip, b, s)
-                        : launch<float, float>(run, field, vel, out, C, D,
-                                               H, W, dt, md, no_slip, b, s));
+                        : launch<float, float>(field, vel, out, C, D, H, W,
+                                               dt, md, no_slip, b, s));
 }

@@ -75,7 +75,7 @@ from .modes import BLOCK_MODE, check_block, check_member, refuse_unported
 _NONE, _RAW = 0, 1   # enum MinMax in csrc/advect.cu
 
 # K5's window route: (rows, columns) of a block's tile; csrc/advect.cu
-# takes 16 x 32, 32 x 32, 32 x 64 and 64 x 64.
+# takes 16 x 64, 32 x 32 and 32 x 64.
 MACCORMACK_TILE = (32, 32)
 
 
@@ -334,13 +334,13 @@ def maccormack_reach(vel, dt, max_disp):
     return tuple(int(x) + 1 for x in r.amax(dim=(1, 2)))
 
 
-def maccormack_window_bytes(c, dtype, max_disp, tile=None):
+def maccormack_window_bytes(c, dtype, max_disp):
     """Shared memory of the window route for ``c`` channels of ``dtype`` at
-    ``max_disp`` on ``tile`` (default ``MACCORMACK_TILE``), or 0 where the
-    window does not fit a block of the current device."""
-    th, tw = tile or MACCORMACK_TILE
+    ``max_disp`` on ``MACCORMACK_TILE``, or 0 where the window does not fit
+    a block of the current device."""
     return load().value("fluid_maccormack_window_bytes", c,
-                        int(dtype == torch.bfloat16), int(max_disp), th, tw)
+                        int(dtype == torch.bfloat16), int(max_disp),
+                        *MACCORMACK_TILE)
 
 
 def _launch_maccormack(f3, vel, dt, no_slip, max_disp, member):
@@ -394,7 +394,9 @@ def advect_maccormack_kernel(field: torch.Tensor, vel: torch.Tensor,
         return advect_maccormack_reference(field, vel, dt, no_slip,
                                            max_disp=max_disp, member=member)
     f3 = _checked_3d("advect_maccormack_kernel", field, vel, max_disp)
-    if maccormack_window_bytes(f3.shape[0], f3.dtype, max_disp):
+    with torch.cuda.device(f3.device):
+        window = maccormack_window_bytes(f3.shape[0], f3.dtype, max_disp)
+    if window:
         out = _launch_maccormack(f3, vel, dt, no_slip, max_disp, member)
         advect_maccormack_kernel.launches += 1
         advect_maccormack_kernel.member_launches += member is not None

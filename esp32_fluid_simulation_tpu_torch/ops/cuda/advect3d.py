@@ -36,9 +36,6 @@ grid that is ``vel = field``; in block mode the backtrace reads the
 velocity from the haloed field's owned interior (``field[:, :, halo:-halo,
 halo:-halo]``), so a shard's owned velocity is read once, not a second time
 as its own array (``csrc/advect3d.cu``, the ``SELF`` flag).
-
-``ADVECT3D_RUN`` is the cells a thread owns along W (1, 2 or 4; the source
-says what a run does).
 """
 
 from __future__ import annotations
@@ -48,9 +45,6 @@ import torch
 from ..advect import noslip_axis_factor
 from .build import load, stream_of
 from .modes import check_block3d
-
-# cells a thread of csrc/advect3d.cu owns along W: 1, 2 or 4
-ADVECT3D_RUN = 1
 
 
 def _clamped_source(x, raw, max_disp, n):
@@ -172,8 +166,7 @@ def advect3d_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
                  None if vel is None else vel.data_ptr(), out.data_ptr(), c,
                  d, h, w, int(f4.dtype == torch.bfloat16),
                  int(v.dtype == torch.bfloat16), float(dt), int(max_disp),
-                 int(no_slip), ox, oy, g, gh, gw, ADVECT3D_RUN,
-                 stream_of(field))
+                 int(no_slip), ox, oy, g, gh, gw, stream_of(field))
     advect3d_kernel.launches += 1
     advect3d_kernel.block_launches += blk is not None
     return out[0] if field.dim() == 3 else out

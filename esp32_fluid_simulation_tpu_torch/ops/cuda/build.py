@@ -71,9 +71,9 @@ _SIGNATURES = {
     # color, out, H, W, color_bf16, s, bswap, unit_range, stream
     "fluid_render_rgb565": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     # field, vel, out, C, D, H, W, field_bf16, vel_bf16, dt, max_disp,
-    # no_slip, ox, oy, halo, GH, GW, run, stream
+    # no_slip, ox, oy, halo, GH, GW, stream
     "fluid_advect3d": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
-                       _I, _I, _I, _I, _I, _P),
+                       _I, _I, _I, _I, _P),
     # vel, out, D, H, W, inv2dx, stream
     "fluid_divergence3d": (_P, _P, _I, _I, _I, _F, _P),
     # vel, p, out, D, H, W, inv2dx, stream

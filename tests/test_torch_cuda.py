@@ -25,7 +25,6 @@ from esp32_fluid_simulation_tpu_torch.models.stable_fluids import (
 from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
     advect_kernel, advect_maccormack_kernel, advect_maccormack_reference,
     advect_reference, maccormack_window_bytes)
-from esp32_fluid_simulation_tpu_torch.ops.cuda import advect3d as advect3d_mod
 from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
     project_fused, project_fused_reference)
 from esp32_fluid_simulation_tpu_torch.ops.cuda.advect3d import (
@@ -122,7 +121,7 @@ def test_maccormack_kernel_bit_equal(cuda, rng, dtype, channels, no_slip):
 
 
 @pytest.mark.parametrize("velocity", ["full_reach", "nan", "zero"])
-@pytest.mark.parametrize("tile", [(16, 32), (32, 32), (32, 64), (64, 64)])
+@pytest.mark.parametrize("tile", [(16, 64), (32, 32), (32, 64)])
 def test_maccormack_window_reach_bit_equal(cuda, rng, monkeypatch, velocity,
                                            tile):
     """K5's window route on every tile it takes: the CFL clamp binding
@@ -309,39 +308,27 @@ def test_advect3d_kernel_bit_equal(cuda, rng, vel_dtype):
     assert advect3d_kernel.launches == before + 3
 
 
-@pytest.mark.parametrize("run", [1, 2, 4])
-def test_advect3d_runs_bit_equal(cuda, rng, monkeypatch, run):
-    """Every run length of K7 (cells a thread owns along W), on rows that
-    take vector accesses (W = 128) and rows that do not (W = 130, and the
-    self-advect's odd halo), in every mode."""
-    monkeypatch.setattr(advect3d_mod, "ADVECT3D_RUN", run)
+@pytest.mark.parametrize("vel_dtype", [torch.float32, torch.bfloat16])
+def test_advect3d_block_self_advect_bit_equal(cuda, rng, vel_dtype):
+    """K7 block's self-advect (the velocity read from the haloed field) at
+    even and odd halos and row widths, against its plain version and the
+    call with the owned velocity."""
+    before = advect3d_kernel.block_launches
     for shape in ((5, 12, 128), SHAPE3):
         vel = _on((40 * rng.standard_normal((3,) + shape)).astype(
-            np.float32), cuda)
-        pair = _on(rng.random((2,) + shape, dtype=np.float32),
-                   cuda).to(torch.bfloat16)
-        for field, v, no_slip in ((vel, vel, True), (pair, vel, False),
-                                  (vel.to(torch.bfloat16),
-                                   vel.to(torch.bfloat16), True)):
-            assert torch.equal(_bits(advect3d_kernel(field, v, 1 / 30,
-                                                     no_slip, max_disp=2)),
-                               _bits(advect3d_reference(field, v, 1 / 30,
-                                                        no_slip, 2)))
-        gshape = shape[1:]
+            np.float32), cuda).to(vel_dtype)
         off, bshape = (0, 0), (shape[1] // 2, shape[2] // 2)
         for k in (3, 4):
-            blk = _block3(off, k, gshape, bshape)
+            kw = dict(max_disp=2, global_offset=off, global_shape=shape,
+                      halo=k)
             vpad = _block_of(vel, off, bshape, k)
-            vown = _block_of(vel, off, bshape, 0)
-            for field, v, no_slip in ((vpad, None, True),
-                                      (vpad, vown, True),
-                                      (_block_of(pair, off, bshape, k), vown,
-                                       False)):
-                got = advect3d_kernel(field, v, 1 / 30, no_slip, max_disp=2,
-                                      global_offset=off,
-                                      global_shape=shape, halo=k)
-                assert torch.equal(_bits(got), _bits(advect3d_reference(
-                    field, v, 1 / 30, no_slip, 2, blk)))
+            got = advect3d_kernel(vpad, None, 1 / 30, True, **kw)
+            assert torch.equal(_bits(got), _bits(advect3d_reference(
+                vpad, None, 1 / 30, True, 2, _block3(off, k, shape[1:],
+                                                     bshape))))
+            assert torch.equal(_bits(got), _bits(advect3d_kernel(
+                vpad, _block_of(vel, off, bshape, 0), 1 / 30, True, **kw)))
+    assert advect3d_kernel.block_launches == before + 8
 
 
 def _block3(off, g, gshape, bshape):

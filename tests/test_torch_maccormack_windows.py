@@ -32,27 +32,27 @@ MD = 12
 # within a few cells, "nan" is "calm" with a NaN and an inf cell (and a
 # field of its own), "zero" has reach 0 (the window is the tile +- 1)
 CASES = {
-    "f32-2ch-noslip": ((61, 81), 2, torch.float32, True, None, (16, 32),
+    "f32-2ch-noslip": ((61, 81), 2, torch.float32, True, None, (16, 64),
                        "reach"),
     "f32-1ch": ((61, 81), 1, torch.float32, False, None, (32, 32), "calm"),
     "f32-3ch-noslip-calm": ((64, 96), 3, torch.float32, True, None,
-                            (16, 32), "calm"),
-    "bf16-3ch": ((61, 81), 3, torch.bfloat16, False, None, (16, 32),
+                            (16, 64), "calm"),
+    "bf16-3ch": ((61, 81), 3, torch.bfloat16, False, None, (16, 64),
                  "reach"),
     "bf16-1ch-noslip": ((61, 81), 1, torch.bfloat16, True, None, (32, 32),
                         "calm"),
-    "bf16-2ch-nan": ((61, 81), 2, torch.bfloat16, False, None, (16, 32),
+    "bf16-2ch-nan": ((61, 81), 2, torch.bfloat16, False, None, (16, 64),
                      "nan"),
     "f32-2ch-noslip-nan": ((64, 96), 2, torch.float32, True, None, (32, 32),
                            "nan"),
-    "f32-2ch-zero": ((61, 81), 2, torch.float32, True, None, (16, 32),
+    "f32-2ch-zero": ((61, 81), 2, torch.float32, True, None, (16, 64),
                      "zero"),
     "f32-2ch-odd-members": ((34, 63), 2, torch.float32, True, (17, 21),
-                           (16, 32), "reach"),
+                           (16, 64), "reach"),
     "bf16-3ch-odd-members": ((34, 63), 3, torch.bfloat16, False, (17, 21),
                              (32, 32), "calm"),
     "bf16-3ch-even-members": ((64, 96), 3, torch.bfloat16, False, (32, 48),
-                              (16, 32), "reach"),
+                              (16, 64), "reach"),
     "f32-1ch-noslip-even-members-nan": ((64, 96), 1, torch.float32, True,
                                         (16, 24), (32, 32), "nan"),
 }
@@ -128,7 +128,7 @@ def test_the_reach_is_tight():
     CFL clamp makes a displacement a whole number of cells): the schedule
     test above can see a short window."""
     field, vel = _inputs((61, 81), 2, torch.float32, "reach", 7)
-    got = _windowed(field, vel, True, None, (16, 32), shrink=1)
+    got = _windowed(field, vel, True, None, (16, 64), shrink=1)
     assert torch.isnan(got).any()
 
 
