@@ -45,16 +45,16 @@
 //      clamped to [lo, hi], rounding after each op as PyTorch's bf16 ops do.
 // Only the output goes to device memory.  The function's bound is
 // device-memory bytes (the field and vel read once, the output written
-// once), but at config 3 (2048^2, mean reach 2) the kernel is bound by
-// the latency of its chains of dependent loads between the barriers (vel,
-// then the taps, then shared memory), not by bytes: the parent's
-// intermediates mostly stayed in the 50 MB L2.  Holding the extrema and
-// the displacements in registers (16-24 values a thread) cost occupancy
-// and time; a thread keeps no cell state across the barriers instead, and
-// re-reads its cells' velocities (L1/L2 hits).  The ring of the window
-// repeats K2's gathers for (TH + 2r)(TW + 2r) / (TH TW) - 1 of the tile.
-// The window's shared memory is sized for the worst case, r = max_disp +
-// 1; where that does not fit a block, the wrapper takes the two-launch
+// once).  At config 3 (2048^2, mean reach 2) the kernel moves 22-29% of
+// the two-launch route's bytes at 31-38% of its rate; what holds the rate
+// down is not measured (PERF.md, section 6).  The ring of the
+// window repeats K2's gathers for (TH + 2r)(TW + 2r) / (TH TW) - 1 of the
+// tile.  A thread keeps no cell state across the barriers: it re-reads its
+// cells' velocities, and the limiter's bounds wait in shared memory
+// (tools/torch_k5_variants.py times the design that holds both in
+// registers).  The window's shared memory is sized for the worst case,
+// r = max_disp + 1; where that does not fit a block, fluid_maccormack
+// launches nothing and says so, and the wrapper takes the two-launch
 // route: K2 with the raw extrema, then maccormack_correct_kernel, which
 // combines them with phi_hat.
 
@@ -417,8 +417,14 @@ cudaError_t launch_correct(const void* field, const void* phi_hat,
 
 // K5's window route.  A block of kThreads threads owns a TH x TW tile;
 // thread t takes the tile's cells t, t + kThreads, ... in row-major order,
-// so a warp's loads and stores of a row are contiguous.
+// so a warp's loads and stores of a row are contiguous.  32 x 32 beat
+// 16 x 64 and 32 x 64 at config 3 on the H100 (PERF.md, section 6).
 constexpr int kThreads = 256;
+constexpr int TH = 32, TW = 32;
+
+// What fluid_maccormack returns where the window does not fit a block of
+// the current device (CUDA's error codes are not negative).
+constexpr int kWindowTooLarge = -1;
 
 // The reach of a backtrace moved by d = v*dt cells along one axis, less the
 // tap beyond it: the CFL clamp bounds it by max_disp, and a NaN or inf
@@ -463,7 +469,7 @@ __device__ __forceinline__ void forward_cell(const T* __restrict__ field,
 // largest reach R = max_disp + 1, then the tile's bounds lo and hi,
 // [2][C][TH * TW], all in the field dtype (the bounds are exact there: the
 // extrema of values of that dtype).
-template <typename T, int C, bool MEMBER, int TH, int TW>
+template <typename T, int C, bool MEMBER>
 __global__ void __launch_bounds__(kThreads)
     maccormack_tile_kernel(const T* __restrict__ field,
                            const float* __restrict__ vel, T* __restrict__ out,
@@ -586,68 +592,59 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The window route's shared memory for a tile_h x tile_w tile of C
-// channels of `elem` bytes at max_disp, or 0 where the window does not fit
-// a block of the current device.
-int window_bytes(int C, int elem, int max_disp, int tile_h, int tile_w) {
+// The window route's dynamic shared memory for C channels of `elem` bytes
+// at max_disp.
+long window_bytes(int C, int elem, int max_disp) {
   const long R = (long)max_disp + 1;
-  const long bytes =
-      C * ((tile_h + 2 * R) * (tile_w + 2 * R) + 2L * tile_h * tile_w) *
-      elem;
-  int dev, limit;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  return bytes + (long)sizeof(int[2]) <= limit ? (int)bytes : 0;
+  return C * ((TH + 2 * R) * (TW + 2 * R) + 2L * TH * TW) * elem;
 }
 
-template <typename T, int C, bool MEMBER, int TH, int TW>
-cudaError_t launch_tile(const void* field, const void* vel, void* out, int H,
-                        int W, int mh, int mw, float dt, int max_disp,
-                        int no_slip, cudaStream_t stream) {
-  const int bytes = window_bytes(C, (int)sizeof(T), max_disp, TH, TW);
-  if (bytes == 0) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      maccormack_tile_kernel<T, C, MEMBER, TH, TW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
-  maccormack_tile_kernel<T, C, MEMBER, TH, TW>
-      <<<grid, kThreads, bytes, stream>>>(
-          static_cast<const T*>(field), static_cast<const float*>(vel),
-          static_cast<T*>(out), H, W, mh, mw, dt, (float)max_disp, no_slip);
-  return cudaGetLastError();
-}
+constexpr int kMaxDevices = 64;
 
-// The tiles the window route takes (rows x columns).
-#define FLUID_MC_TILES(X) X(16, 64) X(32, 32) X(32, 64)
-
-bool tile_taken(int tile_h, int tile_w) {
-#define FLUID_MC_IS(TH, TW) if (tile_h == (TH) && tile_w == (TW)) return true;
-  FLUID_MC_TILES(FLUID_MC_IS)
-#undef FLUID_MC_IS
-  return false;
-}
-
+// One launch of the window route, or kWindowTooLarge.  The kernel's
+// dynamic shared-memory limit is raised per device only when a launch
+// needs more than it was granted, and the device's opt-in limit is asked
+// once, so a call at a size seen before makes no query.
 template <typename T, int C, bool MEMBER>
-cudaError_t dispatch_tile(int tile_h, int tile_w, const void* field,
-                          const void* vel, void* out, int H, int W, int mh,
-                          int mw, float dt, int max_disp, int no_slip,
-                          cudaStream_t s) {
-#define FLUID_MC_LAUNCH(TH, TW)                                           \
-  if (tile_h == (TH) && tile_w == (TW))                                   \
-    return launch_tile<T, C, MEMBER, TH, TW>(field, vel, out, H, W, mh, mw, \
-                                             dt, max_disp, no_slip, s);
-  FLUID_MC_TILES(FLUID_MC_LAUNCH)
-#undef FLUID_MC_LAUNCH
-  return cudaErrorInvalidValue;
+int launch_tile(const void* field, const void* vel, void* out, int H, int W,
+                int mh, int mw, float dt, int max_disp, int no_slip,
+                cudaStream_t stream) {
+  const auto kernel = maccormack_tile_kernel<T, C, MEMBER>;
+  static int granted[kMaxDevices];  // dynamic bytes allowed so far
+  static int room[kMaxDevices];     // the most a launch may take
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (room[dev] == 0) {
+    int limit;
+    cudaFuncAttributes attr;
+    if ((err = cudaDeviceGetAttribute(
+             &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+            cudaSuccess ||
+        (err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess)
+      return (int)err;
+    room[dev] = limit - (int)attr.sharedSizeBytes;
+  }
+  const long bytes = window_bytes(C, (int)sizeof(T), max_disp);
+  if (bytes > room[dev]) return kWindowTooLarge;
+  if (bytes > granted[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    granted[dev] = (int)bytes;
+  }
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(field), static_cast<const float*>(vel),
+      static_cast<T*>(out), H, W, mh, mw, dt, (float)max_disp, no_slip);
+  return (int)cudaGetLastError();
 }
 
 // Dispatch on the channel count and the member flag; K is a functor
 // template over <T, C, MEMBER>.
 template <typename T, template <typename, int, bool> class K, typename... A>
-cudaError_t dispatch_cm(int C, int mh, A... args) {
+int dispatch_cm(int C, int mh, A... args) {
   switch (C) {
     case 1:
       return mh > 0 ? K<T, 1, true>::run(args...)
@@ -659,23 +656,23 @@ cudaError_t dispatch_cm(int C, int mh, A... args) {
       return mh > 0 ? K<T, 3, true>::run(args...)
                     : K<T, 3, false>::run(args...);
     default:
-      return cudaErrorInvalidValue;
+      return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename T, int C, bool MEMBER>
 struct Correct {
   template <typename... A>
-  static cudaError_t run(A... args) {
-    return launch_correct<T, C, MEMBER>(args...);
+  static int run(A... args) {
+    return (int)launch_correct<T, C, MEMBER>(args...);
   }
 };
 
 template <typename T, int C, bool MEMBER>
 struct Tile {
   template <typename... A>
-  static cudaError_t run(A... args) {
-    return dispatch_tile<T, C, MEMBER>(args...);
+  static int run(A... args) {
+    return launch_tile<T, C, MEMBER>(args...);
   }
 };
 
@@ -721,41 +718,27 @@ extern "C" int fluid_maccormack_correct(const void* field,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float md = (float)max_disp;
   if (field_bf16)
-    return (int)dispatch_cm<__nv_bfloat16, Correct>(
-        C, mh, field, phi_hat, cmin, cmax, vel, out, H, W, mh, mw, dt, md,
-        no_slip, s);
-  return (int)dispatch_cm<float, Correct>(C, mh, field, phi_hat, cmin, cmax,
-                                          vel, out, H, W, mh, mw, dt, md,
-                                          no_slip, s);
+    return dispatch_cm<__nv_bfloat16, Correct>(C, mh, field, phi_hat, cmin,
+                                               cmax, vel, out, H, W, mh, mw,
+                                               dt, md, no_slip, s);
+  return dispatch_cm<float, Correct>(C, mh, field, phi_hat, cmin, cmax, vel,
+                                     out, H, W, mh, mw, dt, md, no_slip, s);
 }
 
 // K5's window route, one launch.  field, out: [C, H, W] float32
 // (field_bf16 = 0) or bfloat16 (= 1); vel: [2, H, W] float32; mh, mw as for
-// fluid_advect; tiles of tile_h x tile_w cells (16 x 64, 32 x 32 or
-// 32 x 64), whose window must fit (fluid_maccormack_window_bytes).
+// fluid_advect.  Returns kWindowTooLarge (-1), launching nothing, where the
+// window for reach max_disp + 1 does not fit a block of the current
+// device: the wrapper then takes the two-launch route.
 extern "C" int fluid_maccormack(const void* field, const void* vel,
                                 void* out, int C, int H, int W,
                                 int field_bf16, float dt, int max_disp,
-                                int mh, int mw, int no_slip, int tile_h,
-                                int tile_w, void* stream) {
+                                int mh, int mw, int no_slip, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (max_disp < 0) return (int)cudaErrorInvalidValue;
   if (field_bf16)
-    return (int)dispatch_cm<__nv_bfloat16, Tile>(
-        C, mh, tile_h, tile_w, field, vel, out, H, W, mh, mw, dt, max_disp,
-        no_slip, s);
-  return (int)dispatch_cm<float, Tile>(C, mh, tile_h, tile_w, field, vel,
-                                       out, H, W, mh, mw, dt, max_disp,
-                                       no_slip, s);
-}
-
-// The window route's shared-memory bytes for C channels (field_bf16 as
-// above) at max_disp on a tile_h x tile_w tile, or 0 if fluid_maccormack
-// refuses it on the current device: the wrapper then takes the two-launch
-// route.
-extern "C" int fluid_maccormack_window_bytes(int C, int field_bf16,
-                                             int max_disp, int tile_h,
-                                             int tile_w) {
-  if (C < 1 || C > 3 || max_disp < 0 || !tile_taken(tile_h, tile_w))
-    return 0;
-  return window_bytes(C, field_bf16 ? 2 : 4, max_disp, tile_h, tile_w);
+    return dispatch_cm<__nv_bfloat16, Tile>(C, mh, field, vel, out, H, W, mh,
+                                            mw, dt, max_disp, no_slip, s);
+  return dispatch_cm<float, Tile>(C, mh, field, vel, out, H, W, mh, mw, dt,
+                                  max_disp, no_slip, s);
 }

@@ -21,13 +21,14 @@ K5 (both versions): ``phi_hat, cmin, cmax = K2(field, vel, return_minmax)``,
 ``phi_back = K2(phi_hat, -vel)``, then ``phi_hat + 0.5*(field - phi_back)``
 clamped to ``[min(cmin, phi_hat), max(cmax, phi_hat)]``, each op rounding
 to the field dtype.  The kernel is one launch per call (the window route,
-``csrc/advect.cu`` ``maccormack_tile_kernel``): each block of
-``MACCORMACK_TILE`` cells computes ``phi_hat`` over its tile +- its reach
-(``maccormack_reach``) in shared memory and applies the backward pass and
-the limiter there.  Where the worst-case window (reach ``max_disp + 1``)
-does not fit a block's shared memory, the call takes the two-launch route
-(K2 with the raw extrema, then the backward pass and the limiter): a route
-chosen by shape, counted by ``advect_maccormack_kernel.two_launch_calls``.
+``csrc/advect.cu`` ``maccormack_tile_kernel``): each block of 32 x 32
+cells computes ``phi_hat`` over its tile +- its reach (``maccormack_reach``)
+in shared memory and applies the backward pass and the limiter there.
+Where the worst-case window (reach ``max_disp + 1``) does not fit a block's
+shared memory, the launch reports so and the call takes the two-launch
+route (K2 with the raw extrema, then the backward pass and the limiter): a
+route chosen by shape, counted by
+``advect_maccormack_kernel.two_launch_calls``.
 
 K6, the tiled-domain modes (``advect.py:112-165, 601-607``):
 
@@ -73,10 +74,7 @@ from .build import load, stream_of
 from .modes import BLOCK_MODE, check_block, check_member, refuse_unported
 
 _NONE, _RAW = 0, 1   # enum MinMax in csrc/advect.cu
-
-# K5's window route: (rows, columns) of a block's tile; csrc/advect.cu
-# takes 16 x 64, 32 x 32 and 32 x 64.
-MACCORMACK_TILE = (32, 32)
+_WINDOW_TOO_LARGE = -1   # kWindowTooLarge in csrc/advect.cu
 
 
 def _origin(n, m, device):
@@ -108,10 +106,8 @@ def advect_reference(field, vel, dt, no_slip, max_disp=12, clip01=False,
     v = vel.to(torch.float32)
     si_raw = fi - v[0] * dt
     sj_raw = fj - v[1] * dt
-    # fmax / fmin drop a NaN as the kernel's fmaxf / fminf do: a NaN
-    # velocity's source clamps to x - max_disp
-    si = torch.fmin(torch.fmax(si_raw, fi - max_disp), fi + max_disp)
-    sj = torch.fmin(torch.fmax(sj_raw, fj - max_disp), fj + max_disp)
+    si = torch.minimum(torch.maximum(si_raw, fi - max_disp), fi + max_disp)
+    sj = torch.minimum(torch.maximum(sj_raw, fj - max_disp), fj + max_disp)
     if member is None:
         si = torch.clamp(si, 0.0, gh - 1.0)
         sj = torch.clamp(sj, 0.0, gw - 1.0)
@@ -334,25 +330,22 @@ def maccormack_reach(vel, dt, max_disp):
     return tuple(int(x) + 1 for x in r.amax(dim=(1, 2)))
 
 
-def maccormack_window_bytes(c, dtype, max_disp):
-    """Shared memory of the window route for ``c`` channels of ``dtype`` at
-    ``max_disp`` on ``MACCORMACK_TILE``, or 0 where the window does not fit
-    a block of the current device."""
-    return load().value("fluid_maccormack_window_bytes", c,
-                        int(dtype == torch.bfloat16), int(max_disp),
-                        *MACCORMACK_TILE)
-
-
 def _launch_maccormack(f3, vel, dt, no_slip, max_disp, member):
-    """The window route: one launch."""
+    """The window route: one launch, or None where its window does not fit
+    a block of the device."""
     c, h, w = f3.shape
     mh, mw = member or (0, 0)
     out = torch.empty_like(f3)
     with torch.cuda.device(f3.device):
-        load().call("fluid_maccormack", f3.data_ptr(), vel.data_ptr(),
-                    out.data_ptr(), c, h, w, int(f3.dtype == torch.bfloat16),
-                    float(dt), int(max_disp), mh, mw, int(no_slip),
-                    *MACCORMACK_TILE, stream_of(f3))
+        err = load().value("fluid_maccormack", f3.data_ptr(), vel.data_ptr(),
+                           out.data_ptr(), c, h, w,
+                           int(f3.dtype == torch.bfloat16), float(dt),
+                           int(max_disp), mh, mw, int(no_slip),
+                           stream_of(f3))
+    if err == _WINDOW_TOO_LARGE:
+        return None
+    if err != 0:
+        raise RuntimeError(f"fluid_maccormack failed with CUDA error {err}")
     return out
 
 
@@ -394,10 +387,8 @@ def advect_maccormack_kernel(field: torch.Tensor, vel: torch.Tensor,
         return advect_maccormack_reference(field, vel, dt, no_slip,
                                            max_disp=max_disp, member=member)
     f3 = _checked_3d("advect_maccormack_kernel", field, vel, max_disp)
-    with torch.cuda.device(f3.device):
-        window = maccormack_window_bytes(f3.shape[0], f3.dtype, max_disp)
-    if window:
-        out = _launch_maccormack(f3, vel, dt, no_slip, max_disp, member)
+    out = _launch_maccormack(f3, vel, dt, no_slip, max_disp, member)
+    if out is not None:
         advect_maccormack_kernel.launches += 1
         advect_maccormack_kernel.member_launches += member is not None
     else:

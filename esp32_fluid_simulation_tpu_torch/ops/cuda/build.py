@@ -52,12 +52,8 @@ _SIGNATURES = {
     "fluid_maccormack_correct": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                  _I, _I, _I, _I, _P),
     # field, vel, out, C, H, W, field_bf16, dt, max_disp, mh, mw, no_slip,
-    # tile_h, tile_w, stream
-    "fluid_maccormack": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
-                         _I, _P),
-    # C, field_bf16, max_disp, tile_h, tile_w -> shared-memory bytes (0:
-    # refused)
-    "fluid_maccormack_window_bytes": (_I, _I, _I, _I, _I),
+    # stream (-1: the window does not fit, nothing launched)
+    "fluid_maccormack": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P),
     # vel, vel_out, p, dxd, ipos, ivel, iact, n_imp, H, W, mh, mw, oi, oj,
     # GH, GW, halo, p_out, dx, inv2dx, iters, omega, one_m_w, stream
     "fluid_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -24,7 +24,7 @@ from esp32_fluid_simulation_tpu_torch.models.stable_fluids import (
     impulse_overlay)
 from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
     advect_kernel, advect_maccormack_kernel, advect_maccormack_reference,
-    advect_reference, maccormack_window_bytes)
+    advect_reference)
 from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
     project_fused, project_fused_reference)
 from esp32_fluid_simulation_tpu_torch.ops.cuda.advect3d import (
@@ -121,14 +121,13 @@ def test_maccormack_kernel_bit_equal(cuda, rng, dtype, channels, no_slip):
 
 
 @pytest.mark.parametrize("velocity", ["full_reach", "nan", "zero"])
-@pytest.mark.parametrize("tile", [(16, 64), (32, 32), (32, 64)])
-def test_maccormack_window_reach_bit_equal(cuda, rng, monkeypatch, velocity,
-                                           tile):
-    """K5's window route on every tile it takes: the CFL clamp binding
-    everywhere (the reach is max_disp + 1), a NaN and an inf velocity cell
-    (they count as max_disp), and a velocity at rest (reach 1)."""
+def test_maccormack_window_reach_bit_equal(cuda, rng, velocity):
+    """K5's window route with the CFL clamp binding everywhere (the reach is
+    max_disp + 1) and at rest (reach 1), against the plain version; with a
+    NaN and an inf velocity cell (each counts as max_disp) against the
+    two-launch route, which shares the kernel's clamp (the plain version,
+    as JAX, has no answer for a NaN velocity)."""
     from esp32_fluid_simulation_tpu_torch.ops.cuda import advect
-    monkeypatch.setattr(advect, "MACCORMACK_TILE", tile)
     scale = {"full_reach": 2000.0, "nan": 30.0, "zero": 0.0}[velocity]
     vel = (scale * rng.standard_normal((2,) + SHAPE)).astype(np.float32)
     if velocity == "nan":
@@ -142,7 +141,10 @@ def test_maccormack_window_reach_bit_equal(cuda, rng, monkeypatch, velocity,
         before = advect_maccormack_kernel.launches
         got = advect_maccormack_kernel(field, vel, 1 / 30, no_slip)
         assert advect_maccormack_kernel.launches == before + 1
-        want = advect_maccormack_reference(field, vel, 1 / 30, no_slip)
+        if velocity == "nan":
+            want = advect._launch_two(field, vel, 1 / 30, no_slip, 12, None)
+        else:
+            want = advect_maccormack_reference(field, vel, 1 / 30, no_slip)
         assert not torch.isnan(want).any()
         assert torch.equal(_bits(got), _bits(want))
 
@@ -152,8 +154,6 @@ def test_maccormack_two_launch_route_bit_equal(cuda, rng):
     two-launch route, counted on its own, bit-equal too (with and without
     members)."""
     md = 120
-    assert maccormack_window_bytes(2, torch.float32, md) == 0
-    assert maccormack_window_bytes(3, torch.bfloat16, 12) > 0
     vel = _on((3000 * rng.standard_normal((2,) + SHAPE)).astype(np.float32),
               cuda)
     dye = _on(rng.random((3,) + SHAPE, dtype=np.float32),
@@ -171,6 +171,11 @@ def test_maccormack_two_launch_route_bit_equal(cuda, rng):
         v, v, 1 / 30, True, md, member=member))
     assert (advect_maccormack_kernel.launches,
             advect_maccormack_kernel.two_launch_calls) == (before[0],
+                                                           before[1] + 3)
+    # at max_disp 12 the window fits: the same call takes one launch
+    advect_maccormack_kernel(dye, vel, 1 / 30, False, 12)
+    assert (advect_maccormack_kernel.launches,
+            advect_maccormack_kernel.two_launch_calls) == (before[0] + 1,
                                                            before[1] + 3)
 
 

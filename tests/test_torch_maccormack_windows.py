@@ -12,13 +12,21 @@ version samples it, and the tiles are stitched.  A tap outside the window
 (even at weight 0) turns a cell into NaN, so the stitched result equals
 ``advect_maccormack_reference`` bit for bit only if every tile's window
 holds all its taps.  The forward pass and the extrema are pointwise, so
-they are taken from the whole grid.
+they are taken from the whole grid.  The kernel's tile is 32 x 32; the
+schedule does not depend on it, and 16 x 64 tiles run here too.
+
+A NaN velocity has no answer in the plain version (it keeps the NaN, as
+JAX's ``jnp.clip`` does), while the kernel's CFL clamp drops it.  Those
+cases hold the window schedule to the whole-grid schedule of the same K2,
+``_kernel_k2``, a model of the kernel's clamp: the CPU's view of holding
+the window route to the two-launch route.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from esp32_fluid_simulation_tpu_torch.ops.advect import noslip_axis_factor
 from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
     advect_maccormack_reference, advect_reference, maccormack_reach)
 
@@ -73,6 +81,33 @@ def _inputs(shape, channels, dtype, velocity, seed):
     return torch.from_numpy(field).to(dtype), vel
 
 
+def _kernel_k2(field, vel, dt, no_slip, max_disp, return_minmax=False,
+               member=None):
+    """K2 as ``csrc/advect.cu`` computes it for any velocity.  Its CFL clamp
+    (``fmaxf``/``fminf``) drops a NaN displacement, so the source clamps to
+    x - max_disp, and its no-slip test passes a NaN coordinate.  Built on
+    the plain version: a NaN displacement is replaced by one beyond the
+    clamp, and the no-slip factor is applied from the NaN coordinate.  On
+    finite velocities it is the plain version."""
+    v = torch.where(torch.isnan(vel), torch.full_like(vel, (max_disp + 1) / dt),
+                    vel)
+    got = advect_reference(field.to(torch.float32), v, dt, False, max_disp,
+                           return_minmax=return_minmax, member=member)
+    acc = got[0] if return_minmax else got
+    if no_slip:
+        h, w = vel.shape[-2:]
+        mh, mw = member or (h, w)
+        fi = torch.arange(h, dtype=torch.float32)[:, None].expand(h, w)
+        fj = torch.arange(w, dtype=torch.float32)[None, :].expand(h, w)
+        lo_i = (torch.arange(h)[:, None] // mh * mh).to(torch.float32)
+        lo_j = (torch.arange(w)[None, :] // mw * mw).to(torch.float32)
+        acc = acc * (noslip_axis_factor(fi - vel[0] * dt - lo_i, mh)
+                     * noslip_axis_factor(fj - vel[1] * dt - lo_j, mw))
+    if return_minmax:
+        return tuple(x.to(field.dtype) for x in (acc,) + got[1:])
+    return acc.to(field.dtype)
+
+
 def _span(t0, t1, m, n):
     """The rows (columns) of the member tiles that cells t0 .. t1-1 touch,
     or the whole axis of n without members."""
@@ -81,18 +116,22 @@ def _span(t0, t1, m, n):
     return t0 // m * m, (t1 - 1) // m * m + m
 
 
-def _windowed(field, vel, no_slip, member, tile, shrink=0):
-    """K5 through the window schedule, stitched; ``shrink`` cuts each
-    tile's reach (to show that the reach is needed)."""
+def _windowed(field, vel, no_slip, member, tile, shrink=0,
+              k2=advect_reference, reach_vel=None):
+    """K5 through the window schedule with the K2 ``k2``, stitched;
+    ``shrink`` cuts each tile's reach and ``reach_vel`` replaces the
+    velocities it is taken from (to show that the reach is needed).  A tile
+    of the whole grid is the two-launch schedule."""
+    reach_vel = vel if reach_vel is None else reach_vel
     h, w = field.shape[-2:]
-    phi_hat, cmin, cmax = advect_reference(field, vel, DT, no_slip, MD,
-                                           return_minmax=True, member=member)
+    phi_hat, cmin, cmax = k2(field, vel, DT, no_slip, MD, return_minmax=True,
+                             member=member)
     mh, mw = member or (None, None)
     out = torch.empty_like(field)
     for t0 in range(0, h, tile[0]):
         for u0 in range(0, w, tile[1]):
             t1, u1 = min(t0 + tile[0], h), min(u0 + tile[1], w)
-            ri, rj = maccormack_reach(vel[:, t0:t1, u0:u1], DT, MD)
+            ri, rj = maccormack_reach(reach_vel[:, t0:t1, u0:u1], DT, MD)
             ri, rj = ri - shrink, rj - shrink
             lo_i, hi_i = _span(t0, t1, mh, h)
             lo_j, hi_j = _span(u0, u1, mw, w)
@@ -100,8 +139,7 @@ def _windowed(field, vel, no_slip, member, tile, shrink=0):
             wj0, wj1 = max(u0 - rj, lo_j), min(u1 + rj, hi_j)
             window = torch.full_like(phi_hat, float("nan"))
             window[:, wi0:wi1, wj0:wj1] = phi_hat[:, wi0:wi1, wj0:wj1]
-            back = advect_reference(window, -vel, DT, no_slip, MD,
-                                    member=member)
+            back = k2(window, -vel, DT, no_slip, MD, member=member)
             own = (slice(None), slice(t0, t1), slice(u0, u1))
             ph = phi_hat[own]
             corrected = ph + 0.5 * (field[own] - back[own])
@@ -115,12 +153,52 @@ def test_windows_stitch_to_the_reference(case):
     shape, channels, dtype, no_slip, member, tile, velocity = CASES[case]
     field, vel = _inputs(shape, channels, dtype, velocity,
                          sum(shape) + channels)
-    want = advect_maccormack_reference(field, vel, DT, no_slip, MD,
-                                       member=member)
-    got = _windowed(field, vel, no_slip, member, tile)
+    if velocity == "nan":
+        # the window route against the two-launch route, both on the
+        # kernel's clamp
+        want = _windowed(field, vel, no_slip, member, shape, k2=_kernel_k2)
+        got = _windowed(field, vel, no_slip, member, tile, k2=_kernel_k2)
+    else:
+        want = advect_maccormack_reference(field, vel, DT, no_slip, MD,
+                                           member=member)
+        got = _windowed(field, vel, no_slip, member, tile)
     assert got.dtype == want.dtype == dtype
     assert not torch.isnan(want).any()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("member", [None, (17, 21)])
+def test_kernel_k2_model_is_the_plain_version(member):
+    """On finite velocities (the CFL clamp binding on some cells) the NaN
+    cases' model of K2 is the plain version, bit for bit."""
+    for velocity, channels, dtype, no_slip in (
+            ("reach", 2, torch.float32, True),
+            ("calm", 3, torch.bfloat16, False),
+            ("reach", 1, torch.bfloat16, True)):
+        field, vel = _inputs((34, 63), channels, dtype, velocity, channels)
+        for want, got in zip(
+                advect_reference(field, vel, DT, no_slip, MD,
+                                 return_minmax=True, member=member),
+                _kernel_k2(field, vel, DT, no_slip, MD, return_minmax=True,
+                           member=member)):
+            assert torch.equal(got, want)
+
+
+def test_a_nan_velocity_takes_the_full_reach():
+    """A NaN cell's source clamps to x - max_disp in both passes, so its
+    tile needs the full reach: a schedule that took the NaN for a velocity
+    at rest would leave that tap outside the window."""
+    rng = np.random.default_rng(5)
+    field = torch.from_numpy(rng.random((2, 64, 96), dtype=np.float32))
+    vel = torch.zeros((2, 64, 96))
+    vel[0, 40, 50] = float("nan")
+    want = _windowed(field, vel, True, None, (64, 96), k2=_kernel_k2)
+    got = _windowed(field, vel, True, None, (16, 64), k2=_kernel_k2)
+    assert not torch.isnan(want).any()
+    assert torch.equal(got, want)
+    blind = _windowed(field, vel, True, None, (16, 64), k2=_kernel_k2,
+                      reach_vel=torch.nan_to_num(vel, nan=0.0))
+    assert torch.isnan(blind).any()
 
 
 def test_the_reach_is_tight():
