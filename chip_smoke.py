@@ -211,6 +211,8 @@ BLOCK3_CASES = (((9, 130, 200), (65, 100),
 SHARDED_SMOKE_STEPS = 10
 DYEBED3 = (64, 1024, 1024)     # 1.6 GB of state (f32 velocity and dye)
 DYEBED3_STEPS = 3
+K10_CALLS = 20                 # K10 calls a profiler trace of phase 5
+SCRATCH_BYTES = 256 << 20      # written before each cold K10 call: 5x L2
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 PKG = "esp32_fluid_simulation_tpu_torch"
@@ -583,12 +585,54 @@ def phase1b_kernels3d(dev):
                   sor3d_reference(p, 1.0, iters, 1.5))
         rho = 1.2 * torch.rand(shape, generator=gen, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
+            x = rho.to(dtype)
             for bswap in (True, False):
                 check("K10 render_smoke_mip_kernel",
                       f"K10 {str(dtype)[6:]} bswap={bswap}",
-                      render_smoke_mip_kernel(rho.to(dtype), bswap),
-                      render_smoke_mip_reference(rho.to(dtype), bswap))
+                      render_smoke_mip_kernel(x, bswap),
+                      render_smoke_mip_reference(x, bswap))
+            one_launch(f"K10 {str(dtype)[6:]} at {shape}",
+                       lambda: render_smoke_mip_kernel(x))
+    cases = mip_cases()
+    print("phase 1b K10 at every branch of its plan (tests/mip_cases.py)")
+    for name, (*_, route) in cases.MIP_CASES.items():
+        vol, vmax = cases.mip_case(name, dev)
+        for bswap in (True, False):
+            n = render_smoke_mip_kernel.launches
+            got = render_smoke_mip_kernel(vol, bswap, vmax)
+            if render_smoke_mip_kernel.launches != n + 1:
+                raise AssertionError(f"phase 1b: K10 {name} launched "
+                                     f"{render_smoke_mip_kernel.launches - n}"
+                                     " times")
+            check("K10 render_smoke_mip_kernel",
+                  f"K10 {name} ({route}) bswap={bswap}", got,
+                  render_smoke_mip_reference(vol, bswap, vmax))
+        one_launch(f"K10 {name}",
+                   lambda: render_smoke_mip_kernel(vol, True, vmax))
     return err
+
+
+def mip_cases():
+    """``tests/mip_cases.py``: the volumes K10 is held on, shared with the
+    tests (it imports nothing of JAX)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "mip_cases", ROOT / "tests" / "mip_cases.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def one_launch(label, fn):
+    """Fail unless one call of ``fn`` launches one device kernel (a
+    profiler count; skipped when the trace holds no device activity)."""
+    names = device_kernels(fn)
+    if names is None:
+        print(f"  {label}: device launches per call not measured (no device "
+              "activity in the profiler trace)")
+    elif len(names) != 1:
+        raise AssertionError(f"{label}: {len(names)} device launches per "
+                             f"call ({names})")
 
 
 def phase2_golden(dev):
@@ -1934,6 +1978,15 @@ def phase5_smoke_timing(dev, cfg, state, card):
           "call):")
     for k, v in res.items():
         print(f"  {k}: {v:.4f} ms")
+    k10 = k10_times(dev, cfg, state)
+    print(f"phase 5 K10 at {cfg.shape} on {card} (device times from the "
+          "profiler, the chain's by CUDA events, the host's by its clock):")
+    for k, v in k10.items():
+        print(f"  {k}: " + ("not measured" if v is None else f"{v:.4f}"))
+    # the main path's device time where the profiler has one
+    main_us = k10["K10 in step + frame, device us"]
+    if main_us is not None:
+        res["K10 render_smoke_mip_kernel"] = main_us / 1e3
 
     n = vel[0].numel()
     d, h, w = cfg.shape
@@ -1956,6 +2009,72 @@ def phase5_smoke_timing(dev, cfg, state, card):
             res["K10 render_smoke_mip_kernel plain"],
             nbytes(rho) + 2 * h * w, n + 12 * h * w),
     }
+
+
+def device_us(fn, match, n):
+    """Mean device time (us) of the kernels whose name holds ``match`` over
+    ``n`` calls of ``fn`` in one profiler trace; None if the trace holds
+    no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and match in e.name]
+    return sum(us) / len(us) if us else None
+
+
+def k10_times(dev, cfg, state, calls=K10_CALLS):
+    """K10 at ``cfg.shape``: its device time (profiler) cold (a scratch of
+    ``SCRATCH_BYTES`` written before each call: the volume comes from
+    device memory) and warm (calls back to back: it may sit in L2), bf16
+    and f32; its device time inside the main path, a chain of
+    ``make_smoke_step`` + ``render_smoke`` from ``state``, and that chain's
+    ms per step + frame (CUDA events); the wrapper's host us per call (1000
+    enqueues timed by the host's clock, one synchronise at the end)."""
+    from esp32_fluid_simulation_tpu_torch import make_smoke_step, render_smoke
+    from esp32_fluid_simulation_tpu_torch.render.cuda_smoke import (
+        render_smoke_mip_kernel)
+    res = {}
+    scratch = torch.empty(SCRATCH_BYTES // 4, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        rho = state.density.to(dtype)
+
+        def cold():
+            scratch.fill_(1.0)
+            render_smoke_mip_kernel(rho)
+
+        name = str(dtype)[6:]
+        res[f"K10 cold {name}, device us"] = device_us(cold, "smoke_mip",
+                                                       calls)
+        res[f"K10 warm {name}, device us"] = device_us(
+            lambda: render_smoke_mip_kernel(rho), "smoke_mip", calls)
+    del scratch
+    step = make_smoke_step(cfg)
+    box = {"st": state}
+
+    def frame():
+        box["st"] = step(box["st"])
+        render_smoke(box["st"].density)
+
+    res["K10 in step + frame, device us"] = device_us(frame, "smoke_mip",
+                                                      calls)
+    res["smoke step + frame, ms"] = cuda_ms(frame, calls, warmup=2)
+    rho = state.density
+    render_smoke_mip_kernel(rho)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        render_smoke_mip_kernel(rho)
+    torch.cuda.synchronize()
+    res["K10 host us per call (1000 enqueues)"] = (time.perf_counter()
+                                                   - t0) * 1e3
+    return res
 
 
 def haloed(x, off, bshape, g):

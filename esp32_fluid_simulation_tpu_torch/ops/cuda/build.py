@@ -88,8 +88,9 @@ _SIGNATURES = {
     # one_m_w, tile_h, tile_w, threads_y, stream
     "fluid_sor_window": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                          _F, _F, _I, _I, _I, _P),
-    # density, out, D, H, W, density_bf16, inv_vmax, bswap, stream
-    "fluid_smoke_mip": (_P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # density, out, D, H, W, density_bf16, vec, seg_len, threads_x,
+    # segments, inv_vmax, bswap, stream
+    "fluid_smoke_mip": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 
 

@@ -57,7 +57,9 @@ def render_smoke(density: torch.Tensor, mode: str = "mip", axis: int = 0,
     if (mode == "mip" and axis == 0 and fmt == "rgb565" and density.is_cuda
             and density.shape[1] * density.shape[2] >= 128 * 128):
         from .cuda_smoke import render_smoke_mip_kernel
-        return render_smoke_mip_kernel(density, bswap=bswap, vmax=vmax)
+        # a view (a transpose, a slice) is copied to the kernel's layout
+        return render_smoke_mip_kernel(density.contiguous(), bswap=bswap,
+                                       vmax=vmax)
     view = _view(density, mode, axis, index)
     t = view.to(torch.float32) * float(np.float32(1.0 / vmax))
     rgb = heat_colormap(t)

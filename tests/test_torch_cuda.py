@@ -36,10 +36,12 @@ from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import (
     sor_solve_kernel, sor_solve_reference)
 from esp32_fluid_simulation_tpu_torch.ops.cuda.sor3d import (
     sor3d_chunk, sor3d_chunk_reference, sor3d_solve, sor3d_reference)
+from esp32_fluid_simulation_tpu_torch.render import render_smoke
 from esp32_fluid_simulation_tpu_torch.render.cuda_smoke import (
-    render_smoke_mip_kernel, render_smoke_mip_reference)
+    mip_plan, render_smoke_mip_kernel, render_smoke_mip_reference)
 from esp32_fluid_simulation_tpu_torch.render.cuda_upscale import (
     render_rgb565_kernel, render_rgb565_reference)
+from mip_cases import MIP_CASES, mip_case
 
 pytestmark = pytest.mark.gpu
 
@@ -414,6 +416,38 @@ def test_smoke_mip_kernel_bit_equal(cuda, rng, dtype):
         want = render_smoke_mip_reference(rho, bswap=bswap)
         assert torch.equal(_bits(got), _bits(want))
         assert int(_bits(got)[7, 9]) == 0
+
+
+@pytest.mark.parametrize("case", list(MIP_CASES))
+def test_smoke_mip_kernel_cases_bit_equal(cuda, case):
+    """Every branch of K10 and its plan (``mip_cases.py``, as
+    ``chip_smoke.py`` phase 1b): one launch a call, bit-equal."""
+    vol, vmax = mip_case(case, cuda)
+    assert mip_plan(vol).route == MIP_CASES[case][-1]
+    for bswap in (True, False):
+        n = render_smoke_mip_kernel.launches
+        got = render_smoke_mip_kernel(vol, bswap=bswap, vmax=vmax)
+        assert render_smoke_mip_kernel.launches == n + 1
+        want = render_smoke_mip_reference(vol, bswap=bswap, vmax=vmax)
+        assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("view", ["transpose", "slice", "flat-offset"])
+def test_render_smoke_views_through_the_kernel(cuda, rng, view):
+    """``render_smoke`` of a view of the volume (a transpose, a slice at an
+    aligned storage offset, one at a misaligned offset) runs K10 once and
+    equals the plain version bit for bit."""
+    shape = (12, 130, 136)
+    base = _on(1.2 * rng.random(shape, dtype=np.float32),
+               cuda).to(torch.bfloat16)
+    vol = {"transpose": lambda: base.transpose(1, 2),
+           "slice": lambda: base[1:],
+           "flat-offset": lambda: base.view(-1)[1:1 + 11 * 130 * 136].view(
+               11, 130, 136)}[view]()
+    n = render_smoke_mip_kernel.launches
+    got = render_smoke(vol)
+    assert render_smoke_mip_kernel.launches == n + 1
+    assert torch.equal(_bits(got), _bits(render_smoke_mip_reference(vol)))
 
 
 @pytest.mark.parametrize("tiling", ["odd", "even"])
