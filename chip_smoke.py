@@ -2032,8 +2032,10 @@ def device_us(fn, match, n):
 def k10_times(dev, cfg, state, calls=K10_CALLS):
     """K10 at ``cfg.shape``: its device time (profiler) cold (a scratch of
     ``SCRATCH_BYTES`` written before each call: the volume comes from
-    device memory) and warm (calls back to back: it may sit in L2), bf16
-    and f32; its device time inside the main path, a chain of
+    device memory, and L2 holds dirty lines, as after the step's kernels),
+    cold with L2 clean (the scratch read before each call), and warm
+    (calls back to back: it may sit in L2), bf16 and f32; its device time
+    inside the main path, a chain of
     ``make_smoke_step`` + ``render_smoke`` from ``state``, and that chain's
     ms per step + frame (CUDA events); the wrapper's host us per call (1000
     enqueues timed by the host's clock, one synchronise at the end)."""
@@ -2041,7 +2043,7 @@ def k10_times(dev, cfg, state, calls=K10_CALLS):
     from esp32_fluid_simulation_tpu_torch.render.cuda_smoke import (
         render_smoke_mip_kernel)
     res = {}
-    scratch = torch.empty(SCRATCH_BYTES // 4, device=dev)
+    scratch = torch.zeros(SCRATCH_BYTES // 4, device=dev)
     for dtype in (torch.bfloat16, torch.float32):
         rho = state.density.to(dtype)
 
@@ -2049,9 +2051,15 @@ def k10_times(dev, cfg, state, calls=K10_CALLS):
             scratch.fill_(1.0)
             render_smoke_mip_kernel(rho)
 
+        def cold_clean():
+            torch.amax(scratch)
+            render_smoke_mip_kernel(rho)
+
         name = str(dtype)[6:]
         res[f"K10 cold {name}, device us"] = device_us(cold, "smoke_mip",
                                                        calls)
+        res[f"K10 cold {name} L2 clean, device us"] = device_us(
+            cold_clean, "smoke_mip", calls)
         res[f"K10 warm {name}, device us"] = device_us(
             lambda: render_smoke_mip_kernel(rho), "smoke_mip", calls)
     del scratch

@@ -27,10 +27,10 @@ from .smoke import heat_colormap
 from .upscale import pack_rgb565
 from ..ops.cuda.build import load, stream_of
 
-# Launch geometry: pixel groups and depth segments a block
-# (tools/torch_k10_mip.py sweeps them on the card).
+# Launch geometry: pixel groups and depth segments a block, the fastest
+# cold at 256^3 bf16 within 1% (tools/torch_k10_mip.py --sweep, PERF.md)
 THREADS_X = 32
-SEGMENTS = 8
+SEGMENTS = 16
 _INT_MAX = 2 ** 31 - 1
 
 
