@@ -556,6 +556,7 @@ def phase1b_kernels3d(dev):
 
     gen = torch.Generator(device=dev).manual_seed(4321)
     err = {}
+    k10_calls = []
 
     def check(name, label, got, want):
         err[name] = max(err.get(name, 0.0), compare(label, got, want))
@@ -591,8 +592,7 @@ def phase1b_kernels3d(dev):
                       f"K10 {str(dtype)[6:]} bswap={bswap}",
                       render_smoke_mip_kernel(x, bswap),
                       render_smoke_mip_reference(x, bswap))
-            one_launch(f"K10 {str(dtype)[6:]} at {shape}",
-                       lambda: render_smoke_mip_kernel(x))
+            k10_calls.append((x, 1.0))
     cases = mip_cases()
     print("phase 1b K10 at every branch of its plan (tests/mip_cases.py)")
     for name, (*_, route) in cases.MIP_CASES.items():
@@ -607,8 +607,21 @@ def phase1b_kernels3d(dev):
             check("K10 render_smoke_mip_kernel",
                   f"K10 {name} ({route}) bswap={bswap}", got,
                   render_smoke_mip_reference(vol, bswap, vmax))
-        one_launch(f"K10 {name}",
-                   lambda: render_smoke_mip_kernel(vol, True, vmax))
+        k10_calls.append((vol, vmax))
+    # one device launch a call, at every shape above (one profiler trace)
+    names = device_kernels(lambda: [render_smoke_mip_kernel(x, True, vmax)
+                                    for x, vmax in k10_calls])
+    if names is None:
+        print("phase 1b K10 device launches per call: not measured (no "
+              "device activity in the profiler trace)")
+    elif len(names) != len(k10_calls) or not all("smoke_mip" in n
+                                                  for n in names):
+        raise AssertionError(f"phase 1b: {len(k10_calls)} K10 calls "
+                             f"launched {len(names)} device kernels "
+                             f"({sorted(set(names))})")
+    else:
+        print(f"phase 1b K10: 1 device launch per call at each of "
+              f"{len(k10_calls)} shapes")
     return err
 
 
@@ -621,18 +634,6 @@ def mip_cases():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-def one_launch(label, fn):
-    """Fail unless one call of ``fn`` launches one device kernel (a
-    profiler count; skipped when the trace holds no device activity)."""
-    names = device_kernels(fn)
-    if names is None:
-        print(f"  {label}: device launches per call not measured (no device "
-              "activity in the profiler trace)")
-    elif len(names) != 1:
-        raise AssertionError(f"{label}: {len(names)} device launches per "
-                             f"call ({names})")
 
 
 def phase2_golden(dev):
@@ -1978,15 +1979,6 @@ def phase5_smoke_timing(dev, cfg, state, card):
           "call):")
     for k, v in res.items():
         print(f"  {k}: {v:.4f} ms")
-    k10 = k10_times(dev, cfg, state)
-    print(f"phase 5 K10 at {cfg.shape} on {card} (device times from the "
-          "profiler, the chain's by CUDA events, the host's by its clock):")
-    for k, v in k10.items():
-        print(f"  {k}: " + ("not measured" if v is None else f"{v:.4f}"))
-    # the main path's device time where the profiler has one
-    main_us = k10["K10 in step + frame, device us"]
-    if main_us is not None:
-        res["K10 render_smoke_mip_kernel"] = main_us / 1e3
 
     n = vel[0].numel()
     d, h, w = cfg.shape
@@ -2011,58 +2003,38 @@ def phase5_smoke_timing(dev, cfg, state, card):
     }
 
 
-def device_us(fn, match, n):
-    """Mean device time (us) of the kernels whose name holds ``match`` over
-    ``n`` calls of ``fn`` in one profiler trace; None if the trace holds
-    no such kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and match in e.name]
-    return sum(us) / len(us) if us else None
-
-
 def k10_times(dev, cfg, state, calls=K10_CALLS):
     """K10 at ``cfg.shape``: its device time (profiler) cold (a scratch of
     ``SCRATCH_BYTES`` written before each call: the volume comes from
     device memory, and L2 holds dirty lines, as after the step's kernels),
     cold with L2 clean (the scratch read before each call), and warm
-    (calls back to back: it may sit in L2), bf16 and f32; its device time
-    inside the main path, a chain of
-    ``make_smoke_step`` + ``render_smoke`` from ``state``, and that chain's
-    ms per step + frame (CUDA events); the wrapper's host us per call (1000
-    enqueues timed by the host's clock, one synchronise at the end)."""
+    (calls back to back: it may sit in L2), bf16 and f32, and inside the
+    main path, a chain of ``make_smoke_step`` + ``render_smoke`` from
+    ``state``, ``calls`` calls each, all in one profiler trace (after many
+    short traces in one process, a trace was seen to miss device events);
+    that
+    chain's ms per step + frame (CUDA events); the wrapper's host us per
+    call (1000 enqueues timed by the host's clock, one synchronise at the
+    end).  A device time is None when the trace does not hold every K10
+    launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     from esp32_fluid_simulation_tpu_torch import make_smoke_step, render_smoke
     from esp32_fluid_simulation_tpu_torch.render.cuda_smoke import (
         render_smoke_mip_kernel)
-    res = {}
     scratch = torch.zeros(SCRATCH_BYTES // 4, device=dev)
+    runs = {}
     for dtype in (torch.bfloat16, torch.float32):
         rho = state.density.to(dtype)
-
-        def cold():
-            scratch.fill_(1.0)
-            render_smoke_mip_kernel(rho)
-
-        def cold_clean():
-            torch.amax(scratch)
-            render_smoke_mip_kernel(rho)
-
         name = str(dtype)[6:]
-        res[f"K10 cold {name}, device us"] = device_us(cold, "smoke_mip",
-                                                       calls)
-        res[f"K10 cold {name} L2 clean, device us"] = device_us(
-            cold_clean, "smoke_mip", calls)
-        res[f"K10 warm {name}, device us"] = device_us(
-            lambda: render_smoke_mip_kernel(rho), "smoke_mip", calls)
-    del scratch
+        runs[f"K10 cold {name}, device us"] = (
+            lambda rho=rho: (scratch.fill_(1.0),
+                             render_smoke_mip_kernel(rho)))
+        runs[f"K10 cold {name} L2 clean, device us"] = (
+            lambda rho=rho: (torch.amax(scratch),
+                             render_smoke_mip_kernel(rho)))
+        runs[f"K10 warm {name}, device us"] = (
+            lambda rho=rho: render_smoke_mip_kernel(rho))
     step = make_smoke_step(cfg)
     box = {"st": state}
 
@@ -2070,8 +2042,26 @@ def k10_times(dev, cfg, state, calls=K10_CALLS):
         box["st"] = step(box["st"])
         render_smoke(box["st"].density)
 
-    res["K10 in step + frame, device us"] = device_us(frame, "smoke_mip",
-                                                      calls)
+    runs["K10 in step + frame, device us"] = frame
+    for fn in runs.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in runs.values():
+            for _ in range(calls):
+                fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA
+         and "smoke_mip" in e.name), key=lambda e: e.time_range.start)]
+    whole = len(us) == calls * len(runs)
+    if not whole:
+        print(f"  K10 device times not measured: the trace holds {len(us)} "
+              f"of its {calls * len(runs)} launches")
+    res = {label: sum(us[k * calls:(k + 1) * calls]) / calls if whole
+           else None for k, label in enumerate(runs)}
+    del scratch
     res["smoke step + frame, ms"] = cuda_ms(frame, calls, warmup=2)
     rho = state.density
     render_smoke_mip_kernel(rho)
@@ -2083,6 +2073,18 @@ def k10_times(dev, cfg, state, calls=K10_CALLS):
     res["K10 host us per call (1000 enqueues)"] = (time.perf_counter()
                                                    - t0) * 1e3
     return res
+
+
+def phase5_k10(dev, cfg, state, card):
+    """K10's device times (``k10_times``), last of the profiler's users;
+    returns the main path's device time in ms, or None."""
+    k10 = k10_times(dev, cfg, state)
+    print(f"phase 5 K10 at {cfg.shape} on {card} (device times from the "
+          "profiler, the chain's by CUDA events, the host's by its clock):")
+    for k, v in k10.items():
+        print(f"  {k}: " + ("not measured" if v is None else f"{v:.4f}"))
+    main_us = k10["K10 in step + frame, device us"]
+    return None if main_us is None else main_us / 1e3
 
 
 def haloed(x, off, bshape, g):
@@ -3123,6 +3125,11 @@ def main():
                                       k4_path))
     work.update(phase5_sharded3d_timing(dev, card, cfg18, mesh, sh18, cfg19,
                                         sh19))
+    k10_ms = phase5_k10(dev, scfg, smoke, card)
+    if k10_ms is not None:
+        # the summary carries K10's device time inside the main path
+        work["K10 render_smoke_mip_kernel"] = (
+            k10_ms, *work["K10 render_smoke_mip_kernel"][1:])
 
     for name, n in counts.items():
         if n == 0:

@@ -6,7 +6,8 @@
 Steps the plume 20 times from ``init_smoke`` and prints, with the card's
 name and power limit, ``chip_smoke.py``'s ``k10_times`` of the package
 under ``--root`` (default: this checkout): K10's device time (a
-``torch.profiler`` trace) cold and warm, bf16 and f32, inside a chain of
+``torch.profiler`` trace) cold with L2 dirty and with L2 clean, and warm,
+bf16 and f32, inside a chain of
 ``make_smoke_step`` + ``render_smoke``, that chain's ms per step + frame,
 and the wrapper's host us per call.  ``--root`` may name another checkout
 (a parent commit unpacked with ``git archive``): its package is imported
@@ -41,6 +42,23 @@ def chip_smoke():
     return mod
 
 
+def device_us(fn, n):
+    """Mean device time (us) of K10's launches over ``n`` calls of ``fn``
+    in one profiler trace; None if the trace does not hold all ``n``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and "smoke_mip" in e.name]
+    return sum(us) / n if len(us) == n else None
+
+
 def sweep(cs, dev, state):
     from esp32_fluid_simulation_tpu_torch.render import cuda_smoke
     kern = cuda_smoke.render_smoke_mip_kernel
@@ -64,9 +82,8 @@ def sweep(cs, dev, state):
                     scratch.fill_(1.0)
                     kern(rho)
 
-                row += [cs.device_us(cold, "smoke_mip", cs.K10_CALLS),
-                        cs.device_us(lambda: kern(rho), "smoke_mip",
-                                     cs.K10_CALLS)]
+                row += [device_us(cold, cs.K10_CALLS),
+                        device_us(lambda: kern(rho), cs.K10_CALLS)]
             rows.append(row)
     finally:
         cuda_smoke.THREADS_X, cuda_smoke.SEGMENTS = saved
