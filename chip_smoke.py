@@ -543,7 +543,9 @@ def k4_routes(dev, gen):
 
 def phase1b_kernels3d(dev):
     """Each 3D smoke kernel against its plain version, at a small odd shape
-    and at the plume's 256^3."""
+    and at the plume's 256^3, K10 also at every branch of its plan.
+    Returns the largest difference per summary row and K10's calls
+    (volume, vmax), whose device launches phase 5 counts."""
     from esp32_fluid_simulation_tpu_torch.ops.cuda.advect3d import (
         advect3d_kernel, advect3d_reference)
     from esp32_fluid_simulation_tpu_torch.ops.cuda.fd3d import (
@@ -608,21 +610,7 @@ def phase1b_kernels3d(dev):
                   f"K10 {name} ({route}) bswap={bswap}", got,
                   render_smoke_mip_reference(vol, bswap, vmax))
         k10_calls.append((vol, vmax))
-    # one device launch a call, at every shape above (one profiler trace)
-    names = device_kernels(lambda: [render_smoke_mip_kernel(x, True, vmax)
-                                    for x, vmax in k10_calls])
-    if names is None:
-        print("phase 1b K10 device launches per call: not measured (no "
-              "device activity in the profiler trace)")
-    elif len(names) != len(k10_calls) or not all("smoke_mip" in n
-                                                  for n in names):
-        raise AssertionError(f"phase 1b: {len(k10_calls)} K10 calls "
-                             f"launched {len(names)} device kernels "
-                             f"({sorted(set(names))})")
-    else:
-        print(f"phase 1b K10: 1 device launch per call at each of "
-              f"{len(k10_calls)} shapes")
-    return err
+    return err, k10_calls
 
 
 def mip_cases():
@@ -2075,9 +2063,27 @@ def k10_times(dev, cfg, state, calls=K10_CALLS):
     return res
 
 
-def phase5_k10(dev, cfg, state, card):
-    """K10's device times (``k10_times``), last of the profiler's users;
-    returns the main path's device time in ms, or None."""
+def phase5_k10(dev, cfg, state, card, k10_calls):
+    """K10's device launches per call at every phase 1b shape (one trace)
+    and its device times (``k10_times``), last of the profiler's users
+    (a trace taken before the other phases ran made later short traces
+    miss device events); returns the main path's device time in ms, or
+    None."""
+    from esp32_fluid_simulation_tpu_torch.render.cuda_smoke import (
+        render_smoke_mip_kernel)
+    names = device_kernels(lambda: [render_smoke_mip_kernel(x, True, vmax)
+                                    for x, vmax in k10_calls])
+    if names is None:
+        print("phase 5 K10 device launches per call: not measured (no "
+              "device activity in the profiler trace)")
+    elif len(names) != len(k10_calls) or not all("smoke_mip" in n
+                                                  for n in names):
+        raise AssertionError(f"phase 5: {len(k10_calls)} K10 calls "
+                             f"launched {len(names)} device kernels "
+                             f"({sorted(set(names))})")
+    else:
+        print(f"phase 5 K10: 1 device launch per call at each of the "
+              f"{len(k10_calls)} shapes of phase 1b")
     k10 = k10_times(dev, cfg, state)
     print(f"phase 5 K10 at {cfg.shape} on {card} (device times from the "
           "profiler, the chain's by CUDA events, the host's by its clock):")
@@ -3087,7 +3093,8 @@ def main():
             print(f"  ptxas: {line.strip()}")
 
     err = phase1_kernels(dev)
-    err.update(phase1b_kernels3d(dev))
+    err3, k10_calls = phase1b_kernels3d(dev)
+    err.update(err3)
     for name, e in phase13_k6_kernels(dev).items():
         err[name] = max(err.get(name, 0.0), e)
     err.update(phase15_block_kernels(dev))
@@ -3125,7 +3132,7 @@ def main():
                                       k4_path))
     work.update(phase5_sharded3d_timing(dev, card, cfg18, mesh, sh18, cfg19,
                                         sh19))
-    k10_ms = phase5_k10(dev, scfg, smoke, card)
+    k10_ms = phase5_k10(dev, scfg, smoke, card, k10_calls)
     if k10_ms is not None:
         # the summary carries K10's device time inside the main path
         work["K10 render_smoke_mip_kernel"] = (
