@@ -25,7 +25,10 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    ``unit_range`` both ways.
 1b. The same for the 3D smoke kernels (K7 advection, K8 divergence and
    gradient subtract, K9 SOR at iters 0, 1 and 10, K10 MIP render) at
-   (9, 33, 130) and 256^3.
+   (9, 33, 130) and 256^3, K10 also at each volume of
+   ``tests/mip_cases.py`` (every branch of its launch plan: short depths,
+   ``H*W`` off the vector width, storage offsets, NaN, signed zeros,
+   ``vmax``), one wrapper launch a call.
 2. The reference workload ``SimConfig()`` against the golden trajectory
    ``tests/golden/ref_61x81_4steps.npz`` (rtol 1e-4, atol 2e-4), on the
    composed path and on the kernel path.
@@ -134,7 +137,13 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    kernel at 4096^2; the sharded 256^3
    smoke step beside the single-device one, its split (K7 block x8, the
    K9 block chain, the exchanges, the eager ops), and the 3D dye-bed step
-   on both routes.
+   on both routes; last, after every other profiler trace (a short trace
+   taken after an early one in the process was seen to miss device
+   events), K10's device launches per call at each phase 1b volume (one
+   trace) and its device times at 256^3 (one trace: cold with L2 dirty
+   and clean, warm, bf16 and f32, and inside the ``make_smoke_step`` +
+   ``render_smoke`` chain, which the summary's K10 entry carries), the
+   chain's ms per step + frame and the wrapper's host us per call.
 
 Each kernel's entry in the summary carries its bound: the larger of the
 bytes it must move (each input read once, each output written once) over
@@ -1998,9 +2007,7 @@ def k10_times(dev, cfg, state, calls=K10_CALLS):
     cold with L2 clean (the scratch read before each call), and warm
     (calls back to back: it may sit in L2), bf16 and f32, and inside the
     main path, a chain of ``make_smoke_step`` + ``render_smoke`` from
-    ``state``, ``calls`` calls each, all in one profiler trace (after many
-    short traces in one process, a trace was seen to miss device events);
-    that
+    ``state``, ``calls`` calls each, all in one profiler trace; that
     chain's ms per step + frame (CUDA events); the wrapper's host us per
     call (1000 enqueues timed by the host's clock, one synchronise at the
     end).  A device time is None when the trace does not hold every K10
@@ -2065,10 +2072,8 @@ def k10_times(dev, cfg, state, calls=K10_CALLS):
 
 def phase5_k10(dev, cfg, state, card, k10_calls):
     """K10's device launches per call at every phase 1b shape (one trace)
-    and its device times (``k10_times``), last of the profiler's users
-    (a trace taken before the other phases ran made later short traces
-    miss device events); returns the main path's device time in ms, or
-    None."""
+    and its device times (``k10_times``); returns the main path's device
+    time in ms, or None."""
     from esp32_fluid_simulation_tpu_torch.render.cuda_smoke import (
         render_smoke_mip_kernel)
     names = device_kernels(lambda: [render_smoke_mip_kernel(x, True, vmax)
