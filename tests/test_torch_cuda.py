@@ -450,6 +450,18 @@ def test_render_smoke_views_through_the_kernel(cuda, rng, view):
     assert torch.equal(_bits(got), _bits(render_smoke_mip_reference(vol)))
 
 
+def test_smoke_mip_refuses_a_misaligned_vector_plan(cuda):
+    """The C entry refuses 16-byte loads from a misaligned base or with
+    ``H*W`` off the vector width, which the plan would never ask for."""
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.build import load
+    d = torch.zeros(4 * 16 * 24 + 1, dtype=torch.bfloat16, device=cuda)
+    out = torch.empty((16, 24), dtype=torch.uint16, device=cuda)
+    for base, h, w in ((d.data_ptr() + 2, 16, 24), (d.data_ptr(), 3, 5)):
+        with pytest.raises(RuntimeError, match="fluid_smoke_mip failed"):
+            load().call("fluid_smoke_mip", base, out.data_ptr(), 4, h, w, 1,
+                        8, 1, 32, 4, 1.0, 1, None)
+
+
 @pytest.mark.parametrize("tiling", ["odd", "even"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_advect_member_overlay_kernel_bit_equal(cuda, rng, tiling, dtype):
