@@ -118,6 +118,27 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    sharded eager route (rtol 1e-4, atol 1e-4); the K9 block chain on the
    divergence of its state against ``sor_solve`` of the gathered
    divergence and whole-grid K9.
+20. The headless runner at config 0: ``run.main`` for 20 steps with a
+   checkpoint every 10, then ``--resume`` for 10 more (the resumed state,
+   its bf16 dye through the checkpoint, bit-equal to 30 uninterrupted
+   ``make_step`` steps; the ``--frame`` PPM equal to ``render_rgb8`` of the
+   final dye), ``--metrics`` for 10 steps (each row finite, the divergence
+   not raised by the projection), and ``make_guarded_step`` on a
+   NaN-salted state (reset to the fresh state) and on a finite one (kept,
+   equal to ``make_step``'s); launch counters: K1 = steps, K2 = 2*steps.
+21. ``SimPipeline`` at config 0: 60 frames at fps=1000 with two drags
+   pushed before ``run`` (drained at frame 0), every frame delivered and
+   bit-equal to a serial ``make_step_render`` replay; K1 = frames, K2 =
+   2*frames.
+22. ``serve`` at config 0 with ``stream_decim=4`` on a free port: /stats
+   steps advance, /drag answers 204, two /frame (after a drag each)
+   differ; K1 = steps, K2 = 2*steps.
+23. The demo (``esp32_fluid_simulation_tpu_torch.demo``) at its own small
+   sizes: the 2D bed, ``--pipeline`` and ``--smoke3d`` write their frames.
+   Phases 20-22 print their loop's rate (run.main steps/s, the
+   pipeline's frames/s, the server's sim_fps) beside the CUDA-event time
+   of the same entry point chained, with the card's name and power limit;
+   their K1 and K2 launches count in those kernels' rows.
 5. Times (CUDA events), last: ms/step of the kernel and plain paths at
    4096^2, at 256^3, of config 3, of the ``sor_pallas`` step, of config 2
    and of config 4 (whole-ensemble step, member-steps/s, the rollout's step,
@@ -221,6 +242,19 @@ SHARDED_SMOKE_STEPS = 10
 DYEBED3 = (64, 1024, 1024)     # 1.6 GB of state (f32 velocity and dye)
 DYEBED3_STEPS = 3
 K10_CALLS = 20                 # K10 calls a profiler trace of phase 5
+# phases 20-22: the host side at config 0
+RUN_STEPS = 20                 # run.main's first run ...
+RUN_CKPT_EVERY = 10            # ... checkpointing every 10 steps and at the end
+RESUME_STEPS = 10              # --resume of the last checkpoint
+RUN_METRIC_STEPS = 10          # --metrics, a row a step
+RUN_TIME_STEPS = (10, 510)     # timed runs of two lengths, differenced
+PIPE_FRAMES = 60
+# (i, j, vi, vj), pushed before SimPipeline.run: drained at frame 0
+PIPE_DRAGS = ((2048, 1024, 200.0, -150.0), (1024, 3000, -120.0, 90.0))
+SERVE_DECIM = 4                # the server streams a 1024^2 mean-pooled view
+SERVE_MIN_STEPS = 64           # two sim_fps readings (every 32 steps)
+# /drag bodies' (from, to) in screen fractions, one before each /frame
+SERVE_DRAGS = (([0.4, 0.5], [0.6, 0.5]), ([0.3, 0.2], [0.3, 0.4]))
 SCRATCH_BYTES = 256 << 20      # written before each cold K10 call: 5x L2
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -3077,6 +3111,313 @@ def phase5_sharded3d_timing(dev, card, cfg, mesh, sh, cfg19, sh19):
     }
 
 
+def read_ppm(path):
+    """A binary PPM as ``[H, W, 3]`` uint8."""
+    data = Path(path).read_bytes()
+    magic, w, h, maxval, rest = data.split(maxsplit=4)
+    if magic != b"P6" or maxval != b"255":
+        raise AssertionError(f"{path}: not a P6 PPM of 8-bit channels")
+    return np.frombuffer(rest, np.uint8).reshape(int(h), int(w), 3)
+
+
+def host_line(label, host_ms, device_ms, card):
+    """One host-loop rate beside its step chain's CUDA-event time."""
+    print(f"host loop {label}: {host_ms:.4f} ms a step "
+          f"({1e3 / host_ms:.2f} a second) on {card}; the same entry point "
+          f"chained, CUDA events: {device_ms:.4f} ms; the loop's host "
+          f"share {100 * max(0.0, 1 - device_ms / host_ms):.1f}%")
+
+
+def swirl_chain_ms(fn, cfg, state, dev, n=20):
+    """CUDA-event ms a call of ``fn(state, scripted_swirl(cfg, t))``
+    chained, with its impulse upload, as the host loops call it."""
+    from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
+    box = {"st": state, "t": 0}
+
+    def one():
+        out = fn(box["st"], scripted_swirl(cfg, box["t"], device=dev))
+        # a state, or (state, frame)
+        box["st"] = out[0] if isinstance(out[0], tuple) else out
+        box["t"] += 1
+    return cuda_ms(one, n, warmup=2)
+
+
+def phase20_run_main(dev, card):
+    """``run.main`` at config 0: checkpoints, resume, frame, metrics; the
+    guarded step.  Returns the K1 and K2 launches of its runs."""
+    import tempfile
+    from esp32_fluid_simulation_tpu_torch import (SimConfig, init_state,
+                                                  make_step, render_rgb8)
+    from esp32_fluid_simulation_tpu_torch import run as run_cli
+    from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
+    from esp32_fluid_simulation_tpu_torch.utils import (load_checkpoint,
+                                                        make_guarded_step)
+
+    cfg = SimConfig.from_json(CONFIG0.read_text())
+    common = ["--config", str(CONFIG0), "--device", str(dev)]
+    guard = make_guarded_step(cfg)
+    center = (cfg.shape[0] // 2, cfg.shape[1] // 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, ck2 = f"{tmp}/ckpt.npz", f"{tmp}/resumed.npz"
+        ppm, mpath = f"{tmp}/final.ppm", f"{tmp}/metrics.jsonl"
+        counts = reset_counts()
+        run_cli.main(common + ["--steps", str(RUN_STEPS), "--checkpoint", ck,
+                               "--checkpoint-every", str(RUN_CKPT_EVERY)])
+        run_cli.main(["--resume", ck, "--steps", str(RESUME_STEPS),
+                      "--device", str(dev), "--checkpoint", ck2,
+                      "--checkpoint-every", str(RESUME_STEPS),
+                      "--frame", ppm])
+        run_cli.main(common + ["--steps", str(RUN_METRIC_STEPS), "--metrics",
+                               mpath, "--metrics-every", "1"])
+        salted = init_state(cfg, device=dev)
+        salted.velocity[(0,) + center] = float("nan")
+        out, was_reset = guard(salted, scripted_swirl(cfg, 0, device=dev))
+        torch.cuda.synchronize()
+        n = counts()
+        steps = RUN_STEPS + RESUME_STEPS + RUN_METRIC_STEPS + 1
+        if n["K1 project_fused"] != steps or \
+                n["K2 advect_kernel"] != 2 * steps:
+            raise AssertionError(f"phase 20: launch counts {n} for {steps} "
+                                 "steps (want K1 = steps, K2 = 2 * steps)")
+        resumed, rcfg = load_checkpoint(ck2, device=dev)
+        frame = torch.from_numpy(read_ppm(ppm).copy())
+        rows = [json.loads(line) for line in open(mpath)]
+
+    # the same schedule stepped without a break
+    want = init_state(cfg, device=dev)
+    step = make_step(cfg)
+    for t in range(RUN_STEPS + RESUME_STEPS):
+        want = step(want, scripted_swirl(cfg, t, device=dev))
+    same = (rcfg == cfg and resumed.step == want.step
+            and resumed.color.dtype == torch.bfloat16
+            and torch.equal(resumed.velocity, want.velocity)
+            and torch.equal(resumed.color, want.color))
+    print(f"phase 20 run.main at {cfg.shape[0]}x{cfg.shape[1]}: "
+          f"{RUN_STEPS} steps with a checkpoint every {RUN_CKPT_EVERY}, "
+          f"--resume for {RESUME_STEPS}: launches K1 "
+          f"{n['K1 project_fused']}, K2 {n['K2 advect_kernel']}; the resumed "
+          f"state ({resumed.color.dtype} dye) bit-equal to "
+          f"{RUN_STEPS + RESUME_STEPS} make_step steps: {same}")
+    if not same:
+        raise AssertionError("phase 20: the resumed run differs from the "
+                             "uninterrupted one")
+    rgb = render_rgb8(want.color, s=cfg.scaling).permute(1, 2, 0).cpu()
+    if not torch.equal(frame, rgb):
+        raise AssertionError("phase 20: the PPM is not render_rgb8 of the "
+                             "final dye")
+    keys = ("div_pre_max", "div_post_max", "poisson_residual_l2",
+            "max_speed")
+    bad = [r for r in rows if not r["finite"]
+           or not all(np.isfinite(r[k]) for k in keys)
+           or r["div_post_max"] > r["div_pre_max"]]
+    if len(rows) != RUN_METRIC_STEPS or bad:
+        raise AssertionError(f"phase 20: metrics rows {len(rows)}, "
+                             f"failing {bad}")
+    print(f"phase 20 --metrics: {len(rows)} rows finite, div_post_max <= "
+          f"div_pre_max; last " + ", ".join(
+              f"{k} {rows[-1][k]:.4g}" for k in keys))
+    fresh = init_state(cfg, device=dev)
+    reset_ok = (bool(was_reset) and torch.equal(out.velocity, fresh.velocity)
+                and torch.equal(out.color, fresh.color))
+    normal, kept = guard(fresh, scripted_swirl(cfg, 0, device=dev))
+    plain = step(fresh, scripted_swirl(cfg, 0, device=dev))
+    keep_ok = (not bool(kept) and torch.equal(normal.velocity, plain.velocity)
+               and torch.equal(normal.color, plain.color))
+    print(f"phase 20 guarded step: NaN-salted state reset to the fresh one: "
+          f"{reset_ok}; a finite step kept, equal to make_step's: {keep_ok}")
+    if not (reset_ok and keep_ok):
+        raise AssertionError("phase 20: the guarded step failed")
+
+    # the loop's steady rate: runs of two lengths differenced, so the
+    # set-up (init_state's host-built dye), the final sync and the JSON
+    # line cancel; the least of three runs of each length
+    walls = {steps_n: [] for steps_n in RUN_TIME_STEPS}
+    for _ in range(3):
+        for steps_n in RUN_TIME_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_cli.main(common + ["--steps", str(steps_n)])
+            walls[steps_n].append(time.perf_counter() - t0)
+    a, b = RUN_TIME_STEPS
+    print(f"phase 20 run.main walls (s): {a} steps {walls[a]}, {b} steps "
+          f"{walls[b]}")
+    walls = {k: min(v) for k, v in walls.items()}
+    host_ms = 1e3 * (walls[b] - walls[a]) / (b - a)
+    host_line("run.main (make_step, scripted_swirl)", host_ms,
+              swirl_chain_ms(step, cfg, fresh, dev), card)
+    return {"K1 project_fused": n["K1 project_fused"],
+            "K2 advect_kernel": n["K2 advect_kernel"]}
+
+
+def phase21_pipeline(dev, card):
+    """``SimPipeline`` at config 0: every frame delivered and bit-equal to
+    a serial replay of the drained drags."""
+    from esp32_fluid_simulation_tpu_torch import (SimConfig, Impulses,
+                                                  init_state,
+                                                  make_step_render)
+    from esp32_fluid_simulation_tpu_torch.io_host.native import (
+        rgb565_to_rgb888)
+    from esp32_fluid_simulation_tpu_torch.io_host.pipeline import (
+        FrameFetcher, SimPipeline)
+
+    cfg = SimConfig.from_json(CONFIG0.read_text())
+    frames = []
+    pipe = SimPipeline(cfg, lambda rgb, k: frames.append(rgb), fps=1000.0,
+                       device=dev)
+    for drag in PIPE_DRAGS:
+        pipe.push_drag(*drag)
+    counts = reset_counts()
+    t0 = time.perf_counter()
+    delivered = pipe.run(PIPE_FRAMES)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    n = counts()
+    if delivered != PIPE_FRAMES or len(frames) != PIPE_FRAMES:
+        raise AssertionError(f"phase 21: {delivered} frames delivered "
+                             f"({len(frames)} to the sink), want "
+                             f"{PIPE_FRAMES}")
+    if n["K1 project_fused"] != PIPE_FRAMES or \
+            n["K2 advect_kernel"] != 2 * PIPE_FRAMES:
+        raise AssertionError(f"phase 21: launch counts {n} for "
+                             f"{PIPE_FRAMES} frames")
+    # drags pushed before run() are drained at frame 0
+    step_render = make_step_render(cfg)
+    st = init_state(cfg, device=dev)
+    first = Impulses.from_lists(cfg, [d[:2] for d in PIPE_DRAGS],
+                                [d[2:] for d in PIPE_DRAGS], device=dev)
+    none = Impulses.none(cfg, device=dev)
+    differ = []
+    for t in range(PIPE_FRAMES):
+        st, frame = step_render(st, first if t == 0 else none)
+        if not np.array_equal(rgb565_to_rgb888(frame.cpu().numpy()),
+                              frames[t]):
+            differ.append(t)
+    moved = not np.array_equal(frames[0], frames[-1])
+    print(f"phase 21 SimPipeline at {cfg.shape[0]}x{cfg.shape[1]}: "
+          f"{delivered} frames delivered, launches K1 "
+          f"{n['K1 project_fused']}, K2 {n['K2 advect_kernel']}; frames "
+          f"differing from the serial make_step_render replay: {differ}; "
+          f"the dye moved: {moved}")
+    if differ or not moved:
+        raise AssertionError("phase 21: the pipeline's frames differ from "
+                             "the serial replay")
+    host_line(f"SimPipeline (fps=1000, {PIPE_FRAMES} frames, rgb888 to the "
+              "sink)", 1e3 * wall / PIPE_FRAMES,
+              swirl_chain_ms(step_render, cfg, st, dev), card)
+    # the consumer's share of a frame, on the host's clock: the copy to
+    # the host (copy stream, pinned buffer) and the 565 -> 888 expansion
+    fetcher = FrameFetcher()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        host = fetcher.fetch(frame, FrameFetcher.mark(frame))
+    t1 = time.perf_counter()
+    for _ in range(5):
+        rgb565_to_rgb888(host)
+    t2 = time.perf_counter()
+    print(f"phase 21 consumer per frame ({tuple(frame.shape)} RGB565): "
+          f"FrameFetcher.fetch {200 * (t1 - t0):.4f} ms, rgb565_to_rgb888 "
+          f"{200 * (t2 - t1):.4f} ms (host clock, 5 calls each)")
+    return {"K1 project_fused": n["K1 project_fused"],
+            "K2 advect_kernel": n["K2 advect_kernel"]}
+
+
+def phase22_serve(dev, card):
+    """``serve`` at config 0 with a 4:1 stream: /stats, /drag, /frame."""
+    import threading
+    import urllib.request
+    from esp32_fluid_simulation_tpu_torch import SimConfig, init_state
+    from esp32_fluid_simulation_tpu_torch.io_host.native import (
+        jpeg_available)
+    from esp32_fluid_simulation_tpu_torch.io_host.server import serve
+
+    cfg = SimConfig.from_json(CONFIG0.read_text())
+    counts = reset_counts()
+    sim, httpd = serve(cfg, port=0, fps=1000.0,
+                       stream_decim=SERVE_DECIM, device=dev)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    http = threading.Thread(target=httpd.serve_forever, daemon=True)
+    http.start()
+
+    def get(path):
+        return urllib.request.urlopen(base + path, timeout=30).read()
+
+    try:
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            stats = json.loads(get("/stats"))
+            if stats["steps"] > SERVE_MIN_STEPS:
+                break
+            time.sleep(0.2)
+        # a drag before each frame, at two places: one drag at 4096^2
+        # moves too little dye to change a 4:1 view within 0.3 s
+        status, frames = [], []
+        for frm, to in SERVE_DRAGS:
+            req = urllib.request.Request(base + "/drag", method="POST",
+                                         data=json.dumps({
+                                             "from": frm, "to": to,
+                                             "ms": 16}).encode())
+            status.append(urllib.request.urlopen(req, timeout=30).status)
+            time.sleep(0.3)
+            frames.append(get("/frame"))
+        f1, f2 = frames
+        stats = json.loads(get("/stats"))
+        page = get("/")
+    finally:
+        sim.stop()
+        httpd.shutdown()
+        httpd.server_close()
+        for th in sim.threads:
+            th.join(timeout=60)
+    torch.cuda.synchronize()
+    n = counts()
+    done = sim.steps_done
+    print(f"phase 22 serve at {cfg.shape[0]}x{cfg.shape[1]}, stream_decim "
+          f"{SERVE_DECIM}: /stats {stats}; /drag {status}; two /frame "
+          f"{len(f1)} and {len(f2)} bytes, differ: {f1 != f2}; mime "
+          f"{sim.mime} (libjpeg at build time: {jpeg_available()}); "
+          f"launches K1 {n['K1 project_fused']}, K2 "
+          f"{n['K2 advect_kernel']} for {done} steps")
+    if stats["steps"] <= SERVE_MIN_STEPS or status != [204, 204] \
+            or f1 == f2 \
+            or len(f1) < 100 or b"/stream" not in page:
+        raise AssertionError("phase 22: the server's round trip failed")
+    if any(th.is_alive() for th in sim.threads):
+        raise AssertionError("phase 22: a server thread did not stop")
+    if n["K1 project_fused"] != done or n["K2 advect_kernel"] != 2 * done:
+        raise AssertionError(f"phase 22: launch counts {n} for {done} steps")
+    host_line(f"serve (sim_fps of /stats, fps=1000, stream_decim "
+              f"{SERVE_DECIM}, frames polled by /frame)",
+              1e3 / max(stats["sim_fps"], 1e-9),
+              swirl_chain_ms(sim._step_render, cfg,
+                             init_state(cfg, device=dev), dev), card)
+    print(f"phase 22 /stats: sim_fps {stats['sim_fps']}, encode_fps "
+          f"{stats['encode_fps']}")
+    return {"K1 project_fused": n["K1 project_fused"],
+            "K2 advect_kernel": n["K2 advect_kernel"]}
+
+
+def phase23_demo(dev):
+    """The demo at its own small sizes: the 2D bed, --pipeline and
+    --smoke3d each write their frames."""
+    import tempfile
+    from esp32_fluid_simulation_tpu_torch import demo
+
+    runs = {"2D bed": (["--frames", "6", "--every", "3"], "frame_", 2),
+            "--pipeline": (["--pipeline", "--frames", "6"], "pipe_", 6),
+            "--smoke3d": (["--smoke3d", "--frames", "6", "--every", "3"],
+                          "smoke_", 2)}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, (argv, prefix, want) in runs.items():
+            out = f"{tmp}/{prefix}"
+            got = demo.main(argv + ["--out", out, "--device", str(dev)])
+            files = sorted(p.name for p in Path(out).glob(prefix + "*.ppm"))
+            print(f"phase 23 demo {label}: {got} frames, {len(files)} "
+                  f"PPM files")
+            if got != want or len(files) != want:
+                raise AssertionError(f"phase 23: demo {label} wrote "
+                                     f"{files}, want {want} frames")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -3125,6 +3466,13 @@ def main():
     k11_3d, cfg18, sh18 = phase18_sharded_smoke(dev, mesh)
     counts.update(k11_3d)
     cfg19, sh19 = phase19_dyebed3d(dev, mesh)
+    # the host side's entry points at config 0: their K1 and K2 launches
+    # count in those kernels' rows
+    for host_counts in (phase20_run_main(dev, card),
+                        phase21_pipeline(dev, card), phase22_serve(dev, card)):
+        for name, k in host_counts.items():
+            counts[name] += k
+    phase23_demo(dev)
     work = phase5_timing(dev, cfg, state0, card)
     work.update(phase5_smoke_timing(dev, scfg, smoke, card))
     work.update(phase5_k4_k5_timing(dev, card, {

@@ -173,13 +173,16 @@ def _step_super(st: SimState, imps: Impulses, cfg_super: SimConfig, gh: int,
                        overlay=overlay)
 
 
-def make_ensemble_step(cfg: SimConfig, mode: str = "auto"):
+def make_ensemble_step(cfg: SimConfig, donate: bool = True,
+                       mode: str = "auto"):
     """Batched step ``(SimState[n, ...], Impulses[n, ...]) -> SimState``.
 
     ``mode="auto"`` (default) routes compatible configs onto the tiled
     supergrid and the whole ensemble advances in one kernel-path step;
     ``"vmap"`` forces the member loop (the parity oracle); ``"tiled"``
-    requires a compatible config."""
+    requires a compatible config.  ``donate`` is accepted for the JAX
+    signature (second, as there) and has no effect on eager code."""
+    del donate
     if not _resolve_tiled(cfg, mode):
         def fn(state: SimState, imps: Impulses) -> SimState:
             if mode == "auto":
@@ -195,12 +198,15 @@ def make_ensemble_step(cfg: SimConfig, mode: str = "auto"):
     return fn
 
 
-def make_ensemble_multi_step(cfg: SimConfig, mode: str = "auto"):
+def make_ensemble_multi_step(cfg: SimConfig, donate: bool = True,
+                             mode: str = "auto"):
     """Ensemble rollout ``run(state, schedule) -> state``: ``schedule`` is
     an ``Impulses`` with leading ``[n_steps, n_members]`` axes
     (``stable_fluids.stack_schedule`` over per-step ``stack_impulses``).  On
     the tiled route the member stack converts to and from the supergrid
-    once per call instead of once per step."""
+    once per call instead of once per step.  ``donate`` is accepted for
+    the JAX signature and has no effect on eager code."""
+    del donate
     if not _resolve_tiled(cfg, mode):
         def run(state: SimState, schedule: Impulses) -> SimState:
             if mode == "auto":

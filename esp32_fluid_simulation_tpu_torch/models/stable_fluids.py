@@ -424,14 +424,20 @@ def step_render(state: SimState, impulses: Impulses, cfg: SimConfig,
     return SimState(velocity=vel, color=color, step=state.step + 1), frame
 
 
-def make_step(cfg: SimConfig):
-    """``(state, impulses) -> state`` specialized to ``cfg``."""
+def make_step(cfg: SimConfig, donate: bool = True):
+    """``(state, impulses) -> state`` specialized to ``cfg``.  ``donate``
+    is accepted for the JAX signature and has no effect on this eager
+    closure (it keeps no buffers of its own to reuse)."""
+    del donate
     return functools.partial(step, cfg=cfg)
 
 
-def make_step_render(cfg: SimConfig, bswap: bool = True):
+def make_step_render(cfg: SimConfig, bswap: bool = True,
+                     donate: bool = True):
     """``(state, impulses) -> (state, rgb565_frame)`` — see
-    :func:`step_render`."""
+    :func:`step_render`.  ``donate`` is accepted for the JAX signature and
+    has no effect on this eager closure."""
+    del donate
     return functools.partial(step_render, cfg=cfg, bswap=bswap)
 
 
@@ -474,16 +480,20 @@ def step_with_metrics(state: SimState, impulses: Impulses, cfg: SimConfig):
     return SimState(velocity=vel, color=color, step=state.step + 1), metrics
 
 
-def make_step_with_metrics(cfg: SimConfig):
+def make_step_with_metrics(cfg: SimConfig, donate: bool = True):
     """``(state, impulses) -> (state, metrics)`` — see
-    :func:`step_with_metrics`."""
+    :func:`step_with_metrics`.  ``donate`` is accepted for the JAX
+    signature and has no effect on this eager closure."""
+    del donate
     return functools.partial(step_with_metrics, cfg=cfg)
 
 
-def make_multi_step(cfg: SimConfig):
+def make_multi_step(cfg: SimConfig, donate: bool = True):
     """``run(state, schedule) -> state``: ``n`` steps, where ``schedule`` is
     an ``Impulses`` with a leading ``[n]`` axis (``stack_schedule``).  A
-    plain loop for now."""
+    plain loop for now.  ``donate`` is accepted for the JAX signature and
+    has no effect on this eager loop."""
+    del donate
     def run(state: SimState, schedule: Impulses) -> SimState:
         for t in range(schedule.pos.shape[0]):
             state = step(state, Impulses(*(x[t] for x in schedule)), cfg)

@@ -62,7 +62,9 @@ def sample_linear(field: torch.Tensor, coords: Sequence[torch.Tensor],
         cc = torch.clamp(c, 0.0, n - 1.0)
         i0 = torch.clamp(torch.floor(cc), 0, n - 2)
         fracs.append((cc - i0).to(dtype))
-        i0s.append(i0.long())
+        # a NaN coordinate casts to an out-of-range index: clamp it as
+        # JAX's gather does, so the sample is NaN instead of an IndexError
+        i0s.append(torch.clamp(i0.long(), 0, n - 2))
         if no_slip:
             factors.append(noslip_axis_factor(c, n).to(dtype))
 

@@ -206,8 +206,8 @@ def mesh_metrics(sh: Shards, div_pre, div_post, res, vel, color,
 
 
 def make_sharded_step(cfg: SimConfig, mesh: Mesh,
-                      max_disp: int | None = None, sor_halo: int = 1,
-                      with_metrics: bool = False):
+                      max_disp: int | None = None, donate: bool = True,
+                      sor_halo: int = 1, with_metrics: bool = False):
     """Build the sharded ``step(state, impulses) -> state`` over ``mesh``
     (``state`` from ``shard_state``; ``impulses`` with global positions,
     on any device).
@@ -219,8 +219,10 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh,
     redundant compute for ~k-fold fewer exchanges.  ``with_metrics``:
     return ``(state, metrics)`` with mesh-reduced observability scalars
     (see ``make_sharded_step_with_metrics``).  A 3D ``cfg`` goes to
-    ``parallel.sharded3d.make_sharded_step_3d``.
+    ``parallel.sharded3d.make_sharded_step_3d``.  ``donate`` is accepted
+    for the JAX signature and has no effect on eager code.
     """
+    del donate
     if cfg.ndim == 3:
         from .sharded3d import make_sharded_step_3d
         return make_sharded_step_3d(cfg, mesh, max_disp=max_disp,
@@ -628,13 +630,15 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh,
 
 def make_sharded_step_with_metrics(cfg: SimConfig, mesh: Mesh,
                                    max_disp: int | None = None,
-                                   sor_halo: int = 1):
+                                   donate: bool = True, sor_halo: int = 1):
     """Sharded ``step_with_metrics``: the sharded step plus the SURVEY §5
     observability scalars (``div_pre_max``, ``div_post_max``,
     ``poisson_residual_l2``, ``max_speed``, ``finite``), reduced over the
     shards; 0-dim tensors on the first shard's device.  As the
     single-device ``step_with_metrics``, the impulses are scattered before
-    the projection (K1 runs without them)."""
+    the projection (K1 runs without them).  ``donate`` is accepted for the
+    JAX signature and has no effect on eager code."""
+    del donate
     return make_sharded_step(cfg, mesh, max_disp=max_disp,
                              sor_halo=sor_halo, with_metrics=True)
 

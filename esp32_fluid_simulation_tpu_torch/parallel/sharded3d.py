@@ -383,13 +383,15 @@ class Stencils3D:
 
 
 def make_sharded_step_3d(cfg: SimConfig, mesh: Mesh,
-                         max_disp: int | None = None, sor_halo: int = 1,
-                         with_metrics: bool = False):
+                         max_disp: int | None = None, donate: bool = True,
+                         sor_halo: int = 1, with_metrics: bool = False):
     """Build the sharded 3D ``step(state, impulses) -> state`` (same
     contract as ``parallel.sharded.make_sharded_step``, which dispatches
     here for ``cfg.ndim == 3``).  Supported, as in JAX: advector
     semilag/rk2/maccormack (kernel advection: semilag only), solver
-    sor/jacobi/multigrid/sor_pallas."""
+    sor/jacobi/multigrid/sor_pallas.  ``donate`` is accepted for the JAX
+    signature and has no effect on eager code."""
+    del donate
     if cfg.advector not in ("semilag", "maccormack", "rk2"):
         raise NotImplementedError(
             f"sharded 3D step supports advector='semilag'/'maccormack'/"

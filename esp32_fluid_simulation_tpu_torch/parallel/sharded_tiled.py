@@ -41,7 +41,7 @@ def _shard_local_scatter(vel, rows, cols, vals, ox, oy, lh, lw):
     return write_cells(cells, in_shard, vals, (lh, lw), base=vel)
 
 
-def make_sharded_tiled_step(cfg: SimConfig, mesh: Mesh,
+def make_sharded_tiled_step(cfg: SimConfig, mesh: Mesh, donate: bool = True,
                             member_impulses: bool = False):
     """The sharded step ``(state, impulses) -> state`` of a
     ``domain_tile`` supergrid config (``state`` from
@@ -52,8 +52,10 @@ def make_sharded_tiled_step(cfg: SimConfig, mesh: Mesh,
     configs).  ``member_impulses=True``: the ensemble-batched ``Impulses``
     with a leading ``[n_members]`` axis and member-local positions
     (``models.ensemble.stack_impulses``), resolved as the single-device
-    supergrid resolves them.
+    supergrid resolves them.  ``donate`` is accepted for the JAX signature
+    and has no effect on eager code.
     """
+    del donate
     if cfg.domain_tile is None:
         raise ValueError("make_sharded_tiled_step needs a domain_tile "
                          "config; use make_sharded_step for one domain")
@@ -106,14 +108,17 @@ def make_sharded_tiled_step(cfg: SimConfig, mesh: Mesh,
     return step
 
 
-def make_sharded_ensemble_step(member_cfg: SimConfig, mesh: Mesh, n: int):
+def make_sharded_ensemble_step(member_cfg: SimConfig, mesh: Mesh, n: int,
+                               donate: bool = True):
     """Ensemble API over the sharded supergrid: ``(SimState[n, ...],
     Impulses[n, ...]) -> SimState[n, ...]``, the mesh rendition of
     ``models.ensemble.make_ensemble_step(mode="tiled")``.  Returns
     ``(step, cfg_super)``.
 
     The member stack converts to the supergrid on its own device, is split
-    over the mesh, stepped, and gathered back there."""
+    over the mesh, stepped, and gathered back there.  ``donate`` is
+    accepted for the JAX signature and has no effect on eager code."""
+    del donate
     cfg_super, _, _ = tiled_ensemble_config(member_cfg, n)
     inner = make_sharded_tiled_step(cfg_super, mesh, member_impulses=True)
 

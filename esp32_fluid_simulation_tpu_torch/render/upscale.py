@@ -1,5 +1,6 @@
-"""On-device render: separable bilinear upscale + RGB565 pack (counterpart
-of ``esp32_fluid_simulation_tpu/render/upscale.py:25-105``).
+"""On-device render: separable bilinear upscale + RGB565 pack, and the
+stream view's decimation and RGBX pack (counterpart of
+``esp32_fluid_simulation_tpu/render/upscale.py``).
 
 The reference's ``draw_routine`` (``.ino:99-191``) upscales the
 (H-1)x(W-1) cell grid by incremental separable bilinear interpolation and
@@ -67,3 +68,39 @@ def render_rgb8(color: torch.Tensor, s: int = 4) -> torch.Tensor:
     """RGB888 render for host-side demo output (PNG/PPM)."""
     return torch.clamp(torch.floor(upscale_bilinear(color, s) * 256.0),
                        0, 255).to(torch.uint8)
+
+
+def decimate_mean(color: torch.Tensor, d: int) -> torch.Tensor:
+    """d:1 mean-pool of ``[C, H, W]`` for the stream view (the LCD is
+    smaller than the sim; the reference upscales, production grids
+    downsample), in ``color``'s dtype: the rows summed first, then the
+    columns of the halved array, then one multiply by ``1/(d*d)``, as in
+    JAX (``render/upscale.py:109-137``).
+
+    Non-divisible dims are cropped to the largest d-multiple first (the
+    reference's own 61x81 grid divides by nothing)."""
+    if d == 1:
+        return color
+    _, h, w = color.shape
+    hc, wc = (h // d) * d, (w // d) * d
+    if hc == 0 or wc == 0:
+        raise ValueError(f"decimation {d} exceeds grid {h}x{w}")
+    color = color[:, :hc, :wc]
+    r = color[:, 0::d]
+    for i in range(1, d):
+        r = r + color[:, i::d]
+    out = r[:, :, 0::d]
+    for i in range(1, d):
+        out = out + r[:, :, i::d]
+    scale = torch.tensor(1.0 / (d * d), dtype=torch.float32).to(out.dtype)
+    return out * scale.to(out.device)
+
+
+def render_rgbx(color: torch.Tensor, s: int = 4) -> torch.Tensor:
+    """Packed RGBX8888 render: one uint32 a pixel, little-endian
+    ``R | G<<8 | B<<16``, the full-color wire format that
+    ``io_host.native.jpeg_encode_rgbx`` encodes.  Channel quantization
+    matches ``render_rgb8`` exactly (same bytes)."""
+    q = torch.clamp(torch.floor(upscale_bilinear(color, s) * 256.0),
+                    0, 255).to(torch.int32)
+    return (q[0] | (q[1] << 8) | (q[2] << 16)).to(torch.uint32)

@@ -1,0 +1,26 @@
+"""Host-side utilities (counterpart of ``esp32_fluid_simulation_tpu/utils``).
+
+``profiling`` (``chain_time``, ``trace``) and ``roofline``
+(``speed_of_light``) are not ported yet: they belong to the port's
+measurement work (ROADMAP.md queue 1, item 5).
+"""
+
+from .uq32 import float_to_uq32, uq32_to_float, uq32_top_bits
+from .checkpoint import save_checkpoint, load_checkpoint, dump_arr, load_arr
+from .watchdog import make_guarded_step
+from .metrics import MetricsLogger, summarize
+from .debug import make_checked_step
+
+__all__ = [
+    "float_to_uq32",
+    "uq32_to_float",
+    "uq32_top_bits",
+    "save_checkpoint",
+    "load_checkpoint",
+    "dump_arr",
+    "load_arr",
+    "make_guarded_step",
+    "MetricsLogger",
+    "summarize",
+    "make_checked_step",
+]

@@ -237,25 +237,52 @@ def test_interop_bf16_round_trip_is_bitwise(rng):
 
 
 def test_port_imports_no_jax():
+    """The port, its host side and entry points included, imports neither
+    JAX nor the JAX package, and loads the native host library from its
+    own build directory only."""
     code = ("import sys\n"
-            "before = {m for m in sys.modules if m.split('.')[0] == 'jax'}\n"
+            "from pathlib import Path\n"
             "import esp32_fluid_simulation_tpu_torch, "
             "esp32_fluid_simulation_tpu_torch.interop, "
             "esp32_fluid_simulation_tpu_torch.io_host.touch, "
-            "esp32_fluid_simulation_tpu_torch.render.cuda_upscale\n"
-            "after = {m for m in sys.modules if m.split('.')[0] == 'jax'}\n"
-            "assert 'jax' not in sys.modules or before == after, after\n"
-            "assert 'jax' not in sys.modules, 'jax imported'\n")
+            "esp32_fluid_simulation_tpu_torch.render.cuda_upscale, "
+            "esp32_fluid_simulation_tpu_torch.run, "
+            "esp32_fluid_simulation_tpu_torch.utils, "
+            "esp32_fluid_simulation_tpu_torch.io_host.native, "
+            "esp32_fluid_simulation_tpu_torch.io_host.pipeline, "
+            "esp32_fluid_simulation_tpu_torch.io_host.server, "
+            "esp32_fluid_simulation_tpu_torch.demo\n"
+            "from esp32_fluid_simulation_tpu_torch.io_host import native\n"
+            "native.load_library()\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "assert 'esp32_fluid_simulation_tpu' not in sys.modules, "
+            "'the JAX package imported'\n"
+            "libs = {Path(line.split()[-1]) for line in "
+            "open('/proc/self/maps') if 'libfluidhost' in line}\n"
+            "assert libs == {native.LIB_PATH}, libs\n"
+            "assert native.LIB_PATH.parent == "
+            "Path.cwd() / 'build' / 'native', native.LIB_PATH\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+    def refused(name):
+        top = name.split(".")[0]
+        return top == "jax" or top == "esp32_fluid_simulation_tpu"
+
     for src in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         for line in src.read_text().splitlines():
-            words = line.split()
-            assert not (words[:2] == ["import", "jax"]
-                        or (words[:1] == ["from"] and len(words) > 1
-                            and words[1].split(".")[0] == "jax")), (src, line)
+            words = line.replace(",", " ").split()
+            if words[:1] == ["import"]:
+                names = [w for w in words[1:] if w != "as"]
+            elif words[:1] == ["from"] and len(words) > 1:
+                names = [words[1]]
+            else:
+                continue
+            assert not any(refused(w) for w in names), (src, line)
+        assert "libfluidhost.so" not in src.read_text() or \
+            src.name == "native.py", src
 
 
 def test_chip_smoke_refuses_without_gpu():
