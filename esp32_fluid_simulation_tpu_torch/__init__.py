@@ -15,7 +15,13 @@ unless the caller names another device.  Layout:
                              its ensembles and tiled domains, the 3D smoke
                              plume), ``render/``,
                              ``io_host/`` touch input, ``parallel/``
-                             single-process meshes (the 2D sharded step)
+                             single-process meshes (the sharded steps)
+  L4  host side and entry    ``utils/`` (checkpoints, metrics, watchdog,
+      points                 debug step), ``native/`` + ``io_host/native``
+                             (the C++ host runtime), ``io_host/pipeline``
+                             and ``io_host/server`` (the three-thread
+                             pipeline, the web shell), ``run`` (the
+                             headless runner), ``demo``
 """
 
 from .config import SimConfig, reference_config

@@ -92,8 +92,9 @@ def decimate_mean(color: torch.Tensor, d: int) -> torch.Tensor:
     out = r[:, :, 0::d]
     for i in range(1, d):
         out = out + r[:, :, i::d]
+    # a 0-dim CPU tensor multiplies a CUDA tensor as a scalar, no copy
     scale = torch.tensor(1.0 / (d * d), dtype=torch.float32).to(out.dtype)
-    return out * scale.to(out.device)
+    return out * scale
 
 
 def render_rgbx(color: torch.Tensor, s: int = 4) -> torch.Tensor:
