@@ -139,6 +139,14 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    pipeline's frames/s, the server's sim_fps) beside the CUDA-event time
    of the same entry point chained, with the card's name and power limit;
    their K1 and K2 launches count in those kernels' rows.
+24. Config 5 at 8192^2 with phase 16's kernel settings across two
+   processes on the card (``parallel/dcn.py``'s ``run_dcn_dryrun``, gloo,
+   each process owning one row of two 4096^2 blocks, the strips that cross
+   processes staged through pinned host buffers): 5 steps, each process's
+   blocks bit-equal to ``make_step`` at 8192^2; the children's K11 K1/K2
+   block launches (2*steps and 4*steps each) count in those rows; their
+   ms/step (CUDA events, the slower rank's) beside the single-process 2x2
+   mesh's.
 5. Times (CUDA events), last: ms/step of the kernel and plain paths at
    4096^2, at 256^3, of config 3, of the ``sor_pallas`` step, of config 2
    and of config 4 (whole-ensemble step, member-steps/s, the rollout's step,
@@ -165,6 +173,11 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    and clean, warm, bf16 and f32, and inside the ``make_smoke_step`` +
    ``render_smoke`` chain, which the summary's K10 entry carries), the
    chain's ms per step + frame and the wrapper's host us per call.
+25. After phase 5: ``utils.profiling.chain_time`` of config 0's
+   ``make_step_render`` beside the CUDA-event time of the same chain, and
+   ``utils.roofline.speed_of_light(cfg0, "h100")``; one ``trace`` of 3
+   config 0 steps, whose Chrome trace must hold K1's and K2's device
+   kernels by name (K1 once and K2 twice a step).
 
 Each kernel's entry in the summary carries its bound: the larger of the
 bytes it must move (each input read once, each output written once) over
@@ -255,6 +268,10 @@ SERVE_DECIM = 4                # the server streams a 1024^2 mean-pooled view
 SERVE_MIN_STEPS = 64           # two sim_fps readings (every 32 steps)
 # /drag bodies' (from, to) in screen fractions, one before each /frame
 SERVE_DRAGS = (([0.4, 0.5], [0.6, 0.5]), ([0.3, 0.2], [0.3, 0.4]))
+DCN_STEPS = 5                  # phase 24: config 5 across two processes
+DCN_TIMEOUT = 300.0
+CHAIN_STEPS = 20               # phase 25: chain_time's chain
+TRACE_STEPS = 3                # phase 25: the steps of its trace
 SCRATCH_BYTES = 256 << 20      # written before each cold K10 call: 5x L2
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -3418,6 +3435,117 @@ def phase23_demo(dev):
                                      f"{files}, want {want} frames")
 
 
+def phase24_dcn(dev, card, cfg, mesh, sh):
+    """Config 5 at 8192^2 on the kernel route (``cfg``, phase 16's) across
+    two processes on the card: ``run_dcn_dryrun`` over gloo, each process
+    owning one row of two 4096^2 blocks, its strips staged through pinned
+    host memory.  Each child checks its blocks bit for bit against
+    ``make_step`` and reports its K11 launches and ms/step; returns the
+    children's K11 K1/K2 block launches, summed."""
+    from esp32_fluid_simulation_tpu_torch.parallel import make_sharded_step
+    from esp32_fluid_simulation_tpu_torch.parallel.dcn import (
+        dcn_results, run_dcn_dryrun)
+    from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
+
+    imps = [scripted_swirl(cfg, t, device=dev) for t in range(8)]
+    step = make_sharded_step(cfg, mesh)
+    box = {"st": sh, "t": 0}
+
+    def sharded_one():
+        box["st"] = step(box["st"], imps[box["t"] % 8])
+        box["t"] += 1
+
+    single_ms = cuda_ms(sharded_one, DCN_STEPS - 1, warmup=1)
+    del box["st"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = run_dcn_dryrun(num_processes=2, devices_per_process=2,
+                         steps=DCN_STEPS, timeout=DCN_TIMEOUT,
+                         backend="gloo", device="cuda", cfg=cfg,
+                         speed=SWIRL_SPEED, atol=0.0)
+    wall = time.perf_counter() - t0
+    for line in out.splitlines():
+        if line.startswith("dcn proc "):
+            print(f"phase 24 {line}")
+    res = dcn_results(out)
+    if len(res) != 2 or any(r["device"] != str(dev) or not r["host_staged"]
+                            or r["shape"] != list(cfg.shape) for r in res):
+        raise AssertionError(f"phase 24: unexpected children {res}")
+    k1 = sum(r["launches"]["project_fused.block_launches"] for r in res)
+    k2 = sum(r["launches"]["advect_kernel.block_launches"] for r in res)
+    if (k1, k2) != (4 * DCN_STEPS, 8 * DCN_STEPS):
+        raise AssertionError(f"phase 24: K11 K1/K2 block launches {k1}/{k2}"
+                             f" over {DCN_STEPS} steps in both processes")
+    ms = max(r["ms_per_step"] for r in res)
+    print(f"phase 24 dcn config 5 {cfg.shape[0]}x{cfg.shape[1]} "
+          f"({cfg.solver}, advect_impl {cfg.advect_impl}) across 2 processes "
+          f"on {dev}, transport gloo (strips staged through pinned host "
+          f"buffers), {DCN_STEPS} steps bit-equal to make_step in each "
+          f"process: launches K11 K1 block {k1}, K11 K2 block {k2}; "
+          f"{ms:.4f} ms/step (CUDA events in each child over steps "
+          f"2-{DCN_STEPS}, the slower rank's; ranks "
+          f"{[round(r['ms_per_step'], 4) for r in res]}) beside phase 16's "
+          f"single-process 2x2 mesh {single_ms:.4f} ms/step (CUDA events, "
+          f"this process), on {card}; the dryrun took {wall:.1f} s")
+    return {"K11 K1 project_fused block": k1,
+            "K11 K2 advect_kernel block": k2}
+
+
+def phase25_profiling(dev, card, cfg, state0):
+    """``utils.profiling`` and ``utils.roofline`` at config 0:
+    ``chain_time`` of ``make_step_render`` beside the CUDA-event time of
+    the same chained call (phase 5's method) and ``speed_of_light``'s ideal
+    step; then one ``trace`` of a few steps, which must hold K1's and K2's
+    device kernels by name.  Runs after every other profiler trace."""
+    import tempfile
+    from esp32_fluid_simulation_tpu_torch import make_step_render
+    from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
+    from esp32_fluid_simulation_tpu_torch.utils import (chain_time,
+                                                        speed_of_light,
+                                                        trace)
+
+    imp = scripted_swirl(cfg, 0, device=dev)
+    step = make_step_render(cfg)
+    chained = chain_time(lambda s: step(s, imp)[0], state0, CHAIN_STEPS)
+    box = {"st": state0}
+
+    def one():
+        box["st"], _ = step(box["st"], imp)
+
+    events = cuda_ms(one, CHAIN_STEPS, warmup=3)
+    sol = speed_of_light(cfg, "h100")
+    print(f"phase 25 config 0 make_step_render on {card}: chain_time "
+          f"{1e3 * chained:.4f} ms/step ({CHAIN_STEPS} chained steps less "
+          f"one) beside {events:.4f} ms/step by CUDA events (phase 5's "
+          f"method, {CHAIN_STEPS} steps); speed_of_light(cfg0, 'h100') "
+          f"{sol['ideal_ms_per_step']:.4f} ms/step "
+          f"({sol['bytes_per_step']:.6g} bytes at 3.35 TB/s, "
+          f"{sol['ideal_fps']:.1f} fps ideal; measured at "
+          f"{100 * sol['ideal_ms_per_step'] / events:.1f}% of it)")
+    del box["st"]
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            st = state0
+            for _ in range(TRACE_STEPS):
+                st, _ = step(st, imp)
+        files = list(Path(tmp).glob("trace_*.json"))
+        if len(files) != 1:
+            raise AssertionError(f"phase 25: trace wrote {files}")
+        recorded = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in recorded if e.get("cat") == "kernel"]
+    k1 = sum("project_tile_kernel" in n for n in kernels)
+    k2 = sum("advect_kernel" in n for n in kernels)
+    names = sorted({n.split("(")[0] for n in kernels})
+    print(f"phase 25 trace of {TRACE_STEPS} config 0 steps: "
+          f"{len(kernels)} device kernel events, K1 project_tile_kernel "
+          f"{k1}, K2 advect_kernel {k2}; kernels {names}")
+    if k1 != TRACE_STEPS or k2 != 2 * TRACE_STEPS:
+        raise AssertionError(f"phase 25: the trace holds K1 x{k1} and K2 "
+                             f"x{k2}, not x{TRACE_STEPS} and "
+                             f"x{2 * TRACE_STEPS}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -3473,6 +3601,8 @@ def main():
         for name, k in host_counts.items():
             counts[name] += k
     phase23_demo(dev)
+    for name, k in phase24_dcn(dev, card, cfg5, mesh, sh5).items():
+        counts[name] += k
     work = phase5_timing(dev, cfg, state0, card)
     work.update(phase5_smoke_timing(dev, scfg, smoke, card))
     work.update(phase5_k4_k5_timing(dev, card, {
@@ -3490,6 +3620,7 @@ def main():
         # the summary carries K10's device time inside the main path
         work["K10 render_smoke_mip_kernel"] = (
             k10_ms, *work["K10 render_smoke_mip_kernel"][1:])
+    phase25_profiling(dev, card, cfg, state0)
 
     for name, n in counts.items():
         if n == 0:

@@ -1,10 +1,14 @@
 """The sharded simulation step: the whole of ``loop()`` (``.ino:249-289``)
-over the ``(x, y)`` shards of a single-process device mesh (counterpart of
+over the ``(x, y)`` shards of a device mesh (counterpart of
 ``esp32_fluid_simulation_tpu/parallel/sharded.py``).
 
 A sharded state is a ``SimState`` whose ``velocity`` and ``color`` are
 grids of per-shard blocks, ``blocks[x][y]``, each on its mesh device
-(``shard_state`` / ``unshard_state``).  Every field is partitioned over the
+(``shard_state`` / ``unshard_state``).  On a mesh that spans processes
+(``topology.make_process_mesh``, ``dcn.py``) every process runs the same
+step and holds only its own blocks (None at the others'); the exchanges,
+the multigrid's gathered coarse level and the metrics cross processes
+through ``torch.distributed`` (``parallel.halo``).  Every field is partitioned over the
 trailing two spatial axes; each stencil pass exchanges exactly the strips
 it needs (``parallel.halo``) and the boundary conditions act at the
 *global* edges.  Per step, as in the JAX package:
@@ -46,22 +50,24 @@ from ..ops.cuda.sor import diag_at, sor_solve_kernel, walls_at
 from ..ops.multigrid import _coarse_shapes, _vcycle, multigrid_solve
 from ..ops.poisson import _shift_zero, neg_inv_of
 from ..render.upscale import pack_rgb565, upscale_bilinear
-from .halo import exchange_halo, on_device
+from .halo import all_gather_blocks, all_reduce, exchange_halo, on_device
 from .topology import BATCH_AXIS, Mesh, X_AXIS, Y_AXIS
 
 
 class Shards:
-    """The ``(x, y)`` shards of a mesh over an ``H x W`` or ``D x H x W``
-    domain (the trailing two axes split, a vertical axis whole on every
-    shard): each shard's device and the origin of its ``lh x lw`` owned
-    block.  This is the layout a sharded state follows
-    (``sharded_state_sharding``)."""
+    """The ``(x, y)`` shards of one batch row (``row``) of a mesh over an
+    ``H x W`` or ``D x H x W`` domain (the trailing two axes split, a
+    vertical axis whole on every shard): each shard's device, the process
+    that owns it and the origin of its ``lh x lw`` owned block.  This is
+    the layout a sharded state follows (``sharded_state_sharding``).
 
-    def __init__(self, mesh: Mesh, shape):
-        if mesh.shape[BATCH_AXIS] != 1:
-            raise NotImplementedError(
-                "a batched (dp x sp) mesh is not ported (ROADMAP.md queue 1 "
-                "item 10, 'dp x sp mesh')")
+    On a mesh that spans processes this process holds only its own blocks:
+    ``map`` and ``split`` touch those and leave None at the others, and
+    ``ranks`` (None on a single-process mesh) names every block's owner for
+    the exchanges.  On a batched mesh the step runs on one batch row: JAX
+    replicates it over ``batch``, the port computes it once."""
+
+    def __init__(self, mesh: Mesh, shape, row: int = 0):
         nx, ny = mesh.shape[X_AXIS], mesh.shape[Y_AXIS]
         h, w = shape[-2:]
         if h % nx or w % ny:
@@ -70,20 +76,28 @@ class Shards:
         self.nx, self.ny = nx, ny
         self.shape = tuple(shape)
         self.lh, self.lw = h // nx, w // ny
-        self.devices = [[mesh.devices[0, a, b] for b in range(ny)]
+        self.devices = [[mesh.devices[row, a, b] for b in range(ny)]
                         for a in range(nx)]
+        owners = mesh.ranks[row]
+        self.ranks = (owners.tolist() if (owners != mesh.rank).any()
+                      else None)
+        self.cells = [(a, b) for a in range(nx) for b in range(ny)
+                      if owners[a, b] == mesh.rank]
+        if not self.cells:
+            raise ValueError(f"process {mesh.rank} owns no shard of batch "
+                             f"row {row} of {mesh}")
+        self.home = self.devices[self.cells[0][0]][self.cells[0][1]]
 
     def origin(self, a, b):
         return a * self.lh, b * self.lw
 
     def map(self, fn, *grids):
-        """``[[fn(a, b, *blocks)]]``, each call with its shard's device
-        current."""
+        """``[[fn(a, b, *blocks)]]`` over this process's shards, each call
+        with its shard's device current; None at the others."""
         out = [[None] * self.ny for _ in range(self.nx)]
-        for a in range(self.nx):
-            for b in range(self.ny):
-                with on_device(self.devices[a][b]):
-                    out[a][b] = fn(a, b, *(g[a][b] for g in grids))
+        for a, b in self.cells:
+            with on_device(self.devices[a][b]):
+                out[a][b] = fn(a, b, *(g[a][b] for g in grids))
         return out
 
     def split(self, x: torch.Tensor):
@@ -109,41 +123,84 @@ class Shards:
             return copies[dev]
         return self.map(one)
 
+    def exchange(self, blocks, width, dim, axis, bc="zero"):
+        """``halo.exchange_halo`` over this layout's processes."""
+        return exchange_halo(blocks, width, dim, axis, bc, ranks=self.ranks)
+
+    def exchange2(self, blocks, width, bcs=("zero", "zero")):
+        """``_exchange2`` over this layout's processes."""
+        return _exchange2(blocks, width, bcs, ranks=self.ranks)
+
 
 def unzip(grid, n):
-    """A grid of ``n``-tuples -> ``n`` grids."""
-    return tuple([[cell[i] for cell in row] for row in grid]
-                 for i in range(n))
+    """A grid of ``n``-tuples (None where another process owns the shard)
+    -> ``n`` grids."""
+    return tuple([[None if cell is None else cell[i] for cell in row]
+                  for row in grid] for i in range(n))
 
 
 def gather(blocks, device) -> torch.Tensor:
-    """A grid of blocks -> the whole ``[..., H, W]`` tensor on
-    ``device``."""
+    """A grid of blocks -> the whole ``[..., H, W]`` tensor on ``device``.
+    A grid that spans processes (None at the blocks of others) is gathered
+    from all of them (``halo.all_gather_blocks``): every process calls it
+    and gets the whole tensor."""
+    if any(blk is None for row in blocks for blk in row):
+        blocks = all_gather_blocks(blocks)
     return torch.cat([torch.cat([blk.to(device) for blk in row], dim=-1)
                       for row in blocks], dim=-2)
 
 
-def sharded_state_sharding(cfg: SimConfig, mesh: Mesh) -> Shards:
+def sharded_state_sharding(cfg: SimConfig, mesh: Mesh, batched: bool = False):
     """The layout of a ``SimState`` of ``cfg`` on ``mesh``: velocity and
     dye split over the ``(x, y)`` mesh axes (the trailing two; a 3D grid's
-    vertical axis stays whole), ``step`` a host int."""
+    vertical axis stays whole), ``step`` a host int.  ``batched``: a member
+    stack ``[n, C, ...]`` whose leading axis is split over the ``batch``
+    mesh axis as well (JAX's ``P("batch", None, ..., "x", "y")``), one
+    ``Shards`` per batch row."""
+    if batched:
+        return [Shards(mesh, cfg.shape, row)
+                for row in range(mesh.shape[BATCH_AXIS])]
     return Shards(mesh, cfg.shape)
 
 
-def shard_state(state: SimState, cfg: SimConfig, mesh: Mesh) -> SimState:
+def _members(n, rows):
+    if n % rows:
+        raise ValueError(f"{n} members not divisible by batch={rows}")
+    return n // rows
+
+
+def shard_state(state: SimState, cfg: SimConfig, mesh: Mesh,
+                batched: bool = False) -> SimState:
     """A ``SimState`` -> its sharded form: velocity and dye as grids of
     owned blocks on the mesh devices (the counterpart of
-    ``jax.device_put(state, sharded_state_sharding(cfg, mesh))``)."""
-    sh = sharded_state_sharding(cfg, mesh)
-    return SimState(velocity=sh.split(state.velocity),
-                    color=sh.split(state.color), step=state.step)
+    ``jax.device_put(state, sharded_state_sharding(cfg, mesh, batched))``).
+    ``batched``: ``state`` is a member stack; each field becomes one grid
+    per batch row, ``[row][x][y]``, batch row ``r`` holding members
+    ``r*m:(r+1)*m`` of ``m = n / batch``."""
+    sh = sharded_state_sharding(cfg, mesh, batched)
+    if not batched:
+        return SimState(velocity=sh.split(state.velocity),
+                        color=sh.split(state.color), step=state.step)
+    m = _members(state.velocity.shape[0], len(sh))
+
+    def rows(x):
+        return [row.split(x[r * m:(r + 1) * m]) for r, row in enumerate(sh)]
+    return SimState(velocity=rows(state.velocity), color=rows(state.color),
+                    step=state.step)
 
 
-def unshard_state(sharded: SimState, device="cuda") -> SimState:
-    """A sharded state -> one ``SimState`` on ``device``."""
+def unshard_state(sharded: SimState, device="cuda",
+                  batched: bool = False) -> SimState:
+    """A sharded state -> one ``SimState`` on ``device`` (a member stack
+    where ``batched``)."""
     device = torch.device(device)
-    return SimState(velocity=gather(sharded.velocity, device),
-                    color=gather(sharded.color, device), step=sharded.step)
+
+    def whole(grids):
+        if not batched:
+            return gather(grids, device)
+        return torch.cat([gather(g, device) for g in grids], dim=0)
+    return SimState(velocity=whole(sharded.velocity),
+                    color=whole(sharded.color), step=sharded.step)
 
 
 def _aii(gi, gj, h, w):
@@ -152,15 +209,15 @@ def _aii(gi, gj, h, w):
     return diag_at(walls_at(gi, gj, h, w))
 
 
-def _exchange2(x, width, bcs=("zero", "zero")):
+def _exchange2(x, width, bcs=("zero", "zero"), ranks=None):
     """Exchange along x, then along y on the x-padded blocks: that order
     fills the corner ghosts (``sharded.py:67-70``)."""
-    x = exchange_halo(x, width, -2, X_AXIS, bcs[0])
-    return exchange_halo(x, width, -1, Y_AXIS, bcs[1])
+    x = exchange_halo(x, width, -2, X_AXIS, bcs[0], ranks=ranks)
+    return exchange_halo(x, width, -1, Y_AXIS, bcs[1], ranks=ranks)
 
 
 def _channel(grid, c):
-    return [[blk[c] for blk in row] for row in grid]
+    return [[None if blk is None else blk[c] for blk in row] for row in grid]
 
 
 def check_max_disp(cfg, max_disp, use_kernel_advect):
@@ -179,16 +236,16 @@ def check_max_disp(cfg, max_disp, use_kernel_advect):
 def mesh_metrics(sh: Shards, div_pre, div_post, res, vel, color,
                  n_cells: float):
     """The SURVEY §5 observability scalars of a sharded step: each shard's
-    reductions combined over the shards, 0-dim tensors on the first
-    shard's device."""
-    home = sh.devices[0][0]
-
-    def reduce(grid, fn, combine):
-        return combine(torch.stack([fn(blk).to(home) for row in grid
-                                    for blk in row]))
+    reductions combined over the shards (and over the processes of a mesh
+    that spans them), 0-dim tensors on this process's first shard's
+    device."""
+    def reduce(grid, fn, combine, op):
+        part = combine(torch.stack([fn(blk).to(sh.home) for row in grid
+                                    for blk in row if blk is not None]))
+        return part if sh.ranks is None else all_reduce(part, op)
 
     def gmax(grid):
-        return reduce(grid, torch.max, torch.max)
+        return reduce(grid, torch.max, torch.max, "max")
 
     nonfinite = sh.map(lambda a, b, v, c: (
         (~torch.isfinite(v)).sum() + (~torch.isfinite(c)).sum()), vel, color)
@@ -197,11 +254,11 @@ def mesh_metrics(sh: Shards, div_pre, div_post, res, vel, color,
         "div_post_max": gmax(sh.map(lambda a, b, x: torch.abs(x),
                                     div_post)),
         "poisson_residual_l2": torch.sqrt(reduce(
-            sh.map(lambda a, b, r: r * r, res), torch.sum, torch.sum)
+            sh.map(lambda a, b, r: r * r, res), torch.sum, torch.sum, "sum")
             / n_cells),
         "max_speed": torch.sqrt(gmax(sh.map(
             lambda a, b, v: torch.sum(v * v, dim=0), vel))),
-        "finite": reduce(nonfinite, lambda x: x, torch.sum) == 0,
+        "finite": reduce(nonfinite, lambda x: x, torch.sum, "sum") == 0,
     }
 
 
@@ -273,7 +330,7 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh,
                      clip01=False):
         """Backtrace + gather in a k-halo window; global-coordinate
         clamps (K2 block mode on the kernel route)."""
-        fpad = _exchange2(field, k)
+        fpad = sh.exchange2(field, k)
         if use_kernel_advect:
             def kern(a, b, f, v):
                 return advect_kernel(
@@ -312,8 +369,8 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh,
         sample the velocity at x - dt/2·v(x) from a k-halo window, then
         trace the full step through it.  Both stages CFL-clamp to the
         halo."""
-        vpad = _exchange2(vel, k)
-        fpad = _exchange2(field, k)
+        vpad = sh.exchange2(vel, k)
+        fpad = sh.exchange2(field, k)
 
         def one(a, b, f, v, vp):
             gi, gj = fcoords[a][b]
@@ -363,8 +420,8 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh,
 
     def divergence_local(vel):
         # each component only needs ghosts along its own difference axis
-        vx = exchange_halo(_channel(vel, 0), 1, -2, X_AXIS, "reflect_neg")
-        vy = exchange_halo(_channel(vel, 1), 1, -1, Y_AXIS, "reflect_neg")
+        vx = sh.exchange(_channel(vel, 0), 1, -2, X_AXIS, "reflect_neg")
+        vy = sh.exchange(_channel(vel, 1), 1, -1, Y_AXIS, "reflect_neg")
         inv = 1.0 / (2.0 * dx)
         return sh.map(lambda a, b, x, y: ((x[2:, :] - x[:-2, :])
                                           + (y[:, 2:] - y[:, :-2])) * inv,
@@ -374,14 +431,14 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh,
         """Fedkiw confinement with edge-clamped halos (matches
         ``ops.fd.vorticity_confinement`` on the global grid)."""
         inv = 1.0 / (2.0 * dx)
-        vx = exchange_halo(_channel(vel, 0), 1, -1, Y_AXIS, "edge")
-        vy = exchange_halo(_channel(vel, 1), 1, -2, X_AXIS, "edge")
+        vx = sh.exchange(_channel(vel, 0), 1, -1, Y_AXIS, "edge")
+        vy = sh.exchange(_channel(vel, 1), 1, -2, X_AXIS, "edge")
         w = sh.map(lambda a, b, x, y: ((y[2:, :] - y[:-2, :])
                                        - (x[:, 2:] - x[:, :-2])) * inv,
                    vx, vy)
         aw = sh.map(lambda a, b, x: torch.abs(x), w)
-        aw_x = exchange_halo(aw, 1, -2, X_AXIS, "edge")
-        aw_y = exchange_halo(aw, 1, -1, Y_AXIS, "edge")
+        aw_x = sh.exchange(aw, 1, -2, X_AXIS, "edge")
+        aw_y = sh.exchange(aw, 1, -1, Y_AXIS, "edge")
 
         def force(a, b, v, w_, ax, ay):
             tiny = torch.tensor(1e-6, dtype=v.dtype, device=v.device)
@@ -393,7 +450,7 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh,
         return sh.map(force, vel, w, aw_x, aw_y)
 
     def gradient_sub_local(vel, p):
-        ppad = _exchange2(p, 1, ("edge", "edge"))
+        ppad = sh.exchange2(p, 1, ("edge", "edge"))
         inv = 1.0 / (2.0 * dx)
 
         def one(a, b, v, pp):
@@ -425,7 +482,7 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh,
             dxd = torch.where(in_dom, dx * dpad, 0.0)
             return (gi + gj) % 2, neg_inv, in_dom, dxd
 
-        const = sh.map(consts, _exchange2(d, kk))
+        const = sh.map(consts, sh.exchange2(d, kk))
 
         def halves(a, b, pp, start, count):
             parity, neg_inv, in_dom, dxd = const[a][b]
@@ -446,7 +503,7 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh,
         while done < total:
             n_here = min(kk, total - done)
             p = sh.map(lambda a, b, pp: halves(a, b, pp, done, n_here),
-                       _exchange2(p, kk))
+                       sh.exchange2(p, kk))
             done += n_here
         return p
 
@@ -483,7 +540,7 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh,
             return sh.map(one)
 
         def nbr_sum(p):
-            pp = _exchange2(p, 1)
+            pp = sh.exchange2(p, 1)
             return sh.map(lambda a, b, x: (x[:-2, 1:-1] + x[2:, 1:-1]
                                            + x[1:-1, :-2] + x[1:-1, 2:]), pp)
 
@@ -504,7 +561,7 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh,
             # cell-centred linear interpolation per axis, neighbour values
             # via edge-clamped halos (ops.multigrid._prolong globally)
             for axis, name in ((0, X_AXIS), (1, Y_AXIS)):
-                xp = exchange_halo(x, 1, axis, name, "edge")
+                xp = sh.exchange(x, 1, axis, name, "edge")
 
                 def interp(a, b, c, cp, axis=axis):
                     n = c.shape[axis]
@@ -536,7 +593,7 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh,
                 g = gather(b_c, home)
                 e_rep = _vcycle(torch.zeros_like(g), g, rep_shapes, 0,
                                 omega_s, n_pre, n_post, 16)
-                ch, cw = b_c[0][0].shape
+                ch, cw = g.shape[0] // sh.nx, g.shape[1] // sh.ny
                 e_c = sh.map(lambda a, b: e_rep[a * ch:(a + 1) * ch,
                                                 b * cw:(b + 1) * cw].to(
                     sh.devices[a][b]))
@@ -571,7 +628,7 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh,
             g2 = 2 * iters
             return sh.map(lambda a, b, dp: sor_solve_kernel(
                 dp, dx, iters, cfg.omega, global_offset=sh.origin(a, b),
-                global_shape=(H, W), halo=g2), _exchange2(div, g2))
+                global_shape=(H, W), halo=g2), sh.exchange2(div, g2))
         if cfg.solver == "multigrid":
             return mg_local(div)
         return sor_local(div)
@@ -587,7 +644,7 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh,
                                      global_offset=sh.origin(a, b),
                                      global_shape=(H, W), halo=g2)
             none = [[None] * sh.ny for _ in range(sh.nx)]
-            return unzip(sh.map(kern, _exchange2(vel, g2),
+            return unzip(sh.map(kern, sh.exchange2(vel, g2),
                                 none if imps is None else imps), 2)
         p = solve_local(divergence_local(vel))
         return gradient_sub_local(vel, p), p
@@ -601,9 +658,9 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh,
                   + pp[1:-1, 2:])
             aii = _aii(gi, gj, H, W).to(pp.dtype)
             return nb - aii * pp[1:-1, 1:-1] - dx * dv
-        return sh.map(one, _exchange2(p, 1), div)
+        return sh.map(one, sh.exchange2(p, 1), div)
 
-    home = sh.devices[0][0]
+    home = sh.home
     drain_in_k1 = (cfg.solver == "fused_pallas" and cfg.vorticity_eps == 0.0
                    and not with_metrics)
 
@@ -653,7 +710,7 @@ def make_sharded_render(cfg: SimConfig, mesh: Mesh):
     s = cfg.scaling
 
     def render(color):
-        cpad = _exchange2(color, 1, ("edge", "edge"))
+        cpad = sh.exchange2(color, 1, ("edge", "edge"))
 
         def one(a, b, c):
             # keep only the +1 ghost on the high side

@@ -1,5 +1,5 @@
 """The sharded 3D dye-bed step: ``models.stable_fluids.step`` for a 3D
-``SimConfig`` over the ``(x, y)`` shards of a single-process device mesh
+``SimConfig`` over the ``(x, y)`` shards of a device mesh
 (counterpart of ``esp32_fluid_simulation_tpu/parallel/sharded3d.py``),
 and the 3D stencils it shares with the sharded smoke step
 (``parallel/sharded_smoke.py``).
@@ -42,8 +42,7 @@ from ..ops.cuda.sor3d import aii3, sor3d_chunk
 from ..ops.fd import _shift_edge_clamp, _shift_reflect_neg
 from ..ops.multigrid import _coarse_shapes, _vcycle, multigrid_solve
 from ..ops.poisson import _shift_zero, neg_inv_of
-from .halo import exchange_halo
-from .sharded import (Shards, _channel, _exchange2, check_max_disp, gather,
+from .sharded import (Shards, _channel, check_max_disp, gather,
                       mesh_metrics, unzip)
 from .topology import Mesh, X_AXIS, Y_AXIS
 
@@ -133,8 +132,8 @@ class Stencils3D:
         """``ops.fd.divergence`` with reflect-negate ghosts: the vertical
         ones local, the others exchanged, each component along its own
         difference axis only."""
-        vx = exchange_halo(_channel(vel, 1), 1, -2, X_AXIS, "reflect_neg")
-        vy = exchange_halo(_channel(vel, 2), 1, -1, Y_AXIS, "reflect_neg")
+        vx = self.sh.exchange(_channel(vel, 1), 1, -2, X_AXIS, "reflect_neg")
+        vy = self.sh.exchange(_channel(vel, 2), 1, -1, Y_AXIS, "reflect_neg")
         return self.sh.map(lambda a, b, v, x, y: (
             (_shift_reflect_neg(v[0], 0) + (x[:, 2:] - x[:, :-2]))
             + (y[:, :, 2:] - y[:, :, :-2])) * self.inv, vel, vx, vy)
@@ -142,7 +141,7 @@ class Stencils3D:
     def subtract_gradient(self, vel, p):
         """``ops.fd.subtract_gradient`` with edge-clamped (Neumann)
         ghosts."""
-        ppad = _exchange2(p, 1, ("edge", "edge"))
+        ppad = self.sh.exchange2(p, 1, ("edge", "edge"))
 
         def one(a, b, v, pp):
             g0 = _shift_edge_clamp(pp[:, 1:-1, 1:-1], 0) * self.inv
@@ -156,8 +155,8 @@ class Stencils3D:
         each block of ``grid`` (``[..., D, lh, lw]``) along the vertical
         axis, rows and columns, unscaled."""
         sh = self.sh
-        xp = exchange_halo(grid, 1, -2, X_AXIS, "edge")
-        yp = exchange_halo(grid, 1, -1, Y_AXIS, "edge")
+        xp = self.sh.exchange(grid, 1, -2, X_AXIS, "edge")
+        yp = self.sh.exchange(grid, 1, -1, Y_AXIS, "edge")
         d0 = sh.map(lambda a, b, x: _shift_edge_clamp(x, x.dim() - 3), grid)
         d1 = sh.map(lambda a, b, x: x[..., 2:, :] - x[..., :-2, :], xp)
         d2 = sh.map(lambda a, b, x: x[..., 2:] - x[..., :-2], yp)
@@ -214,7 +213,7 @@ class Stencils3D:
             dxd = torch.where(in_dom, dx * dpad, 0.0)
             return (g[0] + g[1] + g[2]) % 2, neg_inv, in_dom, dxd
 
-        const = sh.map(consts, _exchange2(d, kk))
+        const = sh.map(consts, self.sh.exchange2(d, kk))
 
         def halves(a, b, pp, start, count):
             parity, neg_inv, in_dom, dxd = const[a][b]
@@ -234,7 +233,7 @@ class Stencils3D:
         while done < total:
             n_here = min(kk, total - done)
             p = sh.map(lambda a, b, pp: halves(a, b, pp, done, n_here),
-                       _exchange2(p, kk))
+                       self.sh.exchange2(p, kk))
             done += n_here
         return p
 
@@ -250,7 +249,7 @@ class Stencils3D:
         sh = self.sh
         ck = min(chunk, iters)
         g = 2 * ck
-        dg = _exchange2(d, g)
+        dg = self.sh.exchange2(d, g)
         p = _zeros(sh, dg)
         p_own = _zeros(sh, d)
         done = 0
@@ -266,7 +265,7 @@ class Stencils3D:
             p_own = sh.map(one, dg, p)
             done += kk
             if done < iters:
-                p = _exchange2(p_own, g)
+                p = self.sh.exchange2(p_own, g)
         return p_own
 
     def multigrid(self, d, cycles, omega_s):
@@ -278,7 +277,7 @@ class Stencils3D:
         linear prolongation, RB smoother and -4x residual scaling as
         ``ops/multigrid.py``."""
         sh, dx = self.sh, self.dx
-        home = sh.devices[0][0]
+        home = sh.home
         n_pre = n_post = 2
         plan = []
         dl, hl, wl, lhl, lwl = sh.shape + (sh.lh, sh.lw)
@@ -303,7 +302,7 @@ class Stencils3D:
 
         def nbr_sum(p):
             return sh.map(lambda a, b, x, xp: nbr_sum3(x, xp), p,
-                          _exchange2(p, 1))
+                          self.sh.exchange2(p, 1))
 
         def smooth(p, bb, const, sweeps):
             for _ in range(sweeps):
@@ -325,8 +324,8 @@ class Stencils3D:
                     xp = sh.map(lambda a, b, c: torch.cat(
                         [c[:1], c, c[-1:]], dim=0), x)
                 else:
-                    xp = exchange_halo(x, 1, axis, (X_AXIS, Y_AXIS)[axis - 1],
-                                       "edge")
+                    xp = sh.exchange(x, 1, axis, (X_AXIS, Y_AXIS)[axis - 1],
+                                     "edge")
 
                 def interp(a, b, c, cp, axis=axis):
                     n = c.shape[axis]
@@ -354,7 +353,7 @@ class Stencils3D:
                 g = gather(b_c, home)
                 e_rep = _vcycle(torch.zeros_like(g), g, rep_shapes, 0,
                                 omega_s, n_pre, n_post, 16)
-                _, ch, cw = b_c[0][0].shape
+                ch, cw = g.shape[1] // sh.nx, g.shape[2] // sh.ny
                 e_c = sh.map(lambda a, b: e_rep[:, a * ch:(a + 1) * ch,
                                                 b * cw:(b + 1) * cw].to(
                     sh.devices[a][b]))
@@ -379,7 +378,7 @@ class Stencils3D:
         def one(a, b, x, xp, dv):
             aii = aii3(coords3(sh, a, b), sh.shape).to(x.dtype)
             return nbr_sum3(x, xp) - aii * x - self.dx * dv
-        return sh.map(one, p, _exchange2(p, 1), div)
+        return sh.map(one, p, self.sh.exchange2(p, 1), div)
 
 
 def make_sharded_step_3d(cfg: SimConfig, mesh: Mesh,
@@ -415,7 +414,7 @@ def make_sharded_step_3d(cfg: SimConfig, mesh: Mesh,
     dt, iters = cfg.dt, cfg.sor_iters
 
     def advect_local(field, vel, no_slip, sign=1.0, return_minmax=False):
-        fpad = _exchange2(field, k)
+        fpad = sh.exchange2(field, k)
         if use_kernel_advect:
             # the velocity self-advect reads its velocity from fpad
             return ops.advect_kernel(fpad, None if vel is field else vel, dt,
@@ -427,8 +426,8 @@ def make_sharded_step_3d(cfg: SimConfig, mesh: Mesh,
         """Midpoint backtrace (``ops.advect.advect_rk2``, shard-local):
         sample the velocity at x - dt/2·v(x) from a k-halo window, then
         trace the full step through it; both stages clamp to the halo."""
-        vpad = _exchange2(vel, k)
-        fpad = _exchange2(field, k)
+        vpad = sh.exchange2(vel, k)
+        fpad = sh.exchange2(field, k)
 
         def one(a, b, f, v, vp):
             gz, gi, gj = ops.fcoords[a][b]

@@ -35,7 +35,7 @@ import torch
 
 from ..models.smoke3d import SmokeConfig, SmokeState, inject_and_buoy, \
     source_tensor
-from .sharded import Shards, _exchange2, check_max_disp, gather, unzip
+from .sharded import Shards, check_max_disp, gather, unzip
 from .sharded3d import Stencils3D
 from .topology import Mesh
 
@@ -102,7 +102,7 @@ def make_sharded_smoke_step(cfg: SmokeConfig, mesh: Mesh,
 
     def advect(field, vel, no_slip):
         """``vel`` None: ``field`` is the velocity and advects itself."""
-        fpad = _exchange2(field, k)
+        fpad = sh.exchange2(field, k)
         if use_kernel_advect:
             return ops.advect_kernel(fpad, vel, dt, max_disp, no_slip)
         return ops.advect_eager(fpad, field if vel is None else vel, dt,

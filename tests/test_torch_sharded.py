@@ -19,7 +19,13 @@ Tolerances, each with its reason:
 * against JAX's sharded step: rtol 1e-4 / atol 1e-4, the kernel route in
   interpret mode;
 * the mesh-reduced metrics rtol 1e-4 / atol 1e-5 (:201-205);
-* the sharded render: every pixel equal.
+* the sharded render: every pixel equal;
+* the batched (dp x sp) mesh: the spatial step on a batch-2 mesh against
+  JAX's at rtol 1e-4 / atol 1e-4, and bit-equal to the batch-1 mesh's;
+  ``shard_state(..., batched=True)`` block for block equal to JAX's
+  shards; the member stack stepped on it against JAX's
+  ``jax.jit(jax.vmap(step))`` (``test_sharded.py:88-110``) at rtol 1e-5 /
+  atol 1e-5, the single-device tolerance above, both members equal.
 """
 
 import functools
@@ -262,8 +268,8 @@ def test_sharded_step_follows_jax_sharded_step(monkeypatch, mesh, route):
 def test_sharded_step_refusals(mesh):
     """As in JAX: domain_tile configs, unsupported solvers and the 3D
     ``fused_pallas`` raise NotImplementedError, a grid the mesh does not
-    divide ValueError; a batched mesh is not ported yet
-    (NotImplementedError naming its ROADMAP line)."""
+    divide ValueError; a batched mesh runs (its case is
+    ``test_batched_mesh_step_follows_jax``)."""
     with pytest.raises(NotImplementedError, match="domain_tile"):
         make_sharded_step(SimConfig(shape=(128, 256), domain_tile=(32, 32)),
                           mesh)
@@ -275,9 +281,8 @@ def test_sharded_step_refusals(mesh):
     with pytest.raises(NotImplementedError, match="fused"):
         make_sharded_step(SimConfig(shape=(16, 16, 16),
                                     solver="fused_pallas"), mesh)
-    with pytest.raises(NotImplementedError, match="dp x sp"):
-        make_sharded_step(SimConfig(shape=SHAPE),
-                          make_mesh(["cpu"] * 8, batch=2, grid_shape=(2, 2)))
+    make_sharded_step(SimConfig(shape=SHAPE),
+                      make_mesh(["cpu"] * 8, batch=2, grid_shape=(2, 2)))
     with pytest.raises(ValueError, match="exceeds the shard extent"):
         # K1's halo (2*12+2) is wider than the 24-column blocks
         make_sharded_step(SimConfig(shape=SHAPE, solver="fused_pallas",
@@ -300,6 +305,126 @@ def test_sharded_step_max_disp_follows_config(mesh):
     with pytest.raises(ValueError, match="advect_max_disp"):
         make_sharded_step(SimConfig(shape=SHAPE, advect_impl="pallas"), mesh,
                           max_disp=8)
+
+
+def _batched_jax_mesh():
+    return jmake_mesh(jax.devices()[:8], batch=2, grid_shape=(2, 2))
+
+
+@pytest.fixture(scope="module")
+def batched_mesh():
+    return make_mesh(["cpu"] * 8, batch=2, grid_shape=(2, 2))
+
+
+def test_batched_mesh_step_follows_jax(batched_mesh):
+    """``make_sharded_step`` on the batch-2 mesh: JAX's state spec has no
+    ``batch`` axis, so the spatial step runs replicated over it and gives
+    the batch-1 result."""
+    cfg = SimConfig(shape=SHAPE, sor_iters=6)
+    jcfg = J.SimConfig(shape=SHAPE, sor_iters=6)
+    st = _kicked(cfg, steps=2)
+    pos, val = [(10, 10), (33, 70)], [(50.0, 80.0), (-40.0, 30.0)]
+    jmesh = _batched_jax_mesh()
+    jst = jax.device_put(_jax_state(st), jsharding(jcfg, jmesh))
+    jout = jmake_sharded_step(jcfg, jmesh, max_disp=8, donate=False)(
+        jst, J.Impulses.from_lists(jcfg, pos, val))
+    out = unshard_state(make_sharded_step(cfg, batched_mesh, max_disp=8)(
+        shard_state(st, cfg, batched_mesh), _imp(cfg, pos, val)), "cpu")
+    np.testing.assert_allclose(out.velocity.numpy(),
+                               np.asarray(jout.velocity), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(out.color.numpy(), np.asarray(jout.color),
+                               rtol=1e-4, atol=1e-4)
+    one = make_mesh(["cpu"] * 4, grid_shape=(2, 2))
+    flat = unshard_state(make_sharded_step(cfg, one, max_disp=8)(
+        shard_state(st, cfg, one), _imp(cfg, pos, val)), "cpu")
+    assert torch.equal(out.velocity, flat.velocity)
+    assert torch.equal(out.color, flat.color)
+
+
+def _member_stack(cfg, n, seed):
+    """``n`` seeded members: a kicked state each, stacked."""
+    rng = np.random.default_rng(seed)
+    fn = make_step(cfg)
+    members = []
+    for _ in range(n):
+        st = init_state(cfg, device="cpu")
+        pos = [(int(rng.integers(0, SHAPE[0])), int(rng.integers(0, SHAPE[1])))
+               for _ in range(2)]
+        members.append(fn(st, _imp(cfg, pos, KICKS[1])))
+    return SimState(velocity=torch.stack([m.velocity for m in members]),
+                    color=torch.stack([m.color for m in members]), step=1)
+
+
+def test_batched_shard_state_places_as_jax(batched_mesh):
+    """Each block of ``shard_state(..., batched=True)`` is the JAX shard at
+    the same mesh position, ``P("batch", None, "x", "y")``, and
+    ``unshard_state`` restores the stack."""
+    cfg = SimConfig(shape=SHAPE)
+    jcfg = J.SimConfig(shape=SHAPE)
+    stack = _member_stack(cfg, 4, seed=3)
+    sharded = shard_state(stack, cfg, batched_mesh, batched=True)
+    jmesh = _batched_jax_mesh()
+    jsh = jsharding(jcfg, jmesh, batched=True)
+    for name in ("velocity", "color"):
+        jarr = jax.device_put(jnp.asarray(getattr(stack, name).numpy()),
+                              getattr(jsh, name))
+        pos = {d: idx for idx, d in np.ndenumerate(jmesh.devices)}
+        assert len(jarr.addressable_shards) == 8
+        for shard in jarr.addressable_shards:
+            r, a, b = pos[shard.device]
+            got = getattr(sharded, name)[r][a][b]
+            assert got.device == batched_mesh.devices[r, a, b]
+            np.testing.assert_array_equal(got.numpy(),
+                                          np.asarray(shard.data))
+    back = unshard_state(sharded, "cpu", batched=True)
+    assert torch.equal(back.velocity, stack.velocity)
+    assert torch.equal(back.color, stack.color)
+    with pytest.raises(ValueError, match="not divisible by batch"):
+        shard_state(_member_stack(cfg, 3, seed=4), cfg, batched_mesh,
+                    batched=True)
+
+
+def test_batched_member_stack_step_follows_jax_vmap(batched_mesh):
+    """The member stack on the batch-2 mesh, each batch row stepping its
+    members with the spatial step over its own 2x2 shards, against JAX's
+    ``jax.jit(jax.vmap(step))`` of the stack placed with ``P("batch")``
+    (``tests/test_sharded.py:88-110``)."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from esp32_fluid_simulation_tpu_torch.parallel.topology import Mesh
+
+    cfg = SimConfig(shape=(32, 64))
+    jcfg = J.SimConfig(shape=(32, 64))
+    pos, val = [(16, 32)], [(100.0, -50.0)]
+    st0 = init_state(cfg, device="cpu")
+    stack = SimState(velocity=torch.stack([st0.velocity] * 2),
+                     color=torch.stack([st0.color] * 2), step=0)
+    sharded = shard_state(stack, cfg, batched_mesh, batched=True)
+    out = []
+    for r in range(2):
+        row = Mesh(batched_mesh.devices[r:r + 1])
+        step = make_sharded_step(cfg, row)
+        v, c = sharded.velocity[r], sharded.color[r]
+        member = SimState(velocity=[[blk[0] for blk in x] for x in v],
+                          color=[[blk[0] for blk in x] for x in c], step=0)
+        out.append(unshard_state(step(member, _imp(cfg, pos, val)), "cpu"))
+    jfn = J.make_step(jcfg, donate=False)
+    jst0 = J.init_state(jcfg)
+    jbatch = jax.tree.map(lambda x: jnp.stack([x, x]), jst0)
+    jimp = J.Impulses.from_lists(jcfg, pos, val)
+    jimp_b = jax.tree.map(lambda x: jnp.stack([x, x]), jimp)
+    spec = NamedSharding(_batched_jax_mesh(), P("batch"))
+    jbatch = jax.device_put(jbatch, jax.tree.map(lambda _: spec, jst0))
+    jout = jax.jit(jax.vmap(lambda s, i: jfn(s, i)))(jbatch, jimp_b)
+    jv, jc = np.asarray(jout.velocity), np.asarray(jout.color)
+    for r in range(2):
+        np.testing.assert_allclose(out[r].velocity.numpy(), jv[r],
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(out[r].color.numpy(), jc[r],
+                                   rtol=1e-5, atol=1e-5)
+    assert torch.equal(out[0].velocity, out[1].velocity)
+    assert torch.equal(out[0].color, out[1].color)
 
 
 def test_make_mesh_layout():
