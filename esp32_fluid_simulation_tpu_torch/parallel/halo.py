@@ -76,7 +76,7 @@ def staged(device) -> bool:
     return device.type == "cuda" and dist.get_backend() == "gloo"
 
 
-def to_wire(t: torch.Tensor) -> torch.Tensor:
+def _to_wire(t: torch.Tensor) -> torch.Tensor:
     """``t`` as the default group carries it: a contiguous tensor of its
     own on ``t``'s device, or a pinned host copy where ``staged``."""
     if staged(t.device):
@@ -85,7 +85,7 @@ def to_wire(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().clone()
 
 
-def wire_empty(shape, dtype, device) -> torch.Tensor:
+def _wire_empty(shape, dtype, device) -> torch.Tensor:
     """A receive buffer for a tensor bound for ``device``."""
     if staged(device):
         return torch.empty(shape, dtype=dtype, pin_memory=True)
@@ -96,7 +96,7 @@ def all_reduce(t: torch.Tensor, op: str) -> torch.Tensor:
     """``t`` reduced over the processes of the default group (``op``
     ``"max"`` or ``"sum"``), on ``t``'s device."""
     ops = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}
-    w = to_wire(t.reshape(1))
+    w = _to_wire(t.reshape(1))
     dist.all_reduce(w, op=ops[op])
     return w.to(t.device).reshape(t.shape)
 
@@ -130,8 +130,8 @@ def all_gather_blocks(blocks):
     words = torch.cat([blocks[a][b].contiguous().view(-1).view(torch.uint8)
                        for a, b in mine])
     payload[:words.numel()] = words
-    parts = [wire_empty((longest,), torch.uint8, home) for _ in every]
-    dist.all_gather(parts, to_wire(payload))
+    parts = [_wire_empty((longest,), torch.uint8, home) for _ in every]
+    dist.all_gather(parts, _to_wire(payload))
     out = [list(row) for row in blocks]
     for part, m in zip(parts, every):
         off = 0
@@ -177,14 +177,14 @@ def _swap_strips(blocks, width, dim, axis, ranks):
                         x = blocks[src[0]][src[1]]
                         d = dim % x.dim()
                         strip = _take(x, d, -width if side < 0 else 0, width)
-                        ops.append(dist.P2POp(dist.isend, to_wire(strip),
+                        ops.append(dist.P2POp(dist.isend, _to_wire(strip),
                                               d_rank, tag=tag))
                     else:
                         x = blocks[a][b]
                         d = dim % x.dim()
                         shape = list(x.shape)
                         shape[d] = width
-                        got[(a, b, side)] = wire_empty(shape, x.dtype,
+                        got[(a, b, side)] = _wire_empty(shape, x.dtype,
                                                        x.device)
                         ops.append(dist.P2POp(dist.irecv, got[(a, b, side)],
                                               s_rank, tag=tag))

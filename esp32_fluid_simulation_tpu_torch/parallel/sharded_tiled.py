@@ -26,7 +26,7 @@ from ..state import SimState, Impulses
 from ..models.ensemble import (_from_super, _member_impulse_targets,
                                _to_super, tiled_ensemble_config)
 from ..models.stable_fluids import _step_tiled, write_cells
-from .sharded import Shards, shard_state, unshard_state
+from .sharded import Shards, shard_state, unshard_state, unzip
 from .topology import Mesh
 
 
@@ -100,10 +100,9 @@ def make_sharded_tiled_step(cfg: SimConfig, mesh: Mesh, donate: bool = True,
                                             lh, lw)
             return _step_tiled(SimState(vel, color, state.step), None,
                                local_cfg, apply_fn=apply_fn)
-        out = sh.map(one, state.velocity, state.color, imps)
-        return SimState(velocity=[[s.velocity for s in row] for row in out],
-                        color=[[s.color for s in row] for row in out],
-                        step=state.step + 1)
+        vel, color = unzip(sh.map(one, state.velocity, state.color, imps),
+                           2)
+        return SimState(velocity=vel, color=color, step=state.step + 1)
 
     return step
 

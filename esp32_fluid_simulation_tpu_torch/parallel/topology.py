@@ -55,13 +55,9 @@ class Mesh:
     def shape(self):
         return dict(zip(self.axis_names, self.devices.shape))
 
-    @property
-    def spans_processes(self) -> bool:
-        return bool((self.ranks != self.rank).any())
-
     def __repr__(self):
         owners = (f", ranks {self.ranks.ravel().tolist()}"
-                  if self.spans_processes else "")
+                  if (self.ranks != self.rank).any() else "")
         return (f"Mesh({self.shape}, "
                 f"{sorted(set(map(str, self.devices.flat)))}{owners})")
 

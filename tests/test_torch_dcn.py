@@ -22,16 +22,28 @@ each with its reason:
   dcn atol);
 * the mesh metrics against the single-process mesh's: the maxima and
   ``finite`` equal, the residual's l2 at rtol 1e-6 (its sum of squares
-  associates over the processes in another order).
+  associates over the processes in another order);
+* the 3D dye bed (multigrid, its coarse ladder gathered across the
+  processes, with the metrics; and K7 block + the K9 block chain), the 3D
+  smoke plume (eager, and K7 block + the K9 block chain) and the sharded
+  tiled ensemble (``tests/dcn_models_worker.py``), each gathered whole in
+  every process, against the single-process mesh's bit for bit, the
+  metrics as above.
 
 Each dryrun starts two Python processes (~4 s); a failing child makes
 ``run_dcn_dryrun`` raise ``RuntimeError`` with its output.
 """
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+import dcn_models_worker
 import esp32_fluid_simulation_tpu as J
 from esp32_fluid_simulation_tpu.io_host.touch import (
     scripted_swirl as jscripted_swirl)
@@ -39,14 +51,16 @@ from esp32_fluid_simulation_tpu_torch import SimConfig, init_state
 from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
 from esp32_fluid_simulation_tpu_torch.parallel import (
     make_mesh, make_sharded_step, shard_state, unshard_state)
-from esp32_fluid_simulation_tpu_torch.parallel.dcn import (dcn_results,
+from esp32_fluid_simulation_tpu_torch.parallel.dcn import (SWIRL_SPEED,
+                                                           dcn_results,
                                                            run_dcn_dryrun)
 
 torch.set_num_threads(1)
 
-SHAPE, STEPS, SPEED = (32, 64), 3, 60.0
+SHAPE, STEPS = (32, 64), 3
 BASE = dict(shape=SHAPE, sor_iters=4, advect_max_disp=3)
 TIMEOUT = 120.0
+ROOT = Path(__file__).resolve().parent.parent
 # name: (config fields, child atol, with_metrics, processes)
 CASES = {
     "fused_pallas": (dict(solver="fused_pallas", advect_impl="pallas"), 0.0,
@@ -85,7 +99,7 @@ def _single_process(cfg, with_metrics=False):
     st = shard_state(init_state(cfg, device="cpu"), cfg, mesh)
     metrics = None
     for t in range(STEPS):
-        st = fn(st, scripted_swirl(cfg, t, speed=SPEED, device="cpu"))
+        st = fn(st, scripted_swirl(cfg, t, speed=SWIRL_SPEED, device="cpu"))
         if with_metrics:
             st, metrics = st
     return unshard_state(st, "cpu"), metrics
@@ -93,7 +107,7 @@ def _single_process(cfg, with_metrics=False):
 
 def _dryrun(tmp_path, cfg=None, n=2, **kw):
     out = run_dcn_dryrun(num_processes=n, devices_per_process=8 // n,
-                         steps=STEPS, timeout=TIMEOUT, cfg=cfg, speed=SPEED,
+                         steps=STEPS, timeout=TIMEOUT, cfg=cfg,
                          out_dir=str(tmp_path), **kw)
     ok = [ln for ln in out.splitlines() if "sharded steps" in ln]
     assert len(ok) == n
@@ -103,7 +117,7 @@ def _dryrun(tmp_path, cfg=None, n=2, **kw):
     assert [r["device"] for r in res] == ["cpu"] * n
     assert not any(r["host_staged"] for r in res)
     # the wrappers count launches of their CUDA kernels only
-    assert all(n == 0 for r in res for n in r["launches"].values())
+    assert all(k == 0 for r in res for k in r["launches"].values())
     return out
 
 
@@ -120,7 +134,7 @@ def test_two_process_mesh_matches_single_device_and_jax(tmp_path):
     jst = J.init_state(jcfg)
     jstep = J.make_step(jcfg, donate=False)
     for t in range(STEPS):
-        jst = jstep(jst, jscripted_swirl(jcfg, t, speed=SPEED))
+        jst = jstep(jst, jscripted_swirl(jcfg, t, speed=SWIRL_SPEED))
     np.testing.assert_allclose(vel, np.asarray(jst.velocity), rtol=1e-4,
                                atol=1e-4)
     np.testing.assert_allclose(col, np.asarray(jst.color), rtol=1e-4,
@@ -128,7 +142,7 @@ def test_two_process_mesh_matches_single_device_and_jax(tmp_path):
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_two_process_routes_match_single_process_mesh(tmp_path, case):
+def test_process_mesh_routes_match_single_process_mesh(tmp_path, case):
     kw, atol, with_metrics, n = CASES[case]
     cfg = SimConfig(**BASE, **kw)
     _dryrun(tmp_path, cfg, n, atol=atol, with_metrics=with_metrics)
@@ -168,3 +182,34 @@ def test_child_failure_raises_with_its_output(case):
         run_dcn_dryrun(steps=1, timeout=TIMEOUT, **kw)
     assert want in str(err.value)
     assert "--- dcn child 0 output ---" in str(err.value)
+
+
+def test_3d_and_tiled_steps_across_processes(tmp_path):
+    """The 3D and tiled sharded steps inherit the process-aware layout,
+    exchanges, gathers and metrics: two gloo processes of 4 positions run
+    ``dcn_models_worker.models`` on one 2x4 mesh and gather every result
+    whole."""
+    worker = Path(__file__).with_name("dcn_models_worker.py")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    procs = [subprocess.Popen(
+        [sys.executable, str(worker), str(r), "2", str(tmp_path / "store"),
+         str(tmp_path)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    want = dcn_models_worker.models(make_mesh(["cpu"] * 8,
+                                              grid_shape=(2, 4)))
+    for r in range(2):
+        with np.load(tmp_path / f"rank{r}.npz") as z:
+            assert sorted(z.files) == sorted(want)
+            for key, w in want.items():
+                if key.endswith("poisson_residual_l2"):
+                    np.testing.assert_allclose(z[key], w, rtol=1e-6, atol=0)
+                else:
+                    assert np.array_equal(z[key], w), key

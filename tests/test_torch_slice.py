@@ -251,6 +251,7 @@ def test_port_imports_no_jax():
             "esp32_fluid_simulation_tpu_torch.io_host.native, "
             "esp32_fluid_simulation_tpu_torch.io_host.pipeline, "
             "esp32_fluid_simulation_tpu_torch.io_host.server, "
+            "esp32_fluid_simulation_tpu_torch.parallel.dcn, "
             "esp32_fluid_simulation_tpu_torch.demo\n"
             "from esp32_fluid_simulation_tpu_torch.io_host import native\n"
             "native.load_library()\n"
