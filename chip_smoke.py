@@ -174,7 +174,9 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    ``render_smoke`` chain, which the summary's K10 entry carries), the
    chain's ms per step + frame and the wrapper's host us per call.
 25. After phase 5: ``utils.profiling.chain_time`` of config 0's
-   ``make_step_render`` beside the CUDA-event time of the same chain, and
+   ``make_step_render``, first cold (a fresh factory, the allocator's
+   cache emptied), beside the CUDA-event time of the same chain, each
+   reading within ``CHAIN_RTOL`` of it, and
    ``utils.roofline.speed_of_light(cfg0, "h100")``; one ``trace`` of 3
    config 0 steps, whose Chrome trace must hold K1's and K2's device
    kernels by name (K1 once and K2 twice a step).
@@ -182,7 +184,7 @@ file; it exits non-zero on any failure and imports nothing of JAX.
 Each kernel's entry in the summary carries its bound: the larger of the
 bytes it must move (each input read once, each output written once) over
 3.35 TB/s and its float32 operations over 67 TFLOP/s, the H100 SXM's
-published peaks.  The last line is ``{"ok": true, "device": {...}}``; the
+published peaks (``utils.roofline.GPU_SPECS["h100"]``).  The last line is ``{"ok": true, "device": {...}}``; the
 line before it is the per-kernel JSON summary.
 """
 
@@ -273,8 +275,9 @@ DCN_TIMEOUT = 300.0
 CHAIN_STEPS = 20               # phase 25: chain_time's chain
 TRACE_STEPS = 3                # phase 25: the steps of its trace
 SCRATCH_BYTES = 256 << 20      # written before each cold K10 call: 5x L2
-PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-PEAK_F32_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+# phase 25: each chain_time reading, the cold one (a fresh factory, the
+# allocator's cache emptied) too, within this share of the CUDA-event time
+CHAIN_RTOL = 0.10
 PKG = "esp32_fluid_simulation_tpu_torch"
 TPU = "esp32_fluid_simulation_tpu"
 KERNELS = {
@@ -370,9 +373,13 @@ def cuda_ms(fn, n, warmup=1):
 
 def bound(nbytes, flops):
     """(ms, what bounds it): the least time the card could take for work
-    that moves ``nbytes`` and does ``flops`` float32 operations."""
-    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
-    t_ops = 1e3 * flops / PEAK_F32_PER_S
+    that moves ``nbytes`` and does ``flops`` float32 operations, at the
+    H100's peaks in ``utils.roofline.GPU_SPECS``."""
+    from esp32_fluid_simulation_tpu_torch.utils.roofline import GPU_SPECS
+
+    spec = GPU_SPECS["h100"]
+    t_bytes = nbytes / (spec.hbm_gbps * 1e6)
+    t_ops = flops / (spec.f32_tflops * 1e9)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -3444,15 +3451,17 @@ def phase24_dcn(dev, card, cfg, mesh, sh):
     children's K11 K1/K2 block launches, summed."""
     from esp32_fluid_simulation_tpu_torch.parallel import make_sharded_step
     from esp32_fluid_simulation_tpu_torch.parallel.dcn import (
-        dcn_results, run_dcn_dryrun)
+        SWIRL_SPEED as DCN_SWIRL_SPEED, dcn_results, run_dcn_dryrun)
     from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
 
-    imps = [scripted_swirl(cfg, t, device=dev) for t in range(8)]
+    # the children's traffic: the same pokes at the same speed
+    imps = [scripted_swirl(cfg, t, speed=DCN_SWIRL_SPEED, device=dev)
+            for t in range(DCN_STEPS)]
     step = make_sharded_step(cfg, mesh)
     box = {"st": sh, "t": 0}
 
     def sharded_one():
-        box["st"] = step(box["st"], imps[box["t"] % 8])
+        box["st"] = step(box["st"], imps[box["t"] % DCN_STEPS])
         box["t"] += 1
 
     single_ms = cuda_ms(sharded_one, DCN_STEPS - 1, warmup=1)
@@ -3486,21 +3495,24 @@ def phase24_dcn(dev, card, cfg, mesh, sh):
           f"2-{DCN_STEPS}, the slower rank's; ranks "
           f"{[round(r['ms_per_step'], 4) for r in res]}) beside phase 16's "
           f"single-process 2x2 mesh {single_ms:.4f} ms/step (CUDA events, "
-          f"this process), on {card}; the dryrun took {wall:.1f} s")
+          f"this process, the same {DCN_SWIRL_SPEED:g} cells/s pokes), on "
+          f"{card}; the dryrun took {wall:.1f} s")
     return {"K11 K1 project_fused block": k1,
             "K11 K2 advect_kernel block": k2}
 
 
 def phase25_profiling(dev, card, cfg, state0):
     """``utils.profiling`` and ``utils.roofline`` at config 0:
-    ``chain_time`` of ``make_step_render`` beside the CUDA-event time of
-    the same chained call (phase 5's method) and ``speed_of_light``'s ideal
+    ``chain_time`` of ``make_step_render``, cold and warm, beside the
+    CUDA-event time of the same chained call (phase 5's method), each
+    within ``CHAIN_RTOL`` of it, and ``speed_of_light``'s ideal
     step; then one ``trace`` of a few steps, which must hold K1's and K2's
     device kernels by name.  Runs after every other profiler trace."""
     import tempfile
     from esp32_fluid_simulation_tpu_torch import make_step_render
     from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
-    from esp32_fluid_simulation_tpu_torch.utils import (chain_time,
+    from esp32_fluid_simulation_tpu_torch.utils import (GPU_SPECS,
+                                                        chain_time,
                                                         speed_of_light,
                                                         trace)
 
@@ -3515,20 +3527,32 @@ def phase25_profiling(dev, card, cfg, state0):
         return 1e3 * chain_time(lambda s: step(s, imp)[0], state0,
                                 CHAIN_STEPS)
 
-    # in turns, events, chain, chain, events: both see the same card state
+    # cold first: a fresh factory, the allocator's cache emptied, nothing
+    # run before it in this phase (a user's first call); then in turns,
+    # events, chain, chain, events: both see the same card state
+    torch.cuda.empty_cache()
+    cold = chained()
     events = [cuda_ms(one, CHAIN_STEPS, warmup=3)]
     chain = [chained(), chained()]
     events.append(cuda_ms(one, CHAIN_STEPS, warmup=0))
     sol = speed_of_light(cfg, "h100")
+    gbps = GPU_SPECS["h100"].hbm_gbps
     print(f"phase 25 config 0 make_step_render on {card}: chain_time "
-          f"{chain[0]:.4f} / {chain[1]:.4f} ms/step ({CHAIN_STEPS} chained "
-          f"steps less one) beside {events[0]:.4f} / {events[1]:.4f} "
-          f"ms/step by CUDA events (phase 5's method, {CHAIN_STEPS} steps; "
-          f"in turns: events, chain, chain, events); "
-          f"speed_of_light(cfg0, 'h100') {sol['ideal_ms_per_step']:.4f} "
-          f"ms/step ({sol['bytes_per_step']:.6g} bytes at 3.35 TB/s, "
+          f"cold {cold:.4f}, then {chain[0]:.4f} / {chain[1]:.4f} ms/step "
+          f"({CHAIN_STEPS} chained steps less one) beside {events[0]:.4f} "
+          f"/ {events[1]:.4f} ms/step by CUDA events (phase 5's method, "
+          f"{CHAIN_STEPS} steps; in turns: cold chain, events, chain, "
+          f"chain, events); speed_of_light(cfg0, 'h100') "
+          f"{sol['ideal_ms_per_step']:.4f} ms/step "
+          f"({sol['bytes_per_step']:.6g} bytes at {gbps / 1e3:g} TB/s, "
           f"{sol['ideal_fps']:.1f} fps ideal), the CUDA-event step at "
           f"{100 * sol['ideal_ms_per_step'] / min(events):.1f}% of it")
+    for name, ms in (("cold", cold), ("warm", chain[0]), ("warm", chain[1])):
+        if abs(ms - min(events)) > CHAIN_RTOL * min(events):
+            raise AssertionError(
+                f"phase 25: chain_time {name} {ms:.4f} ms/step, the CUDA "
+                f"events {min(events):.4f}: not within "
+                f"{100 * CHAIN_RTOL:g}%")
     del box["st"]
     with tempfile.TemporaryDirectory() as tmp:
         with trace(tmp):

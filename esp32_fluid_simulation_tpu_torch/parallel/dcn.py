@@ -15,7 +15,8 @@ esp32_fluid_simulation_tpu_torch.parallel.dcn ...``).  Each builds the
 global mesh, runs the sharded step for ``steps`` steps of
 ``scripted_swirl`` and checks its own blocks against the single-device
 ``make_step`` trajectory, which every process computes for itself.  The
-caller chooses the transport, and nothing falls back to another:
+caller chooses the transport, and nothing falls back to another; the
+blocks are on the card unless the caller asks for the CPU:
 
 * ``backend="gloo", device="cpu"``: the CPU stand-in, as JAX's gloo;
 * ``backend="gloo", device="cuda"``: the blocks and the kernels on the
@@ -79,8 +80,9 @@ def _process_device(rank: int, num_processes: int, backend: str,
 
 def dcn_worker_body(process_id: int, num_processes: int, port: int,
                     steps: int = 3, *, backend: str = "gloo",
-                    device: str = "cpu", devices_per_process: int = 4,
-                    cfg_json: str | None = None, atol: float = 1e-4, with_metrics: bool = False,
+                    device: str = "cuda", devices_per_process: int = 4,
+                    cfg_json: str | None = None, atol: float = 1e-4,
+                    with_metrics: bool = False,
                     out_dir: str | None = None, store: str | None = None,
                     timeout: float = 600.0) -> None:
     """Runs INSIDE each process of the group.
@@ -217,7 +219,8 @@ def dcn_worker_body(process_id: int, num_processes: int, port: int,
 def run_dcn_dryrun(num_processes: int = 2, devices_per_process: int = 4,
                    port: int | None = None, steps: int = 3,
                    timeout: float = 600.0, *, backend: str = "gloo",
-                   device: str = "cpu", cfg=None, atol: float = 1e-4, with_metrics: bool = False,
+                   device: str = "cuda", cfg=None, atol: float = 1e-4,
+                   with_metrics: bool = False,
                    out_dir: str | None = None) -> str:
     """Spawn the multi-process mesh from a normal single-process session.
 
@@ -312,7 +315,9 @@ def main(argv=None) -> None:
                    "(unused with --store)")
     p.add_argument("steps", type=int, nargs="?", default=3)
     p.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
-    p.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
+    p.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
+                   help="where the blocks and kernels run (default: the "
+                   "card; cpu only with gloo)")
     p.add_argument("--devices-per-process", type=int, default=4)
     p.add_argument("--config-json", default=None)
     p.add_argument("--atol", type=float, default=1e-4)

@@ -34,6 +34,7 @@ Each dryrun starts two Python processes (~4 s); a failing child makes
 ``run_dcn_dryrun`` raise ``RuntimeError`` with its output.
 """
 
+import inspect
 import os
 import subprocess
 import sys
@@ -51,6 +52,7 @@ from esp32_fluid_simulation_tpu_torch import SimConfig, init_state
 from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
 from esp32_fluid_simulation_tpu_torch.parallel import (
     make_mesh, make_sharded_step, shard_state, unshard_state)
+from esp32_fluid_simulation_tpu_torch.parallel import dcn
 from esp32_fluid_simulation_tpu_torch.parallel.dcn import (SWIRL_SPEED,
                                                            dcn_results,
                                                            run_dcn_dryrun)
@@ -108,7 +110,7 @@ def _single_process(cfg, with_metrics=False):
 def _dryrun(tmp_path, cfg=None, n=2, **kw):
     out = run_dcn_dryrun(num_processes=n, devices_per_process=8 // n,
                          steps=STEPS, timeout=TIMEOUT, cfg=cfg,
-                         out_dir=str(tmp_path), **kw)
+                         out_dir=str(tmp_path), device="cpu", **kw)
     ok = [ln for ln in out.splitlines() if "sharded steps" in ln]
     assert len(ok) == n
     for ln in ok:
@@ -176,12 +178,33 @@ def test_child_failure_raises_with_its_output(case):
         want = "nccl needs a card per process"
     else:
         kw = dict(num_processes=3, devices_per_process=2,
-                  cfg=SimConfig(**BASE))
+                  device="cpu", cfg=SimConfig(**BASE))
         want = "not divisible by mesh"
     with pytest.raises(RuntimeError, match="dcn child") as err:
         run_dcn_dryrun(steps=1, timeout=TIMEOUT, **kw)
     assert want in str(err.value)
     assert "--- dcn child 0 output ---" in str(err.value)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """The worker, the dryrun and the command line put the blocks on the
+    card unless the caller asks for the CPU; with no card visible the
+    default raises and does not fall back to the CPU."""
+    for fn in (dcn.dcn_worker_body, run_dcn_dryrun):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    seen = {}
+    monkeypatch.setattr(dcn, "dcn_worker_body",
+                        lambda *a, **kw: seen.update(kw))
+    dcn.main(["0", "2", "0"])
+    assert (seen["backend"], seen["device"]) == ("gloo", "cuda")
+    if torch.cuda.device_count() == 0:
+        with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+            dcn._process_device(0, 2, "gloo", "cuda")
+    else:
+        assert dcn._process_device(1, 2, "gloo", "cuda").type == "cuda"
+    assert dcn._process_device(1, 2, "gloo", "cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="nccl carries CUDA tensors only"):
+        dcn._process_device(0, 2, "nccl", "cpu")
 
 
 def test_3d_and_tiled_steps_across_processes(tmp_path):

@@ -102,6 +102,37 @@ def test_chain_time_differences_the_single_run():
         chain_time(slow, (1.0,), 3)
 
 
+def test_chain_time_settles_over_a_whole_chain():
+    """A cost that the first chain of n pays on its later applications (as
+    the caching allocator grows when two results are live at once) stays
+    out of the reading: ``chain_time`` settles with a whole chain."""
+    reached = set()
+
+    def growing(x):
+        depth = int(x[0])  # applications since x0
+        time.sleep(0.05 if depth >= 1 and depth not in reached else 0.01)
+        reached.add(depth)
+        return x + 1
+
+    t = chain_time(growing, torch.zeros(2), 4)
+    assert 0.005 <= t < 0.03
+
+
+def test_chain_time_repeats_until_two_readings_agree():
+    """One disturbed run (a 0.2 s stall in the first timed chain) does not
+    make the reading: ``chain_time`` repeats until two agree."""
+    calls = {"n": 0}
+
+    def stalled(x):
+        calls["n"] += 1
+        # calls 1-4 settle, 5 is the 1-chain, 6-9 the first 4-chain
+        time.sleep(0.21 if calls["n"] == 7 else 0.01)
+        return x + 1
+
+    t = chain_time(stalled, torch.zeros(2), 4)
+    assert 0.005 <= t < 0.03
+
+
 def test_trace_writes_a_chrome_trace(tmp_path):
     x = torch.arange(64, dtype=torch.float32)
     with trace(str(tmp_path / "tr")) as prof:
