@@ -12,7 +12,8 @@ is a file of its own under this directory, found by name:
 * ``entries/<entry>.py`` builds the program's state on the device and
   makes one step of the window; ``reference/<entry>.py`` is the plain
   PyTorch step it is compared with;
-* ``limits/<cell>.json``: the limit of each number compared;
+* ``limits/<cell>.json``: the limit of each number compared, with the
+  readings it was set from;
 * ``metrics/<metric>.py``: one reader per per-layer metric.
 
 The window is a closed loop with one caller: take the traffic's lists for
@@ -37,13 +38,15 @@ from pathlib import Path
 
 import torch
 
+from bench_port import peaks, tracing
+
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 N_SAMPLES = 6            # steps of the window compared with the reference
 WARM_STEPS = 3           # steps run before the pool of events is sized
 RATE_STEPS = 5           # steps timed to size the pool
 TRACE_WARM = 3           # profiler warm-up steps, not kept
-TRACE_SECONDS = 0.25     # the traced stretch's length, in steps of the window
+TRACE_SECONDS = 0.25     # about this many seconds of steps are traced
 TRACE_STEPS = (20, 250)  # fewest and most steps traced
 
 
@@ -77,7 +80,8 @@ def find_cell(name: str, benchmark: dict | None = None) -> dict:
             "config": _read_json(ROOT / conf["file"]),
             "traffic": _read_json(BENCH / "traffic"
                                   / f"{cell['traffic']}.json"),
-            "limits": _read_json(BENCH / "limits" / f"{name}.json"),
+            "limits": _read_json(BENCH / "limits"
+                                 / f"{name}.json")["limits"],
             "end_to_end": mine(bench["end_to_end"]),
             "per_layer": mine(bench["per_layer"])}
 
@@ -124,7 +128,7 @@ class Driver:
         self.t = 0
         self.pool = []
         self.buffers = []
-        self.samples = []   # (step, pos, vel) of each copied step
+        self.samples = []   # the traffic (pos, vel) of each copied step
 
     def one(self, spans=False, copy_to=None):
         """One step; with ``copy_to`` its input and output go there."""
@@ -171,7 +175,7 @@ class Driver:
                 copy_to = self.buffers[k]
             pos, vel = self.one(copy_to=copy_to)
             if copy_to is not None:
-                self.samples.append((self.t, pos, vel))
+                self.samples.append((pos, vel))
                 k += 1
             if n == len(pool):
                 pool.append(clock.event())
@@ -180,14 +184,12 @@ class Driver:
             self.t += 1
         clock.sync()
         wall = time.perf_counter() - t0
-        marks_ms = [clock.ms(start, pool[0])] if n else []
-        marks_ms += [clock.ms(pool[i - 1], pool[i]) for i in range(1, n)]
-        return n, wall, marks_ms
+        intervals = [clock.ms(start, pool[0])] if n else []
+        intervals += [clock.ms(pool[i - 1], pool[i]) for i in range(1, n)]
+        return n, wall, intervals
 
     def traced(self, n_active: int):
         """The profiler's summary of ``n_active`` steps after its warm-up."""
-        from bench_port import tracing
-
         last = TRACE_WARM + n_active - 1
         clock = self.clock
 
@@ -200,14 +202,27 @@ class Driver:
                     clock.sync()
             self.t += 1
 
-        return tracing.capture(body, TRACE_WARM, n_active, clock.cuda)
+        counters = getattr(self.entry, "counters", dict)
+        before = counters()
+        summary = tracing.capture(body, TRACE_WARM, n_active, clock.cuda)
+        steps = TRACE_WARM + n_active
+        launched = {k: (v - before[k]) / steps
+                    for k, v in counters().items()}
+        traced = {}
+        for k in summary["kernels"]:
+            traced[k["name"]] = traced.get(k["name"], 0) + 1 / n_active
+        print(f"trace: {n_active} steps; the program's launch counters a "
+              f"step {launched}; kernels a step in the trace "
+              f"{sorted(traced.items(), key=lambda kv: -kv[1])[:6]}",
+              file=sys.stderr, flush=True)
+        return summary
 
 
-def sample_marks(seed: int, n: int = N_SAMPLES):
+def sample_marks(seed: int):
     """The fractions of the window at which steps are copied for the
     comparison, drawn from the seed."""
     rng = random.Random(f"samples/{seed}")
-    return sorted(rng.uniform(0.02, 0.98) for _ in range(n))
+    return sorted(rng.uniform(0.02, 0.98) for _ in range(N_SAMPLES))
 
 
 def _worse(a, b):
@@ -229,7 +244,10 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, clock,
     if entry_factory is None:
         entry_factory = load_module(BENCH / "entries"
                                     / f"{conf['entry']}.py").build
+    stamps = [("start", t_start), ("imports", time.perf_counter())]
     entry = entry_factory(sim, scaling, clock.device)
+    clock.sync()
+    stamps.append(("entry", time.perf_counter()))
     drv = Driver(entry, gen, clock)
 
     # set-up: the cell's own shapes warmed through the window's own path,
@@ -240,6 +258,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, clock,
     drv.window(math.inf, marks=[0.0], max_steps=WARM_STEPS - 1)
     drv.samples.clear()
     _, wall, _ = drv.window(math.inf, max_steps=RATE_STEPS)
+    stamps.append(("warm-up", time.perf_counter()))
     per_step = max(wall / RATE_STEPS, 1e-6)
     drv.pool = [clock.event() for _ in range(int(2 * seconds / per_step)
                                                + 64)]
@@ -248,9 +267,16 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, clock,
     clock.sync()
     drv.t = 0
     setup_s = time.perf_counter() - t_start
+    stamps.append(("events", t_start + setup_s))
+    print("set-up: " + ", ".join(
+        f"{b[0]} {b[1] - a[1]:.3f} s" for a, b in zip(stamps, stamps[1:])),
+        file=sys.stderr, flush=True)
 
     steps, wall, intervals = drv.window(seconds, marks=sample_marks(seed))
     step_s = wall / steps
+    print(f"window: {steps} steps in {wall:.3f} s, intervals median "
+          f"{statistics.median(intervals):.4f} ms, max {max(intervals):.4f}"
+          " ms", file=sys.stderr, flush=True)
     summary = None
     if trace:
         n_active = min(max(round(TRACE_SECONDS / step_s), TRACE_STEPS[0]),
@@ -264,7 +290,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, clock,
     clock.release()
     worst, failed = {}, 0
     limits = cell["limits"]
-    for (t, pos, vel), buf in zip(samples, buffers):
+    for (pos, vel), buf in zip(samples, buffers):
         want = reference.step(buf["in"], pos, vel, sim, scaling)
         numbers = reference.compare(buf["out"], want)
         del want
@@ -275,8 +301,6 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, clock,
 
     device = {"platform": "gpu" if clock.cuda else "cpu",
               "kind": clock.kind(), "count": 1, "memory_peak_bytes": peak}
-    units = {m["name"]: m["unit"] for m in cell["end_to_end"]
-             + cell["per_layer"]}
     metrics = {}
     result = {"correct": correct, "attempted": steps, "failed": failed,
               "metrics": metrics, "device": device}
@@ -290,12 +314,12 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, clock,
                                   "unit": m["unit"]}
     else:
         ctx = {"sim": sim, "scaling": scaling, "step_s": step_s,
-               "hbm_bytes_per_s": _peak(device["kind"])}
+               "hbm_bytes_per_s": peaks.hbm_bytes_per_s(device["kind"])}
         for m in cell["per_layer"]:
             reader = load_module(BENCH / "metrics" / f"{m['name']}.py")
             value = reader.read(summary, ctx)
             if value is not None:
-                metrics[m["name"]] = {"value": value, "unit": units[m["name"]]}
+                metrics[m["name"]] = {"value": value, "unit": m["unit"]}
         device["busy_s"] = summary["busy_s"]
         device["window_s"] = summary["window_s"]
         result["breakdown"] = {"device_ops": summary["device_ops"],
@@ -305,11 +329,6 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, clock,
         k: {"value": worst[k] if math.isfinite(worst.get(k, math.nan))
             else None, "limit": lim} for k, lim in limits.items()}
     return result
-
-
-def _peak(kind):
-    from bench_port import peaks
-    return peaks.hbm_bytes_per_s(kind)
 
 
 def emit(result: dict, out=sys.stdout, err=sys.stderr):

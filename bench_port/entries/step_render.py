@@ -31,6 +31,17 @@ class StepRender:
     def step(self, fed) -> None:
         self._state, self._frame = self._step(self._state, fed)
 
+    def counters(self) -> dict:
+        """The program's launch counters of the kernels a step may run."""
+        from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
+            advect_kernel)
+        from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
+            project_fused)
+        from esp32_fluid_simulation_tpu_torch.render.cuda_upscale import (
+            render_rgb565_kernel)
+        return {"K1": project_fused.launches, "K2": advect_kernel.launches,
+                "K3": render_rgb565_kernel.launches}
+
     def inputs(self) -> dict:
         """The state the next step reads."""
         return {"velocity": self._state.velocity, "dye": self._state.color}

@@ -19,8 +19,6 @@ import sys
 import time
 from pathlib import Path
 
-sys.path[0] = str(Path(__file__).resolve().parents[1])
-
 
 class Control:
     """The reference at the lower precision, in the program's place.  The
@@ -107,4 +105,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    # the checkout's root, in place of this directory, on the import path
+    sys.path[0] = str(Path(__file__).resolve().parents[1])
     sys.exit(main())

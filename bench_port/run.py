@@ -22,9 +22,6 @@ import argparse  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
-# the checkout's root, in place of this directory, on the import path
-sys.path[0] = str(Path(__file__).resolve().parents[1])
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="bench_port/run.py")
@@ -51,4 +48,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    # the checkout's root, in place of this directory, on the import path
+    sys.path[0] = str(Path(__file__).resolve().parents[1])
     sys.exit(main())
