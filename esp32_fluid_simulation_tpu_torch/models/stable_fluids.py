@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..config import SimConfig
+from ..spans import span
 from ..state import SimState, Impulses
 from ..ops.advect import advect, advect_maccormack, advect_rk2
 from ..ops.blur import triangular_blur_inplace
@@ -404,24 +405,25 @@ def step_render(state: SimState, impulses: Impulses, cfg: SimConfig,
     store (bit-identical to ``render_rgb565(state.color, s=1)``), on a
     ``domain_tile`` supergrid the member-mode one; otherwise the render
     follows the step."""
-    fused = (cfg.ndim == 2 and cfg.scaling == 1 and cfg.clamps_dye
-             and cfg.advector == "semilag" and cfg.vorticity_eps == 0.0
-             and cfg.solver == "fused_pallas"
-             and _use_pallas_advect(cfg, state.velocity))
-    if fused and cfg.domain_tile is not None:
-        return _step_tiled(state, impulses, cfg, rgb565=True, bswap=bswap)
-    if not fused:
-        st = step(state, impulses, cfg)
-        return st, render_rgb565(st.color, s=cfg.scaling, bswap=bswap,
-                                 unit_range=cfg.clamps_dye)
-    impulses = _on_device(impulses, state.velocity.device)
-    adv = _advect_by(cfg, state.velocity)
-    vel = _self_advect(adv, state.velocity, cfg.dt)
-    vel = _project(vel, cfg, impulses=impulses)
-    color, frame = advect_kernel(state.color, vel, cfg.dt, False,
-                                 max_disp=cfg.advect_max_disp, clip01=True,
-                                 rgb565=True, bswap=bswap)
-    return SimState(velocity=vel, color=color, step=state.step + 1), frame
+    with span("fluid.step_render"):
+        fused = (cfg.ndim == 2 and cfg.scaling == 1 and cfg.clamps_dye
+                 and cfg.advector == "semilag" and cfg.vorticity_eps == 0.0
+                 and cfg.solver == "fused_pallas"
+                 and _use_pallas_advect(cfg, state.velocity))
+        if fused and cfg.domain_tile is not None:
+            return _step_tiled(state, impulses, cfg, rgb565=True, bswap=bswap)
+        if not fused:
+            st = step(state, impulses, cfg)
+            return st, render_rgb565(st.color, s=cfg.scaling, bswap=bswap,
+                                     unit_range=cfg.clamps_dye)
+        impulses = _on_device(impulses, state.velocity.device)
+        adv = _advect_by(cfg, state.velocity)
+        vel = _self_advect(adv, state.velocity, cfg.dt)
+        vel = _project(vel, cfg, impulses=impulses)
+        color, frame = advect_kernel(state.color, vel, cfg.dt, False,
+                                     max_disp=cfg.advect_max_disp, clip01=True,
+                                     rgb565=True, bswap=bswap)
+        return SimState(velocity=vel, color=color, step=state.step + 1), frame
 
 
 def make_step(cfg: SimConfig, donate: bool = True):

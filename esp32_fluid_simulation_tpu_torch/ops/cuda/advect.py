@@ -69,6 +69,7 @@ from __future__ import annotations
 import torch
 
 from ...render.upscale import pack_rgb565
+from ...spans import span
 from ..advect import noslip_axis_factor
 from .build import load, stream_of
 from .modes import BLOCK_MODE, check_block, check_member, refuse_unported
@@ -258,59 +259,60 @@ def advect_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
     velocity; ``vel`` is ignored) into a fresh tensor.  ``member`` and
     ``overlay`` are the tiled-domain modes, ``global_offset``,
     ``global_shape`` and ``halo`` block mode (module docstring)."""
-    refuse_unported("advect_kernel", unported, also=("sample_bf16",))
-    if rgb565 and (not clip01 or field.dim() != 3 or field.shape[0] != 3
-                   or return_minmax):
-        raise ValueError("rgb565 needs clip01 on a 3-channel field (and no "
-                         "return_minmax)")
-    if overlay is not None and (rgb565 or return_minmax):
-        raise ValueError("overlay needs the plain store (no return_minmax "
-                         "or rgb565)")
-    if self_advect:
-        if field.dim() != 3 or field.shape[0] != 2:
-            raise ValueError("self_advect needs the [2, H, W] velocity as "
-                             "field")
-        vel = field
-    squeeze = field.dim() == 2
-    f3 = field[None] if squeeze else field
-    blk = check_block("advect_kernel", global_offset, global_shape, halo,
-                      f3.shape[-2:], max_disp + 1, "max_disp+1")
-    if blk is not None:
-        if self_advect or overlay is not None:
-            raise ValueError("advect_kernel: self_advect and overlay take "
-                             "no block mode (single device)")
-        if member is not None or rgb565:
-            raise NotImplementedError(
-                "advect_kernel: member= and rgb565= with block mode have no "
-                "caller and are not ported (ROADMAP.md queue 1, 'Not to "
-                "port')")
-        if tuple(vel.shape) != (2, blk.bh, blk.bw):
-            raise ValueError(f"advect_kernel: block mode takes the owned "
-                             f"velocity [2, {blk.bh}, {blk.bw}], got "
-                             f"{list(vel.shape)}")
-    member = check_member("advect_kernel", member, *f3.shape[-2:])
-    if overlay is not None:
-        overlay = _checked_overlay(overlay, f3, squeeze)
-    if field.device.type == "cpu":
-        return advect_reference(field, vel, dt, no_slip, max_disp=max_disp,
-                                clip01=clip01, rgb565=rgb565, bswap=bswap,
-                                return_minmax=return_minmax, member=member,
-                                overlay=overlay, block=blk)
+    with span("fluid.k2.advect"):
+        refuse_unported("advect_kernel", unported, also=("sample_bf16",))
+        if rgb565 and (not clip01 or field.dim() != 3 or field.shape[0] != 3
+                       or return_minmax):
+            raise ValueError("rgb565 needs clip01 on a 3-channel field (and "
+                             "no return_minmax)")
+        if overlay is not None and (rgb565 or return_minmax):
+            raise ValueError("overlay needs the plain store (no return_minmax "
+                             "or rgb565)")
+        if self_advect:
+            if field.dim() != 3 or field.shape[0] != 2:
+                raise ValueError("self_advect needs the [2, H, W] velocity as "
+                                 "field")
+            vel = field
+        squeeze = field.dim() == 2
+        f3 = field[None] if squeeze else field
+        blk = check_block("advect_kernel", global_offset, global_shape, halo,
+                          f3.shape[-2:], max_disp + 1, "max_disp+1")
+        if blk is not None:
+            if self_advect or overlay is not None:
+                raise ValueError("advect_kernel: self_advect and overlay take "
+                                 "no block mode (single device)")
+            if member is not None or rgb565:
+                raise NotImplementedError(
+                    "advect_kernel: member= and rgb565= with block mode have "
+                    "no caller and are not ported (ROADMAP.md queue 1, 'Not "
+                    "to port')")
+            if tuple(vel.shape) != (2, blk.bh, blk.bw):
+                raise ValueError(f"advect_kernel: block mode takes the owned "
+                                 f"velocity [2, {blk.bh}, {blk.bw}], got "
+                                 f"{list(vel.shape)}")
+        member = check_member("advect_kernel", member, *f3.shape[-2:])
+        if overlay is not None:
+            overlay = _checked_overlay(overlay, f3, squeeze)
+        if field.device.type == "cpu":
+            return advect_reference(field, vel, dt, no_slip, max_disp=max_disp,
+                                    clip01=clip01, rgb565=rgb565, bswap=bswap,
+                                    return_minmax=return_minmax, member=member,
+                                    overlay=overlay, block=blk)
 
-    f3 = _checked_3d("advect_kernel", field, vel, max_disp, blk)
-    out, frame, lo, hi = _launch_advect(
-        f3, vel, dt, no_slip, max_disp, clip01=clip01, rgb565=rgb565,
-        bswap=bswap, minmax=_RAW if return_minmax else _NONE, member=member,
-        overlay=overlay, block=blk)
-    advect_kernel.launches += 1
-    advect_kernel.member_launches += member is not None
-    advect_kernel.overlay_launches += overlay is not None
-    advect_kernel.block_launches += blk is not None
-    if rgb565:
-        return out, frame
-    if squeeze:
-        return (out[0], lo[0], hi[0]) if return_minmax else out[0]
-    return (out, lo, hi) if return_minmax else out
+        f3 = _checked_3d("advect_kernel", field, vel, max_disp, blk)
+        out, frame, lo, hi = _launch_advect(
+            f3, vel, dt, no_slip, max_disp, clip01=clip01, rgb565=rgb565,
+            bswap=bswap, minmax=_RAW if return_minmax else _NONE,
+            member=member, overlay=overlay, block=blk)
+        advect_kernel.launches += 1
+        advect_kernel.member_launches += member is not None
+        advect_kernel.overlay_launches += overlay is not None
+        advect_kernel.block_launches += blk is not None
+        if rgb565:
+            return out, frame
+        if squeeze:
+            return (out[0], lo[0], hi[0]) if return_minmax else out[0]
+        return (out, lo, hi) if return_minmax else out
 
 
 advect_kernel.launches = 0

@@ -45,6 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...spans import span
 from ..fd import divergence, subtract_gradient
 from ..poisson import _shift_zero, sor_solve
 from .build import load, stream_of
@@ -125,77 +126,80 @@ def project_fused(vel: torch.Tensor, dx: float = 1.0, iters: int = 10,
     ``iters`` RB-SOR sweeps from zero, gradient subtract; per member tile
     with ``member``; of the owned block of a haloed shard block in block
     mode."""
-    refuse_unported("project_fused", unported)
-    if vel.dim() != 3 or vel.shape[0] != 2:
-        raise ValueError("project_fused: vel must be [2, H, W]")
-    blk = check_block("project_fused", global_offset, global_shape, halo,
-                      vel.shape[1:], 2 * iters + 2, "2*iters+2")
-    member = check_member("project_fused", member,
-                          *(vel.shape[1:] if blk is None
-                            else (blk.gh, blk.gw)))
-    if vel.device.type == "cpu":
-        return project_fused_reference(vel, dx, iters, omega, impulses,
-                                       member, blk)
-    if not vel.is_cuda:
-        raise ValueError(f"project_fused: unsupported device {vel.device}")
-    if vel.dtype != torch.float32:
-        raise ValueError("project_fused: vel must be float32 [2, H, W]")
-    if not vel.is_contiguous():
-        raise ValueError("project_fused: vel must be contiguous")
-    _, h, w = vel.shape
-    # the launches put rows on grid.y, 8 a block, at most 65535 blocks
-    if h < 2 or w < 2 or h > 8 * 65535 or iters < 0:
-        raise ValueError("project_fused: needs 2 <= H <= 524280, W >= 2 and "
-                         "iters >= 0")
+    with span("fluid.k1.project"):
+        refuse_unported("project_fused", unported)
+        if vel.dim() != 3 or vel.shape[0] != 2:
+            raise ValueError("project_fused: vel must be [2, H, W]")
+        blk = check_block("project_fused", global_offset, global_shape, halo,
+                          vel.shape[1:], 2 * iters + 2, "2*iters+2")
+        member = check_member("project_fused", member,
+                              *(vel.shape[1:] if blk is None
+                                else (blk.gh, blk.gw)))
+        if vel.device.type == "cpu":
+            return project_fused_reference(vel, dx, iters, omega, impulses,
+                                           member, blk)
+        if not vel.is_cuda:
+            raise ValueError(f"project_fused: unsupported device {vel.device}")
+        if vel.dtype != torch.float32:
+            raise ValueError("project_fused: vel must be float32 [2, H, W]")
+        if not vel.is_contiguous():
+            raise ValueError("project_fused: vel must be contiguous")
+        _, h, w = vel.shape
+        # the launches put rows on grid.y, 8 a block, at most 65535 blocks
+        if h < 2 or w < 2 or h > 8 * 65535 or iters < 0:
+            raise ValueError("project_fused: needs 2 <= H <= 524280, W >= 2 "
+                             "and iters >= 0")
 
-    if impulses is None:
-        n_imp, ipos, ivel, iact = 0, None, None, None
-    else:
-        n_imp = impulses.pos.shape[0]
-        if n_imp > _MAX_IMPULSES or impulses.pos.shape != (n_imp, 2):
-            raise ValueError(f"project_fused: impulses must be [K, 2] with "
-                             f"K <= {_MAX_IMPULSES}")
-        for t in impulses:
-            if t.device != vel.device:
-                raise ValueError("project_fused: impulses and vel on "
-                                 "different devices")
-        ipos = impulses.pos.to(torch.int32).contiguous()
-        # round the written values through vel.dtype, as the scatter does
-        ivel = impulses.velocity.to(vel.dtype).to(torch.float32).contiguous()
-        iact = impulses.active.to(torch.bool).contiguous()
-
-    mh, mw = member or (0, 0)
-    if blk is None:
-        g, (oi, oj), (gh, gw), (bh, bw) = 0, (0, 0), (h, w), (h, w)
-    else:
-        g, (oi, oj), (gh, gw) = blk.halo, blk.origin, (blk.gh, blk.gw)
-        bh, bw = blk.bh, blk.bw
-    out = torch.empty((2, bh, bw), dtype=vel.dtype, device=vel.device)
-    p_out = torch.empty((bh, bw), dtype=vel.dtype, device=vel.device)
-    imp_ptrs = [None if t is None else t.data_ptr()
-                for t in (ipos, ivel, iact)]
-    geometry = (n_imp, h, w, mh, mw, oi, oj, gh, gw, g)
-    numbers = (float(dx), float(np.float32(1.0 / (2.0 * dx))), int(iters),
-               float(omega), float(np.float32(1.0 - omega)))
-    lib = load()
-    with torch.cuda.device(vel.device):
-        if iters <= WINDOW_MAX_ITERS:
-            lib.call("fluid_project_window", vel.data_ptr(), out.data_ptr(),
-                     p_out.data_ptr(), *imp_ptrs, *geometry, *numbers,
-                     *window_tile(2 * iters + 1), stream_of(vel))
-            project_fused.window_launches += 1
+        if impulses is None:
+            n_imp, ipos, ivel, iact = 0, None, None, None
         else:
-            # scratch: the haloed block's pressure in block mode, dx * div
-            p = p_out if blk is None else torch.empty_like(vel[0])
-            dxd = torch.empty_like(vel[0])
-            lib.call("fluid_project", vel.data_ptr(), out.data_ptr(),
-                     p.data_ptr(), dxd.data_ptr(), *imp_ptrs, *geometry,
-                     p_out.data_ptr(), *numbers, stream_of(vel))
-            project_fused.sequence_launches += 1
-    project_fused.launches += 1
-    project_fused.member_launches += member is not None
-    project_fused.block_launches += blk is not None
-    return out, p_out
+            n_imp = impulses.pos.shape[0]
+            if n_imp > _MAX_IMPULSES or impulses.pos.shape != (n_imp, 2):
+                raise ValueError(f"project_fused: impulses must be [K, 2] "
+                                 f"with K <= {_MAX_IMPULSES}")
+            for t in impulses:
+                if t.device != vel.device:
+                    raise ValueError("project_fused: impulses and vel on "
+                                     "different devices")
+            ipos = impulses.pos.to(torch.int32).contiguous()
+            # round the written values through vel.dtype, as the scatter does
+            ivel = (impulses.velocity.to(vel.dtype).to(torch.float32)
+                    .contiguous())
+            iact = impulses.active.to(torch.bool).contiguous()
+
+        mh, mw = member or (0, 0)
+        if blk is None:
+            g, (oi, oj), (gh, gw), (bh, bw) = 0, (0, 0), (h, w), (h, w)
+        else:
+            g, (oi, oj), (gh, gw) = blk.halo, blk.origin, (blk.gh, blk.gw)
+            bh, bw = blk.bh, blk.bw
+        out = torch.empty((2, bh, bw), dtype=vel.dtype, device=vel.device)
+        p_out = torch.empty((bh, bw), dtype=vel.dtype, device=vel.device)
+        imp_ptrs = [None if t is None else t.data_ptr()
+                    for t in (ipos, ivel, iact)]
+        geometry = (n_imp, h, w, mh, mw, oi, oj, gh, gw, g)
+        numbers = (float(dx), float(np.float32(1.0 / (2.0 * dx))), int(iters),
+                   float(omega), float(np.float32(1.0 - omega)))
+        lib = load()
+        with torch.cuda.device(vel.device):
+            if iters <= WINDOW_MAX_ITERS:
+                lib.call("fluid_project_window", vel.data_ptr(),
+                         out.data_ptr(), p_out.data_ptr(), *imp_ptrs,
+                         *geometry, *numbers, *window_tile(2 * iters + 1),
+                         stream_of(vel))
+                project_fused.window_launches += 1
+            else:
+                # scratch: the haloed block's pressure in block mode, dx * div
+                p = p_out if blk is None else torch.empty_like(vel[0])
+                dxd = torch.empty_like(vel[0])
+                lib.call("fluid_project", vel.data_ptr(), out.data_ptr(),
+                         p.data_ptr(), dxd.data_ptr(), *imp_ptrs, *geometry,
+                         p_out.data_ptr(), *numbers, stream_of(vel))
+                project_fused.sequence_launches += 1
+        project_fused.launches += 1
+        project_fused.member_launches += member is not None
+        project_fused.block_launches += blk is not None
+        return out, p_out
 
 
 project_fused.launches = 0

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from .upscale import pack_rgb565, upscale_bilinear
+from ..spans import span
 from ..ops.cuda.build import load, stream_of
 
 
@@ -29,33 +30,34 @@ def render_rgb565_reference(color, s, bswap=True, unit_range=False):
 def render_rgb565_kernel(color: torch.Tensor, s: int, bswap: bool = True,
                          unit_range: bool = False) -> torch.Tensor:
     """``[3, H, W]`` float32/bfloat16 -> ``[(H-1)*s, (W-1)*s]`` uint16."""
-    if color.device.type == "cpu":
-        return render_rgb565_reference(color, s, bswap, unit_range)
-    if not color.is_cuda:
-        raise ValueError(f"render_rgb565_kernel: unsupported device "
-                         f"{color.device}")
-    if color.dim() != 3 or color.shape[0] != 3:
-        raise ValueError("render_rgb565_kernel: color must be [3, H, W]")
-    if color.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"render_rgb565_kernel: dtype {color.dtype} not "
-                         "supported (float32, bfloat16)")
-    if not color.is_contiguous():
-        raise ValueError("render_rgb565_kernel: color must be contiguous")
-    _, h, w = color.shape
-    # the launch puts source rows on grid.y, 8 a block, at most 65535
-    # blocks; s fractions fit the kernel's table
-    if not 1 <= s <= 4096 or h < 2 or w < 2 or h - 1 > 8 * 65535:
-        raise ValueError(f"render_rgb565_kernel: s={s} on {h}x{w} not "
-                         "supported")
-    out = torch.empty(((h - 1) * s, (w - 1) * s), dtype=torch.uint16,
-                      device=color.device)
-    lib = load()
-    with torch.cuda.device(color.device):
-        lib.call("fluid_render_rgb565", color.data_ptr(), out.data_ptr(),
-                 h, w, int(color.dtype == torch.bfloat16), int(s),
-                 int(bswap), int(unit_range), stream_of(color))
-    render_rgb565_kernel.launches += 1
-    return out
+    with span("fluid.k3.render"):
+        if color.device.type == "cpu":
+            return render_rgb565_reference(color, s, bswap, unit_range)
+        if not color.is_cuda:
+            raise ValueError(f"render_rgb565_kernel: unsupported device "
+                             f"{color.device}")
+        if color.dim() != 3 or color.shape[0] != 3:
+            raise ValueError("render_rgb565_kernel: color must be [3, H, W]")
+        if color.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"render_rgb565_kernel: dtype {color.dtype} not "
+                             "supported (float32, bfloat16)")
+        if not color.is_contiguous():
+            raise ValueError("render_rgb565_kernel: color must be contiguous")
+        _, h, w = color.shape
+        # the launch puts source rows on grid.y, 8 a block, at most 65535
+        # blocks; s fractions fit the kernel's table
+        if not 1 <= s <= 4096 or h < 2 or w < 2 or h - 1 > 8 * 65535:
+            raise ValueError(f"render_rgb565_kernel: s={s} on {h}x{w} not "
+                             "supported")
+        out = torch.empty(((h - 1) * s, (w - 1) * s), dtype=torch.uint16,
+                          device=color.device)
+        lib = load()
+        with torch.cuda.device(color.device):
+            lib.call("fluid_render_rgb565", color.data_ptr(), out.data_ptr(),
+                     h, w, int(color.dtype == torch.bfloat16), int(s),
+                     int(bswap), int(unit_range), stream_of(color))
+        render_rgb565_kernel.launches += 1
+        return out
 
 
 render_rgb565_kernel.launches = 0

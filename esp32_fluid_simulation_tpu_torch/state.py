@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .config import SimConfig
+from .spans import span
 
 
 class SimState(NamedTuple):
@@ -58,16 +59,17 @@ class Impulses(NamedTuple):
 
         Padding happens host-side in numpy; the batch then crosses to
         ``device`` as three small copies."""
-        k, nd = cfg.max_impulses, cfg.ndim
-        n = min(len(pos), k)
-        p = np.zeros((k, nd), np.int32)
-        v = np.zeros((k, nd), np.float32)   # cast to cfg.torch_dtype below
-        a = np.zeros((k,), np.bool_)
-        if n:
-            p[:n] = np.asarray(pos[:n], np.int32)
-            v[:n] = np.asarray(vel[:n])
-            a[:n] = True
-        return cls(pos=torch.from_numpy(p).to(device),
-                   velocity=torch.from_numpy(v).to(device=device,
-                                                    dtype=cfg.torch_dtype),
-                   active=torch.from_numpy(a).to(device))
+        with span("fluid.impulses"):
+            k, nd = cfg.max_impulses, cfg.ndim
+            n = min(len(pos), k)
+            p = np.zeros((k, nd), np.int32)
+            v = np.zeros((k, nd), np.float32)  # cast to cfg.torch_dtype below
+            a = np.zeros((k,), np.bool_)
+            if n:
+                p[:n] = np.asarray(pos[:n], np.int32)
+                v[:n] = np.asarray(vel[:n])
+                a[:n] = True
+            return cls(pos=torch.from_numpy(p).to(device),
+                       velocity=torch.from_numpy(v).to(
+                           device=device, dtype=cfg.torch_dtype),
+                       active=torch.from_numpy(a).to(device))

@@ -1,6 +1,10 @@
 """Profiling helpers (counterpart of
 ``esp32_fluid_simulation_tpu/utils/profiling.py``): dependency-chained
-timing and a profiler trace.
+timing, a profiler trace and the port's spans.
+
+``span`` (``spans.py``, re-exported here) names a range of the port's
+host code in a profiler trace, such as ``trace`` writes; with no profiler
+recording it costs one check.
 
 ``chain_time`` chains n dependent applications and differences away a
 1-application run, as the JAX version does.  On CUDA tensors it times with
@@ -25,6 +29,8 @@ import time
 from typing import Callable
 
 import torch
+
+from ..spans import span  # noqa: F401  (re-exported)
 
 
 def _first_tensor(x):
