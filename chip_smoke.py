@@ -536,12 +536,17 @@ def phase1_kernels(dev):
 
 
 def seam_impulses(shape, iters, dev):
-    """Impulse slots on the seams of K1's window-route tiles and in a
-    neighbour tile's ring (within 2*iters + 2 cells of a seam), a duplicate
-    cell (the last active slot wins) and an out-of-range position."""
+    """Impulse slots on the first strip and segment seams of K1's window
+    route (``strip_plan`` at the blocks planned for the card) and within a
+    window's reach of them (2*iters + 2 cells), a duplicate cell (the last
+    active slot wins) and an out-of-range position."""
     from esp32_fluid_simulation_tpu_torch import SimConfig, Impulses
-    from esp32_fluid_simulation_tpu_torch.ops.cuda import sor
-    th, tw = sor.TILE[:2]
+    from esp32_fluid_simulation_tpu_torch.ops.cuda import project
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.build import load
+    it = min(iters, project.WINDOW_MAX_ITERS)
+    n_strips, n_segs = project.strip_plan(
+        *shape, it, project.strip_blocks(load(), torch.device(dev), it))
+    th, tw = max(shape[0] // n_segs, 1), max(shape[1] // n_strips, 1)
     r = 2 * iters + 2
     return Impulses.from_lists(
         SimConfig(shape=shape, max_impulses=8),
@@ -553,9 +558,9 @@ def seam_impulses(shape, iters, dev):
 
 def k1_windows(dev, gen):
     """K1 whole-grid against its plain version on shapes that are not
-    multiples of its tile, at iters 0, 1, 10 (window route) and 20
-    (sequence route), with and without seam impulses; returns the largest
-    difference."""
+    multiples of a strip or a segment, at iters 0, 1, 10, 15 (window route)
+    and 20 (sequence route), with and without seam impulses; returns the
+    largest difference."""
     from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
         WINDOW_MAX_ITERS, project_fused, project_fused_reference)
     if WINDOW_MAX_ITERS >= 20:
@@ -565,7 +570,7 @@ def k1_windows(dev, gen):
     for shape in (SMALL, (130, 200), (4097, 4093), PROD):
         print(f"phase 1 K1 routes vs plain at {shape[0]}x{shape[1]}")
         vel = 40.0 * torch.randn((2,) + shape, generator=gen, device=dev)
-        for iters in (0, 1, 10, 20):
+        for iters in (0, 1, 10, 15, 20):
             for imp in (seam_impulses(shape, iters, dev), None):
                 label = (f"K1 {shape[0]}x{shape[1]} iters={iters} "
                          f"{'seam impulses' if imp is not None else 'none'}")
@@ -1572,9 +1577,13 @@ def device_kernels(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # the program's spans (spans.py) show on the device's timeline too, as
+    # user annotations, and launch nothing
     names = [e.name for e in prof.events()
              if e.device_type == DeviceType.CUDA
-             and not e.name.startswith(("Memcpy", "Memset"))]
+             and not e.name.startswith(("Memcpy", "Memset"))
+             and not getattr(e, "is_user_annotation", False)
+             and not e.name.startswith("fluid.")]
     return names or None
 
 
@@ -1582,8 +1591,9 @@ def k1_design(vel, cfg, imp):
     """K1 at config 0's shapes: its device launches per call on both
     routes (a profiler count; the window route must launch once), its
     sequence route at iters 10 beside its window route, and the window
-    route at other tiles (each checked against the plain version)."""
-    from esp32_fluid_simulation_tpu_torch.ops.cuda import project, sor
+    route planned for other numbers of blocks (each checked against the
+    plain version)."""
+    from esp32_fluid_simulation_tpu_torch.ops.cuda import project
     it, om, dx = cfg.sor_iters, cfg.omega, cfg.dx
     res = {}
 
@@ -1601,20 +1611,22 @@ def k1_design(vel, cfg, imp):
     finally:
         project.WINDOW_MAX_ITERS = limit
     want_v, want_p = project.project_fused_reference(vel, dx, it, om, imp)
-    default = sor.TILE
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.build import load
+    planned = project.strip_blocks(load(), vel.device, it)
+    key = (vel.device.index, it <= 10)
     try:
-        for tile in ((64, 128, 32), (80, 150, 32), (104, 150, 32),
-                     (104, 146, 16), (104, 146, 32)):
-            sor.TILE = tile
+        for blocks in (planned // 2, planned, 2 * planned):
+            project.strip_blocks.cache[key] = blocks
+            plan = project.strip_plan(*vel.shape[1:], it, blocks)
             got_v, got_p = call()
             if not (torch.equal(got_v, want_v) and torch.equal(got_p,
                                                                want_p)):
-                raise AssertionError(f"phase 5: K1 at tile {tile} differs "
-                                     "from its plain version")
-            res[f"K1 window route, tile {tile[0]}x{tile[1]}, 32x{tile[2]} "
-                "threads"] = cuda_ms(call, 20, warmup=2)
+                raise AssertionError(f"phase 5: K1 planned for {blocks} "
+                                     "blocks differs from its plain version")
+            res[f"K1 window route, {plan[0]} strips x {plan[1]} segments"] \
+                = cuda_ms(call, 20, warmup=2)
     finally:
-        sor.TILE = default
+        project.strip_blocks.cache[key] = planned
     return res
 
 

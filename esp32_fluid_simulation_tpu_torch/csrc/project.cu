@@ -8,27 +8,42 @@
 // the wrapper (ops/cuda/project.py) from iters alone:
 //
 // The window route (iters <= WINDOW_MAX_ITERS there): one launch,
-// project_tile_kernel, the TPU kernel's design.  Each block owns a TH x TW
-// tile of the output (of the owned cells in block mode).  With
-// R = 2*iters + 1 it
-//   1. resolves the impulse slots that fall in its window, the tile +- R;
-//   2. writes dxd = dx * div(drained velocity) on the tile +- (R - 1) into
-//      shared memory, reading the velocity window straight from device
-//      memory in coalesced rows, and p = 0 on the tile +- R;
-//   3. runs the 2*iters half-sweeps in shared memory, half-sweep k on the
-//      shrinking tile +- (R - k) only (csrc/rb2d.cuh rb_window_half_sweeps:
-//      the trapezoid, split by colour so no bank conflicts);
-//   4. subtracts the gradient on the tile, reading p's +-1 ring from shared
-//      memory, and writes the velocity and the pressure once.
-// Bound on the H100: device-memory bytes, the velocity read once and the
-// velocity and pressure written once (20 B per cell).  The window takes
-// nearly all of a block's 227 KB of shared memory (104 x 146 tiles at
-// iters 10), so one block runs per SM and its device-memory phases (2 and
-// 4) do not overlap its half-sweeps; the half-sweeps' region averages
-// 1.37x the tile, and their shared-memory traffic (4 loads and a store per
-// cell update) is what they spend their time on.  Large iters make the
-// window too large for the tile, so ops/cuda/project.py cuts the tile, and
-// above WINDOW_MAX_ITERS takes:
+// project_tile_kernel, a row-pipelined strip.  Bound on the H100:
+// device-memory bytes, the velocity read once and the velocity and
+// pressure written once (20 B per cell, 0.1 ms at config 0); between the
+// read and the writes lie 2*iters half-sweeps of four neighbours each.  The
+// TPU kernel keeps them in fast memory on a tile +- R (R = 2*iters + 1),
+// the trapezoid; on the H100 a tile's window in shared memory fills an SM,
+// so one block ran per SM, its device-memory phases (0.27 ms at config 0)
+// serial with its half-sweeps (0.33 ms).  The design here:
+//   - a block is 4 warps and owns a row segment of a column strip of the
+//     output; its window is the strip +- R columns, at most 256, a lane
+//     one plane column of each colour;
+//   - it walks down the rows once, and each step runs every stage on its
+//     own row: the drain and dx*div of the incoming row, half-sweep k' on
+//     the row k' above it, the gradient and the stores of the row
+//     2*iters + 1 above it.  Each thread runs its column's stages in order,
+//     so a lag of one row a stage needs no barrier between stages; the
+//     warps meet once a step;
+//   - p lives in registers: each thread keeps, for each stage, its
+//     column's values of the last two steps, which are the row above, the
+//     row itself and (from this step) the row below that the next stage
+//     reads, and the old value of its colour two stages on; the horizontal
+//     neighbour comes from the next lane by a shuffle, or at a warp's edge
+//     from the edge lanes' values in shared memory.  Shared memory holds
+//     dx*d in a ring of 2*iters + 2 rows, each thread its own columns;
+//   - the step's velocity rows are loaded before its half-sweeps, which
+//     run while the loads are in flight; registers bound the blocks an SM
+//     holds (four, 128 registers a thread); the wrapper asks the card and
+//     plans two waves of them, so that blocks start and end at different
+//     times;
+//   - each half-sweep runs on every row and column of the window that the
+//     walk passes; the trapezoid's cells are right, the rest never reach
+//     them.
+// With member tiles (K6) the window route is the trapezoid, the TPU
+// kernel's design that the strip replaced (another project_tile_kernel,
+// counted apart by the wrapper): on the strip, the member walls' tests cost
+// more than this route (PERF.md).  Above WINDOW_MAX_ITERS:
 //
 // The sequence route: 2*iters + 2 launches on one stream, the design of
 // the first port:
@@ -59,7 +74,7 @@
 // (csrc/rb2d.cuh): the walls of the divergence, the SOR and the gradient
 // are the domain's (or the members'), the drain compares global positions,
 // a neighbour beyond the block reads 0, and cells outside the domain hold
-// dxd = p = 0.  The window route's tiles cover the owned cells, and their
+// dxd = p = 0.  The window route's strips cover the owned cells, and their
 // windows reach at most R cells into the halo.  The sequence route runs
 // launches 1 and 2 over the whole haloed block and launch 3 over the owned
 // cells.  Both write the owned cells and their pressure to the outputs.
@@ -240,6 +255,410 @@ __global__ void gradient_kernel(const float* __restrict__ vel,
   if (BLOCK) p_out[k] = pc;
 }
 
+// The window route's instances: KMAX, the most half-sweeps a block's
+// pipeline holds (up to 10 iters, and up to 15).  A block is kStripWarps
+// warps and a lane owns one plane column of each colour, so a window is at
+// most 64 * kStripWarps = 256 columns.
+constexpr int kStripKmaxA = 20, kStripKmaxB = 30;
+constexpr int kStripWarps = 4;
+
+template <bool V>
+struct Bool {
+  static constexpr bool value = V;
+};
+
+__device__ __forceinline__ int clampi(int x, int lo, int hi) {
+  return min(max(x, lo), hi);
+}
+
+// The window route: each block a row segment of a column strip.  The owned
+// cells ([halo, H - halo) x [halo, W - halo) of the array) are cut into
+// n_strips column strips and each strip into n_segs row segments, as evenly
+// as they go.  A block's window is its strip +- R = K + 1 columns, K =
+// 2*iters half-sweeps; thread t (warp t / 32, lane t % 32) owns plane
+// column m = t, window cells b = 2m and 2m + 1, array column aj0 + b,
+// global wj0 + b.
+//
+// The block walks the array rows tau from i0 - K to i1 + K down its
+// segment's owned rows [i0, i1), and each step runs every stage once:
+//   the half-sweeps: pipeline stage k (1..KMAX) is half-sweep k' = k - off
+//     (off = KMAX - K; stages with k' < 1 hold p = 0) on row tau - k',
+//     colour (k' - 1) & 1.  Stage k reads stage k - 1's row below from this
+//     step, its row itself and the row above from the two steps before,
+//     and its colour's old value from stage k - 2 two steps before: all in
+//     the thread's registers (h1: the step before, h2: two steps before).
+//     The horizontal neighbour is the next lane's h1, by a shuffle, and at
+//     a warp's edge the next warp's, which each warp's edge lanes leave in
+//     shared memory (edges, a ring of three steps) before the block's one
+//     barrier a step;
+//   the gradient of row tau - K - 1 with the pressure of the last two
+//     stages, written to the owned cells with the pressure;
+//   the drain and dx * div of row tau into a ring of NR = K + 2 rows in
+//     shared memory (each thread its own columns), and the row's flags
+//     into bit masks.
+// The trapezoid: half-sweep k' need only be right on the rows [i0 - K - 1 +
+// k', i1 + K + 1 - k') and the columns [k', 2R + tw - k') of the window,
+// whose values still reach the owned cells +- 1.  Every stage runs on all
+// of the window's columns at every step; at the segment's first steps the
+// stages above the trapezoid read ring slots not yet written, and what
+// they compute never reaches it.  A row or a column outside the domain or
+// the array (kOutside) holds p = 0, so across the domain's walls a
+// neighbour reads 0 without a test, and a row or a column with a wall
+// changes only -1/a_ii.  No member tiles: those take the trapezoid route
+// below.  The walk is compiled twice, with and without the drain,
+// and a block takes the first only if impulses fall in its window.
+// Without member walls a thread holds at most 128 registers (170 above 10
+// iters), so that four blocks (three) fit an SM.
+template <int KMAX, bool BLOCK>
+__global__ void __launch_bounds__(32 * kStripWarps,
+                                  KMAX <= kStripKmaxA ? 4 : 3)
+    project_tile_kernel(const float* __restrict__ vel,
+                        float* __restrict__ out, float* __restrict__ p_out,
+                        const ImpulseArgs imp, const Geom g, int halo,
+                        int n_strips, int n_segs, int K, float dx,
+                        float inv2dx, float omega, float one_m_w) {
+  constexpr int P = 32 * kStripWarps;
+  // dx * d of row r in planes (2 s, 2 s + 1) at both slots s = r's ring slot
+  // and s + NR, so that every stage reads at a fixed distance below the
+  // current row's slot, without a wrap
+  extern __shared__ float dring[];
+  // edges[slot][w + 1][k][0 / 1]: stage k's value of warp w's lane 0 / 31
+  // at the step of slot (rows 0 and kStripWarps + 1 stay 0)
+  __shared__ float edges[3][kStripWarps + 2][KMAX + 1][2];
+  __shared__ Drain d;
+  const int m = threadIdx.x, lane = m & 31, w = m >> 5;
+  const int H = g.H, W = g.W;
+  const float* v0 = vel;
+  const float* v1 = vel + (long)H * W;
+  const int bh = H - 2 * halo, bw = W - 2 * halo;
+  const int R = K + 1, NR = K + 2, off = KMAX - K;
+  // this block's strip of owned columns [u0, u0 + tw) and segment of owned
+  // rows [t0, t0 + ts)
+  const int sx = blockIdx.x, sy = blockIdx.y;
+  const int u0 = sx * (bw / n_strips) + min(sx, bw % n_strips);
+  const int tw = bw / n_strips + (sx < bw % n_strips);
+  const int t0 = sy * (bh / n_segs) + min(sy, bh % n_segs);
+  const int ts = bh / n_segs + (sy < bh % n_segs);
+  const int i0 = halo + t0, i1 = i0 + ts;  // array rows
+  const int aj0 = halo + u0 - R;           // array column of window column 0
+  const int oi = BLOCK ? g.oi : 0, oj = BLOCK ? g.oj : 0;
+  const int wj0 = aj0 + oj;
+  for (int q = m; q < 3 * (kStripWarps + 2) * (KMAX + 1) * 2; q += P)
+    (&edges[0][0][0][0])[q] = 0.f;
+  load_drain(d, imp, g.GH, g.GW, i0 - K - 1 + oi, i1 + K + oi, wj0 - 1,
+             wj0 + 2 * P);
+
+  // the thread's cells e = 0, 1: flags, -1/a_ii of their column walls
+  // without and with a row wall, whether they are owned columns
+  const int j0 = aj0 + 2 * m;  // array column of cell 0
+  int cf[2];
+  float negc[2], negw[2];
+  bool owned[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int b = 2 * m + e, j = j0 + e, gj = j + oj;
+    int f = kOutside;
+    if (b < tw + 2 * R && j >= 0 && j < W && gj >= 0 && gj < g.GW) {
+      f = (gj == 0 ? kWallLo : 0) | (gj == g.GW - 1 ? kWallHi : 0);
+    }
+    cf[e] = f;
+    negc[e] = rb_neg_inv((f & kWallLo) + ((f & kWallHi) >> 1));
+    negw[e] = rb_neg_inv(1 + (f & kWallLo) + ((f & kWallHi) >> 1));
+    owned[e] = b >= R && b < R + tw;
+  }
+  const int jc0 = clampi(j0, 0, W - 1), jc1 = clampi(j0 + 1, 0, W - 1);
+  // lane 0 also reads the column left of its cells, lane 31 the one right
+  const int je = lane == 0 ? j0 - 1 : j0 + 2;
+  const int jce = clampi(je, 0, W - 1);
+
+  // p of each stage on the thread's column: the step before and two steps
+  // before (stage 0 is p before the first half-sweep: 0); h3 three steps
+  // before, for stage KMAX - 1 (the gradient's row above)
+  float h1[KMAX + 1], h2[KMAX + 1], h3 = 0.f;
+#pragma unroll
+  for (int k = 0; k <= KMAX; ++k) h1[k] = h2[k] = 0.f;
+
+  // the walk down the rows, with or without impulses in the window
+  auto walk = [&](auto drain_tag) {
+    constexpr bool DRAIN = decltype(drain_tag)::value;
+    auto drain = [&](float v, int gi, int gj, int ch) {
+      return DRAIN ? drained(d, v, gi, gj, ch) : v;
+    };
+    // drained vx of rows tau - 1 and tau on the thread's cells
+    const int tau0 = i0 - K;
+    float vxa[2], vxb[2];
+    {
+      const long ra = (long)clampi(tau0 - 1, 0, H - 1) * W;
+      const long rb = (long)clampi(tau0, 0, H - 1) * W;
+      vxa[0] = drain(v0[ra + jc0], tau0 - 1 + oi, j0 + oj, 0);
+      vxa[1] = drain(v0[ra + jc1], tau0 - 1 + oi, j0 + 1 + oj, 0);
+      vxb[0] = drain(v0[rb + jc0], tau0 + oi, j0 + oj, 0);
+      vxb[1] = drain(v0[rb + jc1], tau0 + oi, j0 + 1 + oj, 0);
+    }
+    __syncthreads();
+
+    const long out_plane = (long)bh * bw;
+    int sl = 0;                  // ring slot of row tau
+    int e0 = 0, e1 = 2, e2 = 1;  // edges slots: this step, the two before
+    int S = (tau0 + oi + wj0 + 1) & 1;  // the half-sweeps' cells: 2m + S
+    // row flags: bit j of each mask is row tau - j's (kWallLo, kWallHi,
+    // kOutside), bit 0 set by the divergence
+    unsigned mlo = 0, mhi = 0, mout = 0;
+    const int n_steps = ts + 2 * K + 1;
+    for (int n = 0; n < n_steps; ++n) {
+      const int tau = tau0 + n;
+      const int rg = tau - K - 1;
+
+      // the loads of the step: vx of row tau + 1 and vy of row tau (the
+      // divergence; lanes 0 and 31 also vy beside their cells), vx and vy
+      // of row rg (the gradient)
+      const long rn = (long)clampi(tau + 1, 0, H - 1) * W;
+      const long r0 = (long)clampi(tau, 0, H - 1) * W;
+      const long rgo = (long)clampi(rg, 0, H - 1) * W;
+      float vxn[2] = {v0[rn + jc0], v0[rn + jc1]};
+      const float vy[2] = {v1[r0 + jc0], v1[r0 + jc1]};
+      const float vye = v1[r0 + jce];
+      const float gx[2] = {v0[rgo + jc0], v0[rgo + jc1]};
+      const float gy[2] = {v1[rgo + jc0], v1[rgo + jc1]};
+
+      // 1. the half-sweeps, stage by stage down the rows
+      const int cfs = S ? cf[1] : cf[0];
+      const float negs = S ? negc[1] : negc[0];
+      const float negws = S ? negw[1] : negw[0];
+      const int srcl = (lane + (S ? 1 : 31)) & 31;
+      // the neighbouring warp's edge lane, the step before
+      const bool edge = lane == (S ? 31 : 0);
+      const float* ep = &edges[e1][S ? w + 2 : w][0][S ? 0 : 1];
+      float cur[KMAX + 1];
+      cur[0] = 0.f;
+      // row tau - k' at slot sl + NR - k' of the ring, bit k' of the masks
+      const float* dq = dring + 2 * (sl + NR + off) * P + m;
+      const unsigned swall = (mlo | mhi) << off;
+      // rows outside and the stages before the first half-sweep: p = 0
+      const unsigned szero = (mout << off) | ((2u << off) - 1u);
+      const bool colout = cfs & kOutside;
+#pragma unroll
+      for (int k = 1; k <= KMAX; ++k) {
+        const float here = h1[k - 1];
+        float side = __shfl_sync(0xffffffffu, here, srcl);
+        side = edge ? ep[2 * (k - 1)] : side;
+        float lf = S ? here : side;
+        float rt = S ? side : here;
+        const float up = h2[k - 1], dn = cur[k - 1];
+        const float pc = k >= 2 ? h2[k - 2] : 0.f;
+        const float neg_inv = ((swall >> k) & 1) ? negws : negs;
+        const float v = rb_cell(pc, up, dn, lf, rt,
+                                dq[(-2 * k + ((k - 1) & 1)) * P], neg_inv,
+                                omega, one_m_w);
+        cur[k] = (((szero >> k) & 1) || colout) ? 0.f : v;
+      }
+
+      // 2. the gradient of row rg (Neumann walls: the outside pressure is
+      // the center value), written with the pressure to the owned cells.
+      // Plane 1 (the last half-sweep's colour) holds rows rg - 1, rg, rg + 1
+      // in h2, h1 and cur of stage KMAX, plane 0 in h3, h2 and h1 of stage
+      // KMAX - 1; cell (rg, 2m) is in plane p0, cell (rg, 2m + 1) in 1 - p0.
+      if (n >= 2 * K + 1) {
+        const int rf = ((mlo >> (K + 1)) & 1) * kWallLo |
+                       ((mhi >> (K + 1)) & 1) * kWallHi;
+        const int p0 = (rg + oi + wj0) & 1;
+        const float a_up = p0 ? h3 : h2[KMAX];  // plane 1 - p0
+        const float a_c = p0 ? h2[KMAX - 1] : h1[KMAX];
+        const float a_dn = p0 ? h1[KMAX - 1] : cur[KMAX];
+        const float b_up = p0 ? h2[KMAX] : h3;  // plane p0
+        const float b_c = p0 ? h1[KMAX] : h2[KMAX - 1];
+        const float b_dn = p0 ? cur[KMAX] : h1[KMAX - 1];
+        // cell 0 is b_c with neighbours a_up, a_dn, the left lane's a_c and
+        // a_c; cell 1 is a_c with b_up, b_dn, b_c and the right lane's b_c
+        float a_l = __shfl_sync(0xffffffffu, a_c, (lane + 31) & 31);
+        float b_r = __shfl_sync(0xffffffffu, b_c, (lane + 1) & 31);
+        if (lane == 0)
+          a_l = p0 ? edges[e2][w][KMAX - 1][1] : edges[e1][w][KMAX][1];
+        if (lane == 31)
+          b_r = p0 ? edges[e1][w + 2][KMAX][0] : edges[e2][w + 2][KMAX - 1][0];
+        const long orow = (long)(rg - halo) * bw - halo;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (!owned[e]) continue;
+          const int j = j0 + e;
+          const float pc = e ? a_c : b_c;
+          const float p_im1 = (rf & kWallLo) ? pc : (e ? b_up : a_up);
+          const float p_ip1 = (rf & kWallHi) ? pc : (e ? b_dn : a_dn);
+          const float p_jm1 = (cf[e] & kWallLo) ? pc : (e ? b_c : a_l);
+          const float p_jp1 = (cf[e] & kWallHi) ? pc : (e ? b_r : a_c);
+          const float vxc = drain(gx[e], rg + oi, j + oj, 0);
+          const float vyc = drain(gy[e], rg + oi, j + oj, 1);
+          const long o = orow + j;
+          out[o] = vxc - (p_ip1 - p_im1) * inv2dx;
+          out[out_plane + o] = vyc - (p_jp1 - p_jm1) * inv2dx;
+          p_out[o] = pc;
+        }
+      }
+
+      // 3. the drain and dx * div of row tau (reflected ghosts at the
+      // walls: the outside neighbour is -center; in block mode a neighbour
+      // beyond the array reads 0), 0 outside the domain, into ring slots sl
+      // and sl + NR
+      {
+        const int gi = tau + oi;
+        int rf = kOutside;
+        if (tau >= 0 && tau < H && gi >= 0 && gi < g.GH) {
+          rf = (gi == 0 ? kWallLo : 0) | (gi == g.GH - 1 ? kWallHi : 0);
+        }
+        mlo |= (rf & kWallLo) ? 1u : 0u;
+        mhi |= (rf & kWallHi) ? 1u : 0u;
+        mout |= (rf & kOutside) ? 1u : 0u;
+        const int p0 = (gi + wj0) & 1;
+        const float vyd[2] = {drain(vy[0], gi, j0 + oj, 1),
+                              drain(vy[1], gi, j0 + 1 + oj, 1)};
+        vxn[0] = drain(vxn[0], gi + 1, j0 + oj, 0);
+        vxn[1] = drain(vxn[1], gi + 1, j0 + 1 + oj, 0);
+        // vy of the cell left of cell 0 and right of cell 1
+        float vy_l = __shfl_sync(0xffffffffu, vyd[1], (lane + 31) & 31);
+        float vy_r = __shfl_sync(0xffffffffu, vyd[0], (lane + 1) & 31);
+        const float vyed = drain(vye, gi, je + oj, 1);
+        vy_l = lane == 0 ? vyed : vy_l;
+        vy_r = lane == 31 ? vyed : vy_r;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = j0 + e;
+          const float vxc = vxb[e];
+          const float vyc = vyd[e];
+          const float t_up = (rf & kWallLo)            ? -vxc
+                             : (BLOCK && tau == 0)     ? 0.f
+                                                       : vxa[e];
+          const float t_dn = (rf & kWallHi)            ? -vxc
+                             : (BLOCK && tau == H - 1) ? 0.f
+                                                       : vxn[e];
+          const float t_lf = (cf[e] & kWallLo)       ? -vyc
+                             : (BLOCK && j == 0)     ? 0.f
+                             : e                     ? vyd[0]
+                                                     : vy_l;
+          const float t_rt = (cf[e] & kWallHi)       ? -vyc
+                             : (BLOCK && j == W - 1) ? 0.f
+                             : e                     ? vy_r
+                                                     : vyd[1];
+          const float div = ((-t_up + t_dn) + (-t_lf + t_rt)) * inv2dx;
+          const float v = ((rf | cf[e]) & kOutside) ? 0.f : dx * div;
+          const int pl = (p0 + e) & 1;
+          dring[(2 * sl + pl) * P + m] = v;
+          dring[(2 * (sl + NR) + pl) * P + m] = v;
+        }
+      }
+
+      // 4. the edge lanes' values for the other warps, then move the
+      // histories and the velocity rows down a step
+      if (lane == 0 || lane == 31) {
+#pragma unroll
+        for (int k = 1; k <= KMAX; ++k)
+          edges[e0][w + 1][k][lane == 31] = cur[k];
+      }
+      h3 = h2[KMAX - 1];
+#pragma unroll
+      for (int k = 1; k <= KMAX; ++k) {
+        h2[k] = h1[k];
+        h1[k] = cur[k];
+      }
+      vxa[0] = vxb[0];
+      vxa[1] = vxb[1];
+      vxb[0] = vxn[0];
+      vxb[1] = vxn[1];
+      sl = sl + 1 == NR ? 0 : sl + 1;
+      const int et = e2;
+      e2 = e1;
+      e1 = e0;
+      e0 = et;
+      S ^= 1;
+      mlo <<= 1;
+      mhi <<= 1;
+      mout <<= 1;
+      __syncthreads();
+    }
+  };
+  if (d.n > 0)
+    walk(Bool<true>());
+  else
+    walk(Bool<false>());
+}
+
+// The strip's project_tile_kernel, not the trapezoid's of the same name.
+using StripKernel = void (*)(const float*, float*, float*, const ImpulseArgs,
+                             const Geom, int, int, int, int, float, float,
+                             float, float);
+
+template <int KMAX, bool BLOCK>
+StripKernel strip_kernel() {
+  return project_tile_kernel<KMAX, BLOCK>;
+}
+
+// The bytes of a block's dx * d ring: 2 (KMAX + 2) rows of both planes.
+inline int strip_ring_bytes(int kmax) {
+  return (int)(2 * (kmax + 2) * 2 * 32 * kStripWarps * sizeof(float));
+}
+
+// The window route's resident blocks per SM (the occupancy the card
+// reports; the wrapper plans two waves of them).
+template <int KMAX>
+int strip_blocks_per_sm() {
+  const int bytes = strip_ring_bytes(KMAX);
+  const StripKernel kernel = strip_kernel<KMAX, false>();
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes) != cudaSuccess)
+    return 0;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, kernel, 32 * kStripWarps, bytes) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+template <int KMAX, bool BLOCK>
+cudaError_t project_window(const float* v, float* vo, float* po,
+                           const ImpulseArgs& imp, const Geom& g, int halo,
+                           int n_strips, int n_segs, float dx, float inv2dx,
+                           int iters, float omega, float one_m_w,
+                           cudaStream_t s) {
+  const int K = 2 * iters;
+  const int bw = g.W - 2 * halo, bh = g.H - 2 * halo;
+  // the widest strip's window must fit the lanes' columns
+  if (K > KMAX || n_strips < 1 || n_segs < 1 || n_strips > bw ||
+      n_segs > bh || n_segs > 65535 ||
+      (bw + n_strips - 1) / n_strips + 2 * (K + 1) > 64 * kStripWarps)
+    return cudaErrorInvalidValue;
+  // with the static shared memory, above 48 KB: asked for
+  const int bytes = strip_ring_bytes(KMAX);
+  const StripKernel kernel = strip_kernel<KMAX, BLOCK>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(n_strips, n_segs), 32 * kStripWarps, bytes, s>>>(
+          v, vo, po, imp, g, halo, n_strips, n_segs, K, dx, inv2dx, omega,
+          one_m_w);
+  return cudaGetLastError();
+}
+
+template <int KMAX>
+cudaError_t project_window_modes(const float* v, float* vo, float* po,
+                                 const ImpulseArgs& imp, const Geom& g,
+                                 int halo, int n_strips, int n_segs, float dx,
+                                 float inv2dx, int iters, float omega,
+                                 float one_m_w, cudaStream_t s) {
+  if (halo > 0)
+    return project_window<KMAX, true>(v, vo, po, imp, g, halo, n_strips,
+                                      n_segs, dx, inv2dx, iters, omega,
+                                      one_m_w, s);
+  return project_window<KMAX, false>(v, vo, po, imp, g, 0, n_strips, n_segs,
+                                     dx, inv2dx, iters, omega, one_m_w, s);
+}
+
+// The trapezoid route, for member tiles (K6): one block per TH x TW tile of
+// the owned cells projects it inside its window, the tile +- R, in shared
+// memory (RbWindow and rb_window_half_sweeps of csrc/rb2d.cuh, shared with
+// K4): flags and p = 0, dx * div of the window, the half-sweeps on the
+// shrinking window, the gradient.  One block fills an SM's shared memory.
+// On the strip, member walls cost K1 more than this route does (PERF.md).
+//
 // Rows a window phase loads before it computes on them: its loads are
 // issued together, so more of the device memory's latency is hidden.
 constexpr int kBatch = 4;
@@ -444,24 +863,26 @@ __global__ void __launch_bounds__(1024)
 }
 
 template <bool MEMBER, bool BLOCK>
-cudaError_t project_window(const float* v, float* vo, float* po,
-                           const ImpulseArgs& imp, const Geom& g, int halo,
-                           int TH, int TW, int threads_y, float dx,
-                           float inv2dx, int iters, float omega,
-                           float one_m_w, cudaStream_t s) {
+cudaError_t project_trapezoid(const float* v, float* vo, float* po,
+                              const ImpulseArgs& imp, const Geom& g, int halo,
+                              int TH, int TW, int threads_y, float dx,
+                              float inv2dx, int iters, float omega,
+                              float one_m_w, cudaStream_t s) {
   const WindowShape ws = window_shape(TH, TW, 2 * iters + 1);
   if (ws.cols == 0) return cudaErrorInvalidValue;
+  // this overload of project_tile_kernel, not the strip's
+  void (*kernel)(const float*, float*, float*, const ImpulseArgs, const Geom,
+                 int, int, int, int, float, float, int, float, float) =
+      project_tile_kernel<MEMBER, BLOCK>;
   // above 48 KB a block's shared memory must be asked for
   cudaError_t err = cudaFuncSetAttribute(
-      project_tile_kernel<MEMBER, BLOCK>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, ws.bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ws.bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((g.W - 2 * halo + TW - 1) / TW,
                   (g.H - 2 * halo + TH - 1) / TH);
-  project_tile_kernel<MEMBER, BLOCK><<<grid, dim3(32, threads_y), ws.bytes,
-                                       s>>>(v, vo, po, imp, g, halo, TH, TW,
-                                            ws.stride, dx, inv2dx,
-                                            iters, omega, one_m_w);
+  kernel<<<grid, dim3(32, threads_y), ws.bytes, s>>>(
+      v, vo, po, imp, g, halo, TH, TW, ws.stride, dx, inv2dx, iters, omega,
+      one_m_w);
   return cudaGetLastError();
 }
 
@@ -490,18 +911,51 @@ cudaError_t project(const float* v, float* vo, float* pp, float* dd,
 
 // The window route (one launch): vel [2, H, W] float32; the owned cells go
 // to vel_out [2, H - 2 halo, W - 2 halo] and their pressure to p_out
-// [H - 2 halo, W - 2 halo] (halo = 0 without block mode); TH x TW tiles,
-// blocks of 32 x threads_y threads.  The other arguments as for
-// fluid_project below.
+// [H - 2 halo, W - 2 halo] (halo = 0 without block mode); the owned cells
+// cut into n_strips column strips of n_segs row segments, one block of 96
+// threads each (ops/cuda/project.py strip_plan).  The other arguments as
+// for fluid_project below.
 extern "C" int fluid_project_window(const void* vel, void* vel_out,
                                     void* p_out, const void* ipos,
                                     const void* ivel, const void* iact,
                                     int n_imp, int H, int W, int mh, int mw,
                                     int oi, int oj, int GH, int GW, int halo,
                                     float dx, float inv2dx, int iters,
-                                    float omega, float one_m_w, int tile_h,
-                                    int tile_w, int threads_y,
-                                    void* stream) {
+                                    float omega, float one_m_w, int n_strips,
+                                    int n_segs, void* stream) {
+  if (n_imp < 0 || n_imp > kMaxImpulses || iters < 0 ||
+      2 * iters > kStripKmaxB || mh > 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* v = static_cast<const float*>(vel);
+  float* vo = static_cast<float*>(vel_out);
+  float* po = static_cast<float*>(p_out);
+  const ImpulseArgs imp{static_cast<const int*>(ipos),
+                        static_cast<const float*>(ivel),
+                        static_cast<const uint8_t*>(iact), n_imp};
+  const Geom g = halo > 0 ? Geom{H, W, oi, oj, GH, GW, mh, mw}
+                          : Geom{H, W, 0, 0, H, W, mh, mw};
+  if (2 * iters <= kStripKmaxA)
+    return (int)project_window_modes<kStripKmaxA>(
+        v, vo, po, imp, g, halo, n_strips, n_segs, dx, inv2dx, iters, omega,
+        one_m_w, s);
+  return (int)project_window_modes<kStripKmaxB>(
+      v, vo, po, imp, g, halo, n_strips, n_segs, dx, inv2dx, iters, omega,
+      one_m_w, s);
+}
+
+// The trapezoid route (one launch), for member tiles: the arguments as for
+// fluid_project_window, with TH x TW tiles and blocks of 32 x threads_y
+// threads in place of the strips and segments.
+extern "C" int fluid_project_trapezoid(const void* vel, void* vel_out,
+                                       void* p_out, const void* ipos,
+                                       const void* ivel, const void* iact,
+                                       int n_imp, int H, int W, int mh,
+                                       int mw, int oi, int oj, int GH, int GW,
+                                       int halo, float dx, float inv2dx,
+                                       int iters, float omega, float one_m_w,
+                                       int tile_h, int tile_w, int threads_y,
+                                       void* stream) {
   if (n_imp < 0 || n_imp > kMaxImpulses || iters < 0 || tile_h < 1 ||
       tile_w < 1 || threads_y < 1 || threads_y > 32)
     return (int)cudaErrorInvalidValue;
@@ -515,21 +969,30 @@ extern "C" int fluid_project_window(const void* vel, void* vel_out,
   if (halo > 0) {
     const Geom g{H, W, oi, oj, GH, GW, mh, mw};
     if (mh > 0)
-      return (int)project_window<true, true>(v, vo, po, imp, g, halo, tile_h,
-                                             tile_w, threads_y, dx, inv2dx,
-                                             iters, omega, one_m_w, s);
-    return (int)project_window<false, true>(v, vo, po, imp, g, halo, tile_h,
-                                            tile_w, threads_y, dx, inv2dx,
-                                            iters, omega, one_m_w, s);
+      return (int)project_trapezoid<true, true>(v, vo, po, imp, g, halo,
+                                                tile_h, tile_w, threads_y, dx,
+                                                inv2dx, iters, omega, one_m_w,
+                                                s);
+    return (int)project_trapezoid<false, true>(v, vo, po, imp, g, halo,
+                                               tile_h, tile_w, threads_y, dx,
+                                               inv2dx, iters, omega, one_m_w,
+                                               s);
   }
   const Geom g{H, W, 0, 0, H, W, mh, mw};
   if (mh > 0)
-    return (int)project_window<true, false>(v, vo, po, imp, g, 0, tile_h,
-                                            tile_w, threads_y, dx, inv2dx,
-                                            iters, omega, one_m_w, s);
-  return (int)project_window<false, false>(v, vo, po, imp, g, 0, tile_h,
-                                           tile_w, threads_y, dx, inv2dx,
-                                           iters, omega, one_m_w, s);
+    return (int)project_trapezoid<true, false>(v, vo, po, imp, g, 0, tile_h,
+                                               tile_w, threads_y, dx, inv2dx,
+                                               iters, omega, one_m_w, s);
+  return (int)project_trapezoid<false, false>(v, vo, po, imp, g, 0, tile_h,
+                                              tile_w, threads_y, dx, inv2dx,
+                                              iters, omega, one_m_w, s);
+}
+
+// The window route's resident blocks per SM at iters (0: refused).
+extern "C" int fluid_project_window_blocks(int iters) {
+  if (iters < 0 || 2 * iters > kStripKmaxB) return 0;
+  if (2 * iters <= kStripKmaxA) return strip_blocks_per_sm<kStripKmaxA>();
+  return strip_blocks_per_sm<kStripKmaxB>();
 }
 
 // The sequence route (2*iters + 2 launches).

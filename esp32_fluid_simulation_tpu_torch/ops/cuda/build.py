@@ -59,11 +59,18 @@ _SIGNATURES = {
     "fluid_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _I, _I, _I, _P, _F, _F, _I, _F, _F, _P),
     # vel, vel_out, p_out, ipos, ivel, iact, n_imp, H, W, mh, mw, oi, oj,
+    # GH, GW, halo, dx, inv2dx, iters, omega, one_m_w, n_strips, n_segs,
+    # stream
+    "fluid_project_window": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _F, _F, _I, _F, _F, _I, _I, _P),
+    # iters -> resident blocks per SM of the window route (0: refused)
+    "fluid_project_window_blocks": (_I,),
+    # vel, vel_out, p_out, ipos, ivel, iact, n_imp, H, W, mh, mw, oi, oj,
     # GH, GW, halo, dx, inv2dx, iters, omega, one_m_w, tile_h, tile_w,
     # threads_y, stream
-    "fluid_project_window": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _F, _F, _I, _F, _F, _I, _I, _I,
-                             _P),
+    "fluid_project_trapezoid": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _F, _F, _I, _F, _F, _I,
+                                _I, _I, _P),
     # color, out, H, W, color_bf16, s, bswap, unit_range, stream
     "fluid_render_rgb565": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     # field, vel, out, C, D, H, W, field_bf16, vel_bf16, dt, max_disp,

@@ -8,14 +8,19 @@ CUDA tensors and runs ``project_fused_reference``, its plain PyTorch version
 CPU tensors — only because they lie on the CPU.  Any other device raises.
 
 Two routes, chosen by ``iters`` alone: up to ``WINDOW_MAX_ITERS`` one
-launch (``fluid_project_window``: each block projects a tile of the
-output inside its window, the tile +- ``2*iters + 1`` cells, in shared
-memory, the TPU kernel's design; ``sor.window_tile``), above
-it the sequence of ``2*iters + 2`` launches (``fluid_project``) whose
+launch (``fluid_project_window``: each block walks a row segment of a
+column strip of the output, its window the strip +- ``2*iters + 1``
+columns, and runs the drain, every half-sweep and the gradient as a
+wavefront down its rows; ``strip_plan`` cuts the strips and segments),
+above it the sequence of ``2*iters + 2`` launches (``fluid_project``) whose
 half-sweeps stream the field through device memory.  Every config's
-``sor_iters`` (10) takes the window route.  ``project_fused.launches``
+``sor_iters`` (10) takes the window route.  With ``member=`` the window
+route is one launch of the trapezoid (``fluid_project_trapezoid``: each
+block projects a tile of the output inside its window, the tile +-
+``2*iters + 1`` cells, in shared memory; ``sor.window_tile``), which the
+member walls make faster there than the strip.  ``project_fused.launches``
 counts calls; ``window_launches`` and ``sequence_launches`` count each
-route's.
+route's, ``trapezoid_launches`` the window route's member calls.
 
 ``member=(mh, mw)`` (K6, ``project.py:121-134``): every member tile of the
 grid is projected on its own — reflected ghosts, zero ghosts and ``a_ii``,
@@ -54,6 +59,41 @@ from .sor import (WINDOW_MAX_ITERS, member_sor_solve, member_walls, owned,
                   walls_at, window_tile)
 
 _MAX_IMPULSES = 64  # kMaxImpulses in csrc/project.cu
+
+
+# The window route's widest window: 4 warps a block, a lane one plane
+# column of each colour (kStripWarps in csrc/project.cu)
+STRIP_COLUMNS = 256
+
+
+def strip_plan(bh, bw, iters, blocks):
+    """``(n_strips, n_segments)`` of the window route over ``bh x bw`` owned
+    cells: the fewest column strips whose windows, a strip +- ``2*iters +
+    1`` columns, fit ``STRIP_COLUMNS`` (``csrc/project.cu`` cuts them as
+    evenly as they go, so none is a sliver), and enough row segments for
+    ``blocks`` blocks, at most one a row."""
+    width = STRIP_COLUMNS - 2 * (2 * iters + 1)
+    n_strips = -(-bw // width)
+    return n_strips, max(1, min(bh, -(-blocks // n_strips)))
+
+
+def strip_blocks(lib, device, iters):
+    """The window route's blocks for a call: two waves of the blocks the
+    card holds at once (its SMs times the blocks per SM it reports for
+    ``iters``'s instance), so that blocks start and end at different
+    times."""
+    key = (device.index, iters <= 10)
+    if key not in strip_blocks.cache:
+        per_sm = lib.value("fluid_project_window_blocks", int(iters))
+        if per_sm < 1:
+            raise RuntimeError("project_fused: the window route's kernel "
+                               "cannot run on this card")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        strip_blocks.cache[key] = 2 * sms * per_sm
+    return strip_blocks.cache[key]
+
+
+strip_blocks.cache = {}
 
 
 def _member_divergence(vel, dx, walls):
@@ -182,12 +222,20 @@ def project_fused(vel: torch.Tensor, dx: float = 1.0, iters: int = 10,
                    float(omega), float(np.float32(1.0 - omega)))
         lib = load()
         with torch.cuda.device(vel.device):
-            if iters <= WINDOW_MAX_ITERS:
+            if iters <= WINDOW_MAX_ITERS and member is None:
+                plan = strip_plan(bh, bw, iters,
+                                  strip_blocks(lib, vel.device, iters))
                 lib.call("fluid_project_window", vel.data_ptr(),
+                         out.data_ptr(), p_out.data_ptr(), *imp_ptrs,
+                         *geometry, *numbers, *plan, stream_of(vel))
+                project_fused.window_launches += 1
+            elif iters <= WINDOW_MAX_ITERS:
+                lib.call("fluid_project_trapezoid", vel.data_ptr(),
                          out.data_ptr(), p_out.data_ptr(), *imp_ptrs,
                          *geometry, *numbers, *window_tile(2 * iters + 1),
                          stream_of(vel))
                 project_fused.window_launches += 1
+                project_fused.trapezoid_launches += 1
             else:
                 # scratch: the haloed block's pressure in block mode, dx * div
                 p = p_out if blk is None else torch.empty_like(vel[0])
@@ -206,4 +254,5 @@ project_fused.launches = 0
 project_fused.member_launches = 0
 project_fused.block_launches = 0
 project_fused.window_launches = 0
+project_fused.trapezoid_launches = 0
 project_fused.sequence_launches = 0

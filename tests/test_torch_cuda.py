@@ -236,11 +236,23 @@ def test_project_kernel_bit_equal(cuda, rng):
         assert torch.equal(v, rv) and torch.equal(p, rp)
 
 
-def _seam_impulses(shape, iters, dev):
-    """Slots on the seams of K1's window-route tiles and in a neighbour
-    tile's ring, a duplicate and an out-of-range position."""
+def _seam_impulses(shape, iters, dev, member=False):
+    """Slots on the first strip and segment seams of K1's window route
+    (``strip_plan`` at the blocks planned for the card), or with ``member``
+    on the seams of its trapezoid route's tiles (``sor.window_tile``), and
+    within a window's reach of them, a duplicate and an out-of-range
+    position."""
+    from esp32_fluid_simulation_tpu_torch.ops.cuda import project
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.build import load
     from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import window_tile
-    th, tw, _ = window_tile(2 * iters + 1)
+    iters = min(iters, project.WINDOW_MAX_ITERS)
+    if member:
+        th, tw, _ = window_tile(2 * iters + 1)
+    else:
+        n_strips, n_segs = project.strip_plan(
+            *shape, iters,
+            project.strip_blocks(load(), torch.device(dev), iters))
+        th, tw = max(shape[0] // n_segs, 1), max(shape[1] // n_strips, 1)
     r = 2 * iters + 2
     return Impulses.from_lists(
         SimConfig(shape=shape, max_impulses=8),
@@ -250,12 +262,14 @@ def _seam_impulses(shape, iters, dev):
          (7.0, 8.0), (5.0, 5.0)], device=dev)
 
 
-@pytest.mark.parametrize("iters", [0, 1, 10, 20])
-@pytest.mark.parametrize("shape", [(61, 81), (130, 200), (250, 310)])
+@pytest.mark.parametrize("iters", [0, 1, 10, 15, 20])
+@pytest.mark.parametrize("shape", [(61, 81), (130, 200), (250, 310),
+                                   (4097, 4093)])
 def test_project_kernel_routes_bit_equal(cuda, rng, shape, iters):
-    """K1's one-launch window route (iters <= WINDOW_MAX_ITERS) and its
-    launch sequence (above) on shapes that are not multiples of the tile,
-    with impulses on the tile seams."""
+    """K1's one-launch window route (iters <= WINDOW_MAX_ITERS: the
+    row-pipelined strips) and its launch sequence (above) on shapes that
+    are not multiples of a strip or a segment, with impulses on the
+    seams."""
     from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
         WINDOW_MAX_ITERS)
     vel = _on(rng.normal(0, 40, (2,) + shape).astype(np.float32), cuda)
@@ -270,17 +284,23 @@ def test_project_kernel_routes_bit_equal(cuda, rng, shape, iters):
                                                  before[1] + 2 * (not window))
 
 
-@pytest.mark.parametrize("iters", [0, 1, 10, 20])
+@pytest.mark.parametrize("iters", [0, 1, 10, 15, 20])
 def test_project_member_window_bit_equal(cuda, rng, iters):
-    """K1 ``member=`` with 48x40 members, whose walls cross the tiles."""
+    """K1 ``member=`` with 48x40 members, whose walls cross the tiles of
+    its one-launch trapezoid route (iters <= WINDOW_MAX_ITERS)."""
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
+        WINDOW_MAX_ITERS)
     shape, member = (144, 200), (48, 40)
     vel = _on(rng.normal(0, 40, (2,) + shape).astype(np.float32), cuda)
-    for impulses in (_seam_impulses(shape, iters, cuda), None):
+    before = project_fused.trapezoid_launches
+    for impulses in (_seam_impulses(shape, iters, cuda, member=True), None):
         v, p = project_fused(vel, 1.0, iters, 1.96, impulses=impulses,
                              member=member)
         rv, rp = project_fused_reference(vel, 1.0, iters, 1.96, impulses,
                                          member)
         assert torch.equal(v, rv) and torch.equal(p, rp)
+    assert project_fused.trapezoid_launches == before + 2 * (
+        iters <= WINDOW_MAX_ITERS)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
