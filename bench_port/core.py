@@ -1,20 +1,51 @@
 """The harness shared by every cell: the lookup by name, set-up, the timed
 window, the traced stretch, the comparison with the plain reference and
-the result line.
+the result line.  It names no configuration, entry, output or metric:
+each is a file of its own under this directory, found by the names in
+``BENCHMARK.json``, so that a new cell, entry or reader is new files and
+new entries of ``BENCHMARK.json`` only.
 
-A cell of ``BENCHMARK.json`` names a configuration and a traffic mix; each
-is a file of its own under this directory, found by name:
+The files a cell brings (where another cell has one already, it is
+shared):
 
-* ``configs/<config>.json``: the program's settings (``sim``) and the
-  ``entry`` it runs;
-* ``traffic/<mix>.json``: the ``generator`` (``traffic/<generator>.py``),
-  its parameters, and the render scale the user asks for;
-* ``entries/<entry>.py`` builds the program's state on the device and
-  makes one step of the window; ``reference/<entry>.py`` is the plain
-  PyTorch step it is compared with;
+* ``configs/<config>.json``: the program's settings (``sim``, with its
+  ``shape``) and the ``entry`` that runs them, with the source and every
+  change from it;
+* ``traffic/<mix>.json``: the ``generator``, its parameters and the
+  render ``scaling`` the user asks for; ``traffic/<generator>.py`` has
+  ``make(params, shape, seed)``, whose ``step(t)`` gives step ``t``'s
+  traffic as a tuple of lists of plain numbers;
+* ``entries/<entry>.py``: the program under test;
+* ``reference/<entry>.py``: the plain PyTorch step it is compared with;
 * ``limits/<cell>.json``: the limit of each number compared, with the
-  readings it was set from;
+  readings it was set from (``readings.py``);
 * ``metrics/<metric>.py``: one reader per per-layer metric.
+
+An entry module has ``build(sim, scaling, device)``, which makes the
+program's state on the device and returns an object with
+``feed(*lists)`` (the program's input for a step, made from the
+traffic's lists), ``step(fed)``, ``inputs()`` (the tensors the next step
+reads, by name), ``outputs()`` (the tensors the last step produced, by
+name) and, where the program counts what it launches, ``counters()``
+(running totals, by name); and ``cpu_sim(sim)``: the same settings at a
+shape that the CPU self-test can hold.
+
+A reference module has ``NUMBERS`` (each number that ``compare`` returns,
+with the output that it judges); ``step(inputs, *lists, sim, scaling,
+lower=False)``, the outputs of one step from the program's stored inputs,
+by the names of ``outputs()``; ``compare(got, want)``, the numbers, 0 for
+an exact match and larger the worse; and ``lower_state(inputs, sim)``,
+the program's stored inputs as the control stores them, one precision
+down, for ``step(..., lower=True)`` to start from (``readings.py``).
+
+A reader has ``read(summary, ctx)``, which returns a number, or None
+where it finds nothing to read.  ``summary`` is ``tracing.summarize``'s
+(kernels, device operations, runtime calls, the spans, calls and busy
+intervals by name on the trace's clock, the breakdown), with
+``counters``: the entry's counters a step over the traced stretch.
+``ctx`` holds ``sim``, ``scaling``, ``step_s`` (host-clock seconds a step
+of the untraced window) and ``hbm_bytes_per_s`` (the card's published
+bandwidth, None for a card that ``peaks`` does not list).
 
 The window is a closed loop with one caller: take the traffic's lists for
 step ``t``, let the program turn them into its input, step, record an
@@ -48,6 +79,9 @@ RATE_STEPS = 5           # steps timed to size the pool
 TRACE_WARM = 3           # profiler warm-up steps, not kept
 TRACE_SECONDS = 0.25     # about this many seconds of steps are traced
 TRACE_STEPS = (20, 250)  # fewest and most steps traced
+# modules that no run may hold: JAX, and the JAX package the port was made
+# from, compared by whole top-level names (the port's name begins with it)
+BANNED_MODULES = ("jax", "jaxlib", "flax", "esp32_fluid_simulation_tpu")
 
 
 def load_module(path: Path):
@@ -128,14 +162,14 @@ class Driver:
         self.t = 0
         self.pool = []
         self.buffers = []
-        self.samples = []   # the traffic (pos, vel) of each copied step
+        self.samples = []   # the traffic's lists of each copied step
 
     def one(self, spans=False, copy_to=None):
         """One step; with ``copy_to`` its input and output go there."""
         with _span("bench.traffic", spans):
-            pos, vel = self.gen.step(self.t)
+            lists = self.gen.step(self.t)
         with _span("bench.feed", spans):
-            fed = self.entry.feed(pos, vel)
+            fed = self.entry.feed(*lists)
         if copy_to is not None:
             for k, v in self.entry.inputs().items():
                 copy_to["in"][k].copy_(v)
@@ -144,7 +178,7 @@ class Driver:
         if copy_to is not None:
             for k, v in self.entry.outputs().items():
                 copy_to["out"][k].copy_(v)
-        return pos, vel
+        return lists
 
     def allocate(self, n: int):
         """Room for ``n`` copied steps, shaped as the entry's tensors."""
@@ -173,9 +207,9 @@ class Driver:
             copy_to = None
             if k < len(marks) and now >= t0 + marks[k] * seconds:
                 copy_to = self.buffers[k]
-            pos, vel = self.one(copy_to=copy_to)
+            lists = self.one(copy_to=copy_to)
             if copy_to is not None:
-                self.samples.append((pos, vel))
+                self.samples.append(lists)
                 k += 1
             if n == len(pool):
                 pool.append(clock.event())
@@ -189,7 +223,9 @@ class Driver:
         return n, wall, intervals
 
     def traced(self, n_active: int):
-        """The profiler's summary of ``n_active`` steps after its warm-up."""
+        """The profiler's summary of ``n_active`` steps after its warm-up,
+        with the entry's counters a step over those steps and the warm-up
+        as ``counters``."""
         last = TRACE_WARM + n_active - 1
         clock = self.clock
 
@@ -215,6 +251,7 @@ class Driver:
               f"step {launched}; kernels a step in the trace "
               f"{sorted(traced.items(), key=lambda kv: -kv[1])[:6]}",
               file=sys.stderr, flush=True)
+        summary["counters"] = launched
         return summary
 
 
@@ -290,8 +327,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, clock,
     clock.release()
     worst, failed = {}, 0
     limits = cell["limits"]
-    for (pos, vel), buf in zip(samples, buffers):
-        want = reference.step(buf["in"], pos, vel, sim, scaling)
+    for lists, buf in zip(samples, buffers):
+        want = reference.step(buf["in"], *lists, sim, scaling)
         numbers = reference.compare(buf["out"], want)
         del want
         failed += any(not v <= limits[k] for k, v in numbers.items())
@@ -331,9 +368,19 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, clock,
     return result
 
 
-def emit(result: dict, out=sys.stdout, err=sys.stderr):
+def banned_modules(modules=None) -> list:
+    """The names of ``BANNED_MODULES`` that ``modules`` (by default
+    ``sys.modules``) holds, by the top-level name of each module."""
+    held = {name.partition(".")[0]
+            for name in (sys.modules if modules is None else modules)}
+    return sorted(held & set(BANNED_MODULES))
+
+
+def emit(result: dict, out=None, err=None):
     """The numbers compared, each beside its limit, as the last lines on
     standard error; the result as the last line on standard output."""
+    out = sys.stdout if out is None else out
+    err = sys.stderr if err is None else err
     for k, v in result["compared"].items():
         print(f"compared {k} {v['value']!r} limit {v['limit']!r}", file=err)
     err.flush()

@@ -54,3 +54,9 @@ class StepRender:
 
 def build(sim: dict, scaling: int, device) -> StepRender:
     return StepRender(sim, scaling, device)
+
+
+def cpu_sim(sim: dict) -> dict:
+    """The same settings at 48x72, a grid that the CPU self-test steps in
+    milliseconds, with the kernels' plain versions."""
+    return dict(sim, shape=[48, 72])

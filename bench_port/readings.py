@@ -6,11 +6,12 @@ benchmark's own runs).
 
 In one process: a run of the program for each of ``--seeds`` (its numbers
 compared are the lower readings), then a run of the control for each of
-``--control-seeds``: the plain reference computed one precision down
-(``reference/<entry>.py``, ``lower=True``), put in the program's place at
-the cell's own size and driven by the same window, whose numbers are the
-upper readings.  Each run prints one JSON line; the last line gives, for
-each number, the largest program reading and the smallest control one.
+``--control-seeds``: the cell's plain reference computed one precision
+down (``reference/<entry>.py``, ``lower=True``), put in the program's
+place at the cell's own size and driven by the same window, whose numbers
+are the upper readings.  Each run prints one JSON line; the last line
+gives, for each number, the largest program reading and the smallest
+control one.
 """
 
 import argparse
@@ -21,46 +22,44 @@ from pathlib import Path
 
 
 class Control:
-    """The reference at the lower precision, in the program's place.  The
-    starting state is the program's initial state, stored as the control
-    stores it."""
+    """The reference at the lower precision, in the program's place.  It
+    starts from ``state`` and keeps, of each step's outputs, those named
+    as inputs for the next step."""
 
-    def __init__(self, sim: dict, scaling: int, device, reference):
-        from esp32_fluid_simulation_tpu_torch import SimConfig, init_state
-
-        cfg = SimConfig(**dict(sim, shape=tuple(sim["shape"]),
-                               scaling=scaling))
-        st = init_state(cfg, device=device)
+    def __init__(self, state: dict, sim: dict, scaling: int, reference):
         self.sim, self.scaling, self.ref = sim, scaling, reference
-        vel_store, dye_store = reference.stores(sim, lower=True)
-        self._state = {"velocity": st.velocity.to(vel_store).float(),
-                       "dye": st.color.to(dye_store)}
-        self._frame = None
+        self._state, self._out = state, {}
 
-    def feed(self, pos, vel):
-        return pos, vel
+    def feed(self, *lists):
+        return lists
 
     def step(self, fed) -> None:
-        out = self.ref.step(self._state, *fed, self.sim, self.scaling,
-                            lower=True)
-        self._frame = out.pop("frame")
-        self._state = out
+        self._out = self.ref.step(self._state, *fed, self.sim,
+                                  self.scaling, lower=True)
+        self._state = {k: self._out[k] for k in self._state}
 
     def inputs(self) -> dict:
         return dict(self._state)
 
     def outputs(self) -> dict:
-        return dict(self._state, frame=self._frame)
+        return dict(self._out)
 
 
 def control_factory(cell: dict):
+    """Builds the cell's control: the cell's own entry is built, its
+    ``inputs()`` (the program's initial state) are stored as the
+    reference's ``lower_state`` stores them, and the entry is freed."""
     from bench_port import core
 
-    reference = core.load_module(core.BENCH / "reference"
-                                 / f"{cell['config']['entry']}.py")
+    name = cell["config"]["entry"]
+    reference = core.load_module(core.BENCH / "reference" / f"{name}.py")
+    entry = core.load_module(core.BENCH / "entries" / f"{name}.py")
 
     def build(sim, scaling, device):
-        return Control(sim, scaling, device, reference)
+        program = entry.build(sim, scaling, device)
+        state = reference.lower_state(program.inputs(), sim)
+        del program
+        return Control(state, sim, scaling, reference)
     return build
 
 

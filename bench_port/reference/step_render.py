@@ -36,6 +36,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# each number ``compare`` returns, with the output it judges
+NUMBERS = {"velocity_rel": "velocity", "dye_abs": "dye", "frame_pct": "frame"}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _LOWER = {torch.float32: torch.bfloat16, torch.bfloat16: torch.float8_e4m3fn}
 # source rows of the frame rendered at once, to bound the upscale's memory
@@ -203,6 +205,14 @@ def stores(sim: dict, lower: bool = False):
     if lower:
         return torch.bfloat16, _LOWER[dye]
     return torch.float32, dye
+
+
+def lower_state(inputs: dict, sim: dict) -> dict:
+    """The program's stored ``velocity`` and ``dye`` as ``lower=True``
+    stores them: the control's starting state."""
+    vel_store, dye_store = stores(sim, lower=True)
+    return {"velocity": inputs["velocity"].to(vel_store).float(),
+            "dye": inputs["dye"].to(dye_store)}
 
 
 def step(inputs: dict, pos, val, sim: dict, scaling: int,

@@ -11,7 +11,8 @@ per-layer metrics from one profiler trace taken after the window.  It
 needs as many CUDA cards as the cell asks for, and fails without them.
 The last line of standard output is the result, as JSON; the numbers
 compared with the reference, each beside its limit, are the last lines of
-standard error.
+standard error.  A run whose process holds JAX or the JAX package once
+the window has closed fails and prints no result.
 """
 
 import time
@@ -43,6 +44,11 @@ def main(argv=None) -> int:
         return 2
     result = core.run_cell(cell, args.seed, args.seconds, bool(args.trace),
                            core.CudaClock(), T_START)
+    found = core.banned_modules()
+    if found:
+        print(f"the run loaded {', '.join(found)}; no result",
+              file=sys.stderr)
+        return 3
     core.emit(result)
     return 0
 

@@ -10,7 +10,10 @@ later short traces have been seen to miss device events.
 The harness wraps its calls in spans (``record_function``):
 ``bench.traffic`` (the generator), ``bench.feed`` (the program turning
 the traffic's lists into its input), ``bench.step`` (the program's step),
-``bench.event`` (the end-of-step event) and ``bench.sync``.
+``bench.event`` (the end-of-step event) and ``bench.sync``.  The
+program's own spans (``fluid.*``) nest inside them; the summary keeps
+every span by name, with the CUDA runtime calls and the card's busy
+intervals, for readers that intersect them.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from collections import defaultdict
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
 PROGRAM_SPANS = ("bench.feed", "bench.step")
+PROFILER_STEP = "ProfilerStep#"   # the profiler's own span of each step
 BREAKDOWN_ENTRIES = 10
 
 
@@ -95,7 +99,11 @@ def summarize(events, steps: int) -> dict:
     ``device`` (every kernel, copy and set), ``runtime`` (CUDA runtime
     calls and whether the program's span made them), ``window_s``,
     ``busy_s`` (the union of device intervals), ``device_ops`` and
-    ``idle_gaps`` (the breakdown)."""
+    ``idle_gaps`` (the breakdown); and ``spans`` (every span, the
+    harness's and the program's, by name), ``calls`` (every CUDA runtime
+    and driver call, by name) and ``busy`` (the union of device
+    intervals), each as ``[start_s, end_s]`` pairs in seconds from the
+    start of the stretch, on the trace's clock."""
     dev, host, runtime_at = [], [], {}
     for e in events:
         if e.get("ph") != "X" or "dur" not in e:
@@ -114,7 +122,7 @@ def summarize(events, steps: int) -> dict:
     if not host and not dev:
         return {"steps": steps, "kernels": [], "device": [], "runtime": [],
                 "window_s": 0.0, "busy_s": 0.0, "device_ops": [],
-                "idle_gaps": []}
+                "idle_gaps": [], "spans": {}, "calls": {}, "busy": []}
     lo = min([h[1] for h in host] + [d[2] for d in dev])
     hi = max([h[2] for h in host] + [d[3] for d in dev])
 
@@ -150,6 +158,16 @@ def summarize(events, steps: int) -> dict:
                                                    for s, e in pairs])):
         gaps[label] += (e - s) * 1e-6
 
+    def since(s, e):
+        return [(s - lo) * 1e-6, (e - lo) * 1e-6]
+
+    spans_by_name, calls = defaultdict(list), defaultdict(list)
+    for name, s, e, cat in host:
+        if cat == "user_annotation" and not name.startswith(PROFILER_STEP):
+            spans_by_name[name].append(since(s, e))
+        elif cat in ("cuda_runtime", "cuda_driver"):
+            calls[name].append(since(s, e))
+
     def top(d):
         return [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])
                 [:BREAKDOWN_ENTRIES]]
@@ -159,4 +177,5 @@ def summarize(events, steps: int) -> dict:
                        for name, cat, s, e, _ in dev],
             "runtime": runtime, "window_s": (hi - lo) * 1e-6,
             "busy_s": busy_us * 1e-6, "device_ops": top(by_op),
-            "idle_gaps": top(gaps)}
+            "idle_gaps": top(gaps), "spans": dict(spans_by_name),
+            "calls": dict(calls), "busy": [since(s, e) for s, e in busy]}
