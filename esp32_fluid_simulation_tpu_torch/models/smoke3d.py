@@ -5,7 +5,9 @@ The dye bed's loop generalized to 3D with the standard smoke extensions
 (Fedkiw et al. 2001): density and temperature advected through the flow, a
 buoyancy force along the vertical axis 0 (``f = (alpha*T - beta*rho) *
 z_hat``, low indices are up), a spherical source that injects density and
-temperature every step, and optional dissipation.
+temperature every step, and optional dissipation.  The drag queue
+(``Impulses``, ``.ino:264-269``) is drained into the velocity before the
+projection, as in the dye bed: a user stirs the rising column.
 
 On CUDA tensors at the sizes the JAX package sends to its TPU kernels the
 step runs the hand-written kernels: K7 ``ops/cuda/advect3d.py`` (velocity
@@ -19,7 +21,7 @@ returns a closure, which builds the source mask once per device.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import ClassVar, NamedTuple, Tuple
 
 import torch
 
@@ -30,6 +32,9 @@ from ..ops.multigrid import multigrid_solve
 from ..ops.cuda.advect3d import advect3d_kernel
 from ..ops.cuda.fd3d import divergence3d, subtract_gradient3d
 from ..ops.cuda.sor3d import sor3d_solve
+from ..spans import span
+from ..state import Impulses
+from .stable_fluids import apply_impulses_
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -58,6 +63,11 @@ class SmokeConfig:
     source_temperature: float = 1.0
     dtype: str = "float32"         # velocity and pressure
     scalar_dtype: str = "bfloat16"  # density and temperature storage
+    max_impulses: ClassVar[int] = 16  # drag-queue slots (``Impulses``)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -157,72 +167,83 @@ def inject_and_buoy(vel, rho, temp, src, cfg: SmokeConfig):
 
 
 def smoke_step(state: SmokeState, cfg: SmokeConfig,
-               src: torch.Tensor | None = None) -> SmokeState:
+               src: torch.Tensor | None = None,
+               impulses: Impulses | None = None) -> SmokeState:
     """One plume step: advect, inject, buoyancy, optional vorticity
-    confinement, project, dissipate.  ``src`` is the source mask
-    (``source_tensor``); ``make_smoke_step`` builds it once instead of
-    every step."""
-    dt = cfg.dt
-    vel, rho, temp = state.velocity, state.density, state.temperature
-    if src is None:
-        src = source_tensor(cfg, vel.device)
+    confinement, drain ``impulses``, project, dissipate.  ``src`` is the
+    source mask (``source_tensor``); ``make_smoke_step`` builds it once
+    instead of every step.  ``impulses`` (``Impulses.from_lists(cfg,
+    ...)``, positions ``(z, i, j)``) are written into the velocity in
+    place, the last active slot winning at a repeated cell; None leaves
+    the step as it is without a queue."""
+    with span("fluid.smoke_step"):
+        dt = cfg.dt
+        vel, rho, temp = state.velocity, state.density, state.temperature
+        if src is None:
+            src = source_tensor(cfg, vel.device)
 
-    # 1. advect everything through the current flow
-    if _use_pallas_advect3d(cfg, vel):
-        md = cfg.advect_max_disp
-        vel = advect3d_kernel(vel, vel, dt, no_slip=True, max_disp=md)
-        # rho + temp share one backtrace: one 2-channel call
-        scal = advect3d_kernel(torch.stack([rho, temp]), vel, dt,
-                               no_slip=False, max_disp=md)
-        rho, temp = scal[0], scal[1]
-    else:
-        vel = advect(vel, vel, dt, no_slip=True)
-        rho = advect(rho, vel, dt, no_slip=False)
-        temp = advect(temp, vel, dt, no_slip=False)
+        # 1. advect everything through the current flow
+        if _use_pallas_advect3d(cfg, vel):
+            md = cfg.advect_max_disp
+            vel = advect3d_kernel(vel, vel, dt, no_slip=True, max_disp=md)
+            # rho + temp share one backtrace: one 2-channel call
+            scal = advect3d_kernel(torch.stack([rho, temp]), vel, dt,
+                                   no_slip=False, max_disp=md)
+            rho, temp = scal[0], scal[1]
+        else:
+            vel = advect(vel, vel, dt, no_slip=True)
+            rho = advect(rho, vel, dt, no_slip=False)
+            temp = advect(temp, vel, dt, no_slip=False)
 
-    # 2-3. plume source, buoyancy along -axis 0 (low indices are up)
-    vel, rho, temp = inject_and_buoy(vel, rho, temp, src, cfg)
-    if cfg.vorticity_eps > 0:   # smoke3d.py:180-182
-        vel = vorticity_confinement(vel, cfg.vorticity_eps, dt, cfg.dx)
+        # 2-3. plume source, buoyancy along -axis 0 (low indices are up)
+        vel, rho, temp = inject_and_buoy(vel, rho, temp, src, cfg)
+        if cfg.vorticity_eps > 0:   # smoke3d.py:180-182
+            vel = vorticity_confinement(vel, cfg.vorticity_eps, dt, cfg.dx)
+        if impulses is not None:
+            # ``vel`` is this step's own tensor: drained in place, no copy
+            vel = apply_impulses_(vel, impulses)
 
-    # 4. pressure projection
-    fd_kernel = _use_fd3d_kernel(cfg, vel)
-    div = divergence3d(vel, cfg.dx) if fd_kernel else divergence(vel, cfg.dx)
-    if cfg.solver == "multigrid":
-        p = multigrid_solve(div, cfg.dx, cycles=cfg.mg_cycles)
-    elif _use_pallas_sor3d(cfg, vel):
-        p = sor3d_solve(div, cfg.dx, cfg.sor_iters, cfg.omega,
-                        chunk=cfg.sor_chunk)
-    elif cfg.solver == "sor":
-        p = sor_solve(div, cfg.dx, cfg.sor_iters, cfg.omega)
-    else:
-        raise ValueError(f"unknown solver {cfg.solver!r}")
-    if fd_kernel:
-        vel = subtract_gradient3d(vel, p, cfg.dx)
-    else:
-        vel = subtract_gradient(vel, p, cfg.dx)
+        # 4. pressure projection
+        fd_kernel = _use_fd3d_kernel(cfg, vel)
+        div = (divergence3d(vel, cfg.dx) if fd_kernel
+               else divergence(vel, cfg.dx))
+        if cfg.solver == "multigrid":
+            p = multigrid_solve(div, cfg.dx, cycles=cfg.mg_cycles)
+        elif _use_pallas_sor3d(cfg, vel):
+            p = sor3d_solve(div, cfg.dx, cfg.sor_iters, cfg.omega,
+                            chunk=cfg.sor_chunk)
+        elif cfg.solver == "sor":
+            p = sor_solve(div, cfg.dx, cfg.sor_iters, cfg.omega)
+        else:
+            raise ValueError(f"unknown solver {cfg.solver!r}")
+        if fd_kernel:
+            vel = subtract_gradient3d(vel, p, cfg.dx)
+        else:
+            vel = subtract_gradient(vel, p, cfg.dx)
 
-    # 5. optional dissipation
-    if cfg.dissipation > 0:
-        decay = 1.0 - cfg.dissipation * dt
-        rho = rho * decay
-        temp = temp * decay
+        # 5. optional dissipation
+        if cfg.dissipation > 0:
+            decay = 1.0 - cfg.dissipation * dt
+            rho = rho * decay
+            temp = temp * decay
 
-    return SmokeState(velocity=vel, density=rho, temperature=temp,
-                      step=state.step + 1)
+        return SmokeState(velocity=vel, density=rho, temperature=temp,
+                          step=state.step + 1)
 
 
 def make_smoke_step(cfg: SmokeConfig, donate: bool = True):
-    """``state -> state`` specialized to ``cfg``.  ``donate`` is accepted
-    for the JAX signature; PyTorch has no counterpart.  The source mask is
-    built once per device, on that device."""
+    """``(state, impulses=None) -> state`` specialized to ``cfg``.
+    ``donate`` is accepted for the JAX signature; PyTorch has no
+    counterpart.  The source mask is built once per device, on that
+    device."""
     del donate
     masks = {}
 
-    def fn(state: SmokeState) -> SmokeState:
+    def fn(state: SmokeState, impulses: Impulses | None = None
+           ) -> SmokeState:
         dev = state.velocity.device
         if dev not in masks:
             masks[dev] = source_tensor(cfg, dev)
-        return smoke_step(state, cfg, masks[dev])
+        return smoke_step(state, cfg, masks[dev], impulses)
 
     return fn

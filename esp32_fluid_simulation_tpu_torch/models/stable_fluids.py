@@ -110,17 +110,23 @@ def _resolved_impulse_targets(imp: Impulses, shape):
 def apply_impulses(vel: torch.Tensor, imp: Impulses) -> torch.Tensor:
     """Write drag velocities into cells (``.ino:264-269``), the last active
     slot winning at a duplicated cell; positions are clamped to the grid.
+    Returns a fresh tensor; ``apply_impulses_`` writes into ``vel``."""
+    return apply_impulses_(vel.clone(), imp)
+
+
+def apply_impulses_(vel: torch.Tensor, imp: Impulses) -> torch.Tensor:
+    """``apply_impulses`` in place: ``vel`` (2D or 3D) is written and
+    returned.
 
     One scatter for all slots: every slot writes the value its cell ends
     with (the winner's, or the cell's own where no active slot writes it),
     so duplicate indices carry equal values and the write order does not
-    matter — no host sync, no per-slot pass."""
+    matter — no host sync, no per-slot pass, no copy of the field."""
     idx, winner = _resolved_impulse_targets(imp, vel.shape[1:])
     where = (slice(None),) + idx
     vals = imp.velocity.to(vel.dtype)[winner.clamp(min=0)].T   # [nd, k]
-    out = vel.clone()
-    out[where] = torch.where(winner >= 0, vals, vel[where])
-    return out
+    vel[where] = torch.where(winner >= 0, vals, vel[where])
+    return vel
 
 
 def impulses_in_window(imp: Impulses, global_shape, origin,

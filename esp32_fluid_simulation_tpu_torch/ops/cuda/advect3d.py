@@ -43,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from ..advect import noslip_axis_factor
+from ...spans import span
 from .build import load, stream_of
 from .modes import check_block3d
 
@@ -112,64 +113,66 @@ def advect3d_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
     velocity from the haloed field).  ``global_offset``, ``global_shape``
     and ``halo`` are block mode (module docstring): ``field`` haloed,
     ``vel`` and the result the owned block."""
-    f4 = field[None] if field.dim() == 3 else field
-    if f4.dim() != 4:
-        raise ValueError(f"advect3d_kernel: field shape "
-                         f"{tuple(field.shape)} is not [C, D, H, W]")
-    blk = check_block3d("advect3d_kernel", global_offset, global_shape, halo,
-                        f4.shape, max_disp + 1, "max_disp+1")
-    c, d, h, w = f4.shape
-    if blk is not None:
-        h, w = blk.bh, blk.bw
-    if vel is None:
-        if c != 3:
-            raise ValueError(f"advect3d_kernel: vel=None (self-advect) needs "
-                             f"the [3, D, H, W] velocity as field, got "
-                             f"{tuple(field.shape)}")
-        if blk is None:
-            vel = field
-    elif tuple(vel.shape) != (3, d, h, w):
-        raise ValueError(f"advect3d_kernel: vel must be [3, {d}, {h}, {w}]"
-                         + (" (the owned block)" if blk is not None else ""))
-    if field.device.type == "cpu":
-        return advect3d_reference(field, vel, dt, no_slip, max_disp, blk)
-    if not field.is_cuda:
-        raise ValueError(f"advect3d_kernel: unsupported device "
-                         f"{field.device}")
+    with span("fluid.k7.advect3d"):
+        f4 = field[None] if field.dim() == 3 else field
+        if f4.dim() != 4:
+            raise ValueError(f"advect3d_kernel: field shape "
+                             f"{tuple(field.shape)} is not [C, D, H, W]")
+        blk = check_block3d("advect3d_kernel", global_offset, global_shape,
+                            halo, f4.shape, max_disp + 1, "max_disp+1")
+        c, d, h, w = f4.shape
+        if blk is not None:
+            h, w = blk.bh, blk.bw
+        if vel is None:
+            if c != 3:
+                raise ValueError(f"advect3d_kernel: vel=None (self-advect) "
+                                 f"needs the [3, D, H, W] velocity as field, "
+                                 f"got {tuple(field.shape)}")
+            if blk is None:
+                vel = field
+        elif tuple(vel.shape) != (3, d, h, w):
+            raise ValueError(f"advect3d_kernel: vel must be [3, {d}, {h}, "
+                             f"{w}]" + (" (the owned block)" if blk is not None
+                                        else ""))
+        if field.device.type == "cpu":
+            return advect3d_reference(field, vel, dt, no_slip, max_disp, blk)
+        if not field.is_cuda:
+            raise ValueError(f"advect3d_kernel: unsupported device "
+                             f"{field.device}")
 
-    # the launch puts planes on grid.z and rows on grid.y, 8 a block
-    if not 1 <= c <= 4 or min(d, h, w) < 2 or d > 65535 or h > 8 * 65535:
-        raise ValueError(f"advect3d_kernel: field shape "
-                         f"{tuple(field.shape)} not supported (C <= 4, "
-                         "2 <= D <= 65535, 2 <= H <= 524280, W >= 2)")
-    # the self-advect in block mode reads the velocity from the field
-    v = f4 if vel is None else vel
-    for name, t in (("field", f4), ("vel", v)):
-        if t.dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"advect3d_kernel: {name} dtype {t.dtype} not "
-                             "supported (float32, bfloat16)")
-    if v.device != field.device:
-        raise ValueError("advect3d_kernel: field and vel on different "
-                         "devices")
-    if not (f4.is_contiguous() and v.is_contiguous()):
-        raise ValueError("advect3d_kernel: inputs must be contiguous")
-    if not 0 <= max_disp < 2 ** 24:
-        raise ValueError(f"advect3d_kernel: max_disp={max_disp} out of "
-                         "range")
+        # the launch puts planes on grid.z and rows on grid.y, 8 a block
+        if not 1 <= c <= 4 or min(d, h, w) < 2 or d > 65535 or h > 8 * 65535:
+            raise ValueError(f"advect3d_kernel: field shape "
+                             f"{tuple(field.shape)} not supported (C <= 4, "
+                             "2 <= D <= 65535, 2 <= H <= 524280, W >= 2)")
+        # the self-advect in block mode reads the velocity from the field
+        v = f4 if vel is None else vel
+        for name, t in (("field", f4), ("vel", v)):
+            if t.dtype not in (torch.float32, torch.bfloat16):
+                raise ValueError(f"advect3d_kernel: {name} dtype {t.dtype} "
+                                 "not supported (float32, bfloat16)")
+        if v.device != field.device:
+            raise ValueError("advect3d_kernel: field and vel on different "
+                             "devices")
+        if not (f4.is_contiguous() and v.is_contiguous()):
+            raise ValueError("advect3d_kernel: inputs must be contiguous")
+        if not 0 <= max_disp < 2 ** 24:
+            raise ValueError(f"advect3d_kernel: max_disp={max_disp} out of "
+                             "range")
 
-    ox, oy, g, gh, gw = ((0, 0, 0, h, w) if blk is None else
-                         (blk.ox, blk.oy, blk.halo, blk.gh, blk.gw))
-    out = f4.new_empty((c, d, h, w))
-    lib = load()
-    with torch.cuda.device(field.device):
-        lib.call("fluid_advect3d", f4.data_ptr(),
-                 None if vel is None else vel.data_ptr(), out.data_ptr(), c,
-                 d, h, w, int(f4.dtype == torch.bfloat16),
-                 int(v.dtype == torch.bfloat16), float(dt), int(max_disp),
-                 int(no_slip), ox, oy, g, gh, gw, stream_of(field))
-    advect3d_kernel.launches += 1
-    advect3d_kernel.block_launches += blk is not None
-    return out[0] if field.dim() == 3 else out
+        ox, oy, g, gh, gw = ((0, 0, 0, h, w) if blk is None else
+                             (blk.ox, blk.oy, blk.halo, blk.gh, blk.gw))
+        out = f4.new_empty((c, d, h, w))
+        lib = load()
+        with torch.cuda.device(field.device):
+            lib.call("fluid_advect3d", f4.data_ptr(),
+                     None if vel is None else vel.data_ptr(), out.data_ptr(),
+                     c, d, h, w, int(f4.dtype == torch.bfloat16),
+                     int(v.dtype == torch.bfloat16), float(dt), int(max_disp),
+                     int(no_slip), ox, oy, g, gh, gw, stream_of(field))
+        advect3d_kernel.launches += 1
+        advect3d_kernel.block_launches += blk is not None
+        return out[0] if field.dim() == 3 else out
 
 
 advect3d_kernel.launches = 0

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..fd import divergence, subtract_gradient
+from ...spans import span
 from .build import load, stream_of
 
 
@@ -47,41 +48,44 @@ def _inv2dx(dx) -> float:
 def divergence3d(vel: torch.Tensor, dx: float = 1.0) -> torch.Tensor:
     """Reflected-ghost divergence of a ``[3, D, H, W]`` float32 velocity:
     ``[D, H, W]``."""
-    if vel.device.type == "cpu":
-        return divergence3d_reference(vel, dx)
-    if not vel.is_cuda:
-        raise ValueError(f"divergence3d: unsupported device {vel.device}")
-    d, h, w = _check_vel("divergence3d", vel)
-    out = torch.empty((d, h, w), dtype=torch.float32, device=vel.device)
-    lib = load()
-    with torch.cuda.device(vel.device):
-        lib.call("fluid_divergence3d", vel.data_ptr(), out.data_ptr(), d, h,
-                 w, _inv2dx(dx), stream_of(vel))
-    divergence3d.launches += 1
-    return out
+    with span("fluid.k8.fd3d"):
+        if vel.device.type == "cpu":
+            return divergence3d_reference(vel, dx)
+        if not vel.is_cuda:
+            raise ValueError(f"divergence3d: unsupported device {vel.device}")
+        d, h, w = _check_vel("divergence3d", vel)
+        out = torch.empty((d, h, w), dtype=torch.float32, device=vel.device)
+        lib = load()
+        with torch.cuda.device(vel.device):
+            lib.call("fluid_divergence3d", vel.data_ptr(), out.data_ptr(), d,
+                     h, w, _inv2dx(dx), stream_of(vel))
+        divergence3d.launches += 1
+        return out
 
 
 def subtract_gradient3d(vel: torch.Tensor, p: torch.Tensor,
                         dx: float = 1.0) -> torch.Tensor:
     """``vel - grad(p)`` with Neumann walls, into a fresh tensor."""
-    if vel.device.type == "cpu":
-        return subtract_gradient3d_reference(vel, p, dx)
-    if not vel.is_cuda:
-        raise ValueError(f"subtract_gradient3d: unsupported device "
-                         f"{vel.device}")
-    d, h, w = _check_vel("subtract_gradient3d", vel)
-    if p.shape != (d, h, w) or p.dtype != torch.float32:
-        raise ValueError("subtract_gradient3d: p must be float32 [D, H, W]")
-    if p.device != vel.device or not p.is_contiguous():
-        raise ValueError("subtract_gradient3d: p must be contiguous, on "
-                         "vel's device")
-    out = torch.empty_like(vel)
-    lib = load()
-    with torch.cuda.device(vel.device):
-        lib.call("fluid_subtract_gradient3d", vel.data_ptr(), p.data_ptr(),
-                 out.data_ptr(), d, h, w, _inv2dx(dx), stream_of(vel))
-    subtract_gradient3d.launches += 1
-    return out
+    with span("fluid.k8.fd3d"):
+        if vel.device.type == "cpu":
+            return subtract_gradient3d_reference(vel, p, dx)
+        if not vel.is_cuda:
+            raise ValueError(f"subtract_gradient3d: unsupported device "
+                             f"{vel.device}")
+        d, h, w = _check_vel("subtract_gradient3d", vel)
+        if p.shape != (d, h, w) or p.dtype != torch.float32:
+            raise ValueError("subtract_gradient3d: p must be float32 "
+                             "[D, H, W]")
+        if p.device != vel.device or not p.is_contiguous():
+            raise ValueError("subtract_gradient3d: p must be contiguous, on "
+                             "vel's device")
+        out = torch.empty_like(vel)
+        lib = load()
+        with torch.cuda.device(vel.device):
+            lib.call("fluid_subtract_gradient3d", vel.data_ptr(), p.data_ptr(),
+                     out.data_ptr(), d, h, w, _inv2dx(dx), stream_of(vel))
+        subtract_gradient3d.launches += 1
+        return out
 
 
 divergence3d.launches = 0

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..poisson import _shift_zero, neg_inv_of, sor_solve
+from ...spans import span
 from .build import load, stream_of
 from .modes import chunk_geometry
 
@@ -203,25 +204,26 @@ def sor3d_solve(d: torch.Tensor, dx: float = 1.0, iters: int = 10,
     sweeps from zero, for a ``[D, H, W]`` float32 ``d``.  ``chunk`` is the
     TPU kernel's sweeps per launch: validated, and without effect here (the
     kernel picks its own pass depth, module docstring)."""
-    if chunk < 1:
-        raise ValueError(f"chunk={chunk} must be >= 1")
-    need = 2 * min(chunk, iters)
-    if need > _LANE:
-        raise ValueError(
-            f"chunk={chunk} needs a {need}-lane column halo > the fixed "
-            f"{_LANE}-lane panel; use chunk <= {_LANE // 2}")
-    if d.device.type == "cpu":
-        return sor3d_reference(d, dx, iters, omega)
-    if not d.is_cuda:
-        raise ValueError(f"sor3d_solve: unsupported device {d.device}")
-    if d.dim() != 3:
-        raise ValueError("sor3d_solve: d must be float32 [D, H, W]")
-    if iters < 0:
-        raise ValueError(f"sor3d_solve: iters={iters} must be >= 0")
-    p = _passes("sor3d_solve", d, None, dx, 2 * iters, omega, (0, 0, 0),
-                tuple(d.shape))
-    sor3d_solve.launches += 1
-    return p
+    with span("fluid.k9.sor3d"):
+        if chunk < 1:
+            raise ValueError(f"chunk={chunk} must be >= 1")
+        need = 2 * min(chunk, iters)
+        if need > _LANE:
+            raise ValueError(
+                f"chunk={chunk} needs a {need}-lane column halo > the fixed "
+                f"{_LANE}-lane panel; use chunk <= {_LANE // 2}")
+        if d.device.type == "cpu":
+            return sor3d_reference(d, dx, iters, omega)
+        if not d.is_cuda:
+            raise ValueError(f"sor3d_solve: unsupported device {d.device}")
+        if d.dim() != 3:
+            raise ValueError("sor3d_solve: d must be float32 [D, H, W]")
+        if iters < 0:
+            raise ValueError(f"sor3d_solve: iters={iters} must be >= 0")
+        p = _passes("sor3d_solve", d, None, dx, 2 * iters, omega, (0, 0, 0),
+                    tuple(d.shape))
+        sor3d_solve.launches += 1
+        return p
 
 
 sor3d_solve.launches = 0

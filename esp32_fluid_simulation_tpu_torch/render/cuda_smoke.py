@@ -25,6 +25,7 @@ import torch
 
 from .smoke import heat_colormap
 from .upscale import pack_rgb565
+from ..spans import span
 from ..ops.cuda.build import load, stream_of
 
 # Launch geometry: pixel groups and depth segments a block, the fastest
@@ -79,36 +80,38 @@ def render_smoke_mip_kernel(density: torch.Tensor, bswap: bool = True,
                             vmax: float = 1.0) -> torch.Tensor:
     """``[D, H, W]`` float32/bfloat16 density -> uint16 ``[H, W]`` RGB565
     maximum-intensity projection along axis 0."""
-    if density.device.type == "cpu":
-        return render_smoke_mip_reference(density, bswap, vmax)
-    if not density.is_cuda:
-        raise ValueError(f"render_smoke_mip_kernel: unsupported device "
-                         f"{density.device}")
-    if density.dim() != 3:
-        raise ValueError("render_smoke_mip_kernel: density must be "
-                         "[D, H, W]")
-    if density.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"render_smoke_mip_kernel: dtype {density.dtype} "
-                         "not supported (float32, bfloat16)")
-    if not density.is_contiguous():
-        raise ValueError("render_smoke_mip_kernel: density must be "
-                         "contiguous")
-    d, h, w = density.shape
-    plan = mip_plan(density)
-    # the grid is one-dimensional, at most 2^31 - 1 blocks
-    if min(d, h, w) < 1 or max(d, h, w) > _INT_MAX or plan.blocks > _INT_MAX:
-        raise ValueError(f"render_smoke_mip_kernel: shape "
-                         f"{tuple(density.shape)} not supported")
-    out = torch.empty((h, w), dtype=torch.uint16, device=density.device)
-    lib = load()
-    with torch.cuda.device(density.device):
-        lib.call("fluid_smoke_mip", density.data_ptr(), out.data_ptr(), d, h,
-                 w, int(density.dtype == torch.bfloat16), plan.vec,
-                 plan.seg_len, plan.threads_x, plan.segments,
-                 float(np.float32(1.0 / vmax)), int(bswap),
-                 stream_of(density))
-    render_smoke_mip_kernel.launches += 1
-    return out
+    with span("fluid.k10.mip"):
+        if density.device.type == "cpu":
+            return render_smoke_mip_reference(density, bswap, vmax)
+        if not density.is_cuda:
+            raise ValueError(f"render_smoke_mip_kernel: unsupported device "
+                             f"{density.device}")
+        if density.dim() != 3:
+            raise ValueError("render_smoke_mip_kernel: density must be "
+                             "[D, H, W]")
+        if density.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"render_smoke_mip_kernel: dtype {density.dtype} "
+                             "not supported (float32, bfloat16)")
+        if not density.is_contiguous():
+            raise ValueError("render_smoke_mip_kernel: density must be "
+                             "contiguous")
+        d, h, w = density.shape
+        plan = mip_plan(density)
+        # the grid is one-dimensional, at most 2^31 - 1 blocks
+        if (min(d, h, w) < 1 or max(d, h, w) > _INT_MAX
+                or plan.blocks > _INT_MAX):
+            raise ValueError(f"render_smoke_mip_kernel: shape "
+                             f"{tuple(density.shape)} not supported")
+        out = torch.empty((h, w), dtype=torch.uint16, device=density.device)
+        lib = load()
+        with torch.cuda.device(density.device):
+            lib.call("fluid_smoke_mip", density.data_ptr(), out.data_ptr(), d,
+                     h, w, int(density.dtype == torch.bfloat16), plan.vec,
+                     plan.seg_len, plan.threads_x, plan.segments,
+                     float(np.float32(1.0 / vmax)), int(bswap),
+                     stream_of(density))
+        render_smoke_mip_kernel.launches += 1
+        return out
 
 
 render_smoke_mip_kernel.launches = 0

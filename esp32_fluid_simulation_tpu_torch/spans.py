@@ -22,6 +22,12 @@ The spans, which the benchmark's breakdown of the card's idle time names
 ``fluid.k1.project``   ``ops.cuda.project.project_fused``
 ``fluid.k2.advect``    ``ops.cuda.advect.advect_kernel``
 ``fluid.k3.render``    ``render.cuda_upscale.render_rgb565_kernel``
+``fluid.smoke_step``   ``models.smoke3d.smoke_step``
+``fluid.k7.advect3d``  ``ops.cuda.advect3d.advect3d_kernel``
+``fluid.k8.fd3d``      ``ops.cuda.fd3d.divergence3d`` and
+                       ``subtract_gradient3d``
+``fluid.k9.sor3d``     ``ops.cuda.sor3d.sor3d_solve``
+``fluid.k10.mip``      ``render.cuda_smoke.render_smoke_mip_kernel``
 =====================  =============================================
 """
 
