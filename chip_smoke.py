@@ -1694,34 +1694,46 @@ def sor_design(dev, card):
     want3 = sor3d.sor3d_reference(d3, 1.0, it3, om3)
     want_c = sor3d.sor3d_chunk_reference(blk, p0, 1.0, sweeps, om3,
                                          (0, -g, -g), SMOKE)
-    passes = len(sor3d.pass_plan(2 * it3)[1])
+    sms = sor3d.sm_count(d3.device.index)
+    plan3 = sor3d.pass_plan(SMOKE, 2 * it3, sms)
+    plan_c = sor3d.pass_plan(tuple(blk.shape), 2 * sweeps, sms)
     for label, fn, want in (
-            (f"K9 sor3d_solve (iters {it3}, passes "
-             f"{sor3d.pass_plan(2 * it3)[1]})",
-             lambda: sor3d.sor3d_solve(d3, 1.0, it3, om3), passes),
-            (f"K11 K9 sor3d_chunk ({sweeps} sweeps)",
+            (f"K9 sor3d_solve (iters {it3}, plan {plan3})",
+             lambda: sor3d.sor3d_solve(d3, 1.0, it3, om3), len(plan3[2])),
+            (f"K11 K9 sor3d_chunk ({sweeps} sweeps, plan {plan_c})",
              lambda: sor3d.sor3d_chunk(blk, p0, 1.0, sweeps, om3, **chunk),
-             len(sor3d.pass_plan(2 * sweeps)[1])),
+             len(plan_c[2])),
             ("K11 K9 sor3d_chunk (4 sweeps)",
              lambda: sor3d.sor3d_chunk(blk, p0, 1.0, 4, om3, **chunk),
-             len(sor3d.pass_plan(8)[1]))):
+             len(sor3d.pass_plan(tuple(blk.shape), 8, sms)[2]))):
         launches_per_call(label, fn, want)
-    if len(sor3d.pass_plan(2 * sweeps)[1]) != 1:
+    if len(plan_c[2]) != 1:
         raise AssertionError("phase 5: the sharded chain's chunk is no "
                              "longer one pass")
-    saved = (sor3d.SOR3D_TILES, sor3d.SOR3D_MAX_DEPTH, sor3d.SOR3D_BLOCKS)
+    saved = sor3d.pass_plan
     try:
-        for tile, deepest, blocks in (
-                (None, 6, 128), ((32, 64, 16), 5, 128),
-                ((32, 64, 14), 4, 128), ((32, 64, 12), 5, 128),
-                ((28, 47, 16), 6, 128), ((28, 47, 10), 3, 128),
-                ((24, 64, 16), 6, 132), ((32, 32, 8), 6, 256),
-                ((16, 32, 8), 6, 264), ((32, 64, 14), 5, 1)):
-            sor3d.SOR3D_TILES = saved[0] if tile is None else (tile,)
-            sor3d.SOR3D_MAX_DEPTH, sor3d.SOR3D_BLOCKS = deepest, blocks
-            label = ("the default tiles" if tile is None else
-                     f"tile {tile[0]}x{tile[1]}, 32x{tile[2]} threads")
-            label += f", depth <= {deepest}, {blocks} blocks wanted"
+        # the plan's own choice first, then other tiles, chunks of planes
+        # and depths
+        for tile, zc, deepest in (
+                (None, None, 6), ((32, 32), 128, 6), ((20, 52), 64, 6),
+                ((20, 52), 128, 4), ((24, 44), 128, 6), ((16, 32), 256, 6),
+                ((20, 48), 32, 6), ((28, 32), 52, 6), ((16, 48), 64, 6)):
+            if tile is None:
+                sor3d.pass_plan = saved
+                label = "the plan's tiles"
+            else:
+                def forced(shape, levels, sms, t=tile, z=zc, dp=deepest):
+                    """The tile, planes and depths asked for, where a
+                    block of them fits; else the plan's own."""
+                    depths = sor3d.pass_depths(levels, dp)
+                    if (sor3d.pass_threads(t, max(depths))
+                            > sor3d.SOR3D_MAX_THREADS):
+                        return saved(shape, levels, sms)
+                    return t, z, depths
+
+                sor3d.pass_plan = forced
+                label = f"tile {tile[0]}x{tile[1]}, {zc} planes, depth <= " \
+                        f"{deepest}"
 
             def solve():
                 return sor3d.sor3d_solve(d3, 1.0, it3, om3)
@@ -1733,13 +1745,14 @@ def sor_design(dev, card):
                     and torch.equal(chunked(), want_c)):
                 raise AssertionError(f"phase 5: K9 at {label} differs from "
                                      "its plain version")
-            res[f"K9 at 256^3 ({sor3d.pass_plan(2 * it3)}), {label}"] = \
+            res[f"K9 at 256^3 "
+                f"({sor3d.pass_plan(SMOKE, 2 * it3, sms)}), {label}"] = \
                 cuda_ms(solve, 10, warmup=2)
             res[f"K9 chunk x4 (one shard's block x4, "
-                f"{sor3d.pass_plan(2 * sweeps)}), {label}"] = 4 * cuda_ms(
-                    chunked, 10, warmup=2)
+                f"{sor3d.pass_plan(tuple(blk.shape), 2 * sweeps, sms)}), "
+                f"{label}"] = 4 * cuda_ms(chunked, 10, warmup=2)
     finally:
-        sor3d.SOR3D_TILES, sor3d.SOR3D_MAX_DEPTH, sor3d.SOR3D_BLOCKS = saved
+        sor3d.pass_plan = saved
     print(f"phase 5 K4 and K9 design on {card} (CUDA events, ms per call):")
     for k, v in res.items():
         print(f"  {k}: {v:.4f} ms")

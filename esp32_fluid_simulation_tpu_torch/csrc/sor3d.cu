@@ -1,55 +1,67 @@
 // 3D red-black SOR pressure solve: passes of S fused half-sweeps, each one
-// launch that marches z through shared memory.
+// launch that marches z with a column of cells in each thread's registers.
 //
 // Replaces the TPU kernel esp32_fluid_simulation_tpu/ops/pallas/sor3d.py
 // (sor3d_packed_pallas / _sor3d_chunk_padded).  That kernel DMAs a haloed
 // (tile_d + 2pz, tile_h + 2pr, tile_w + 2pc) window into VMEM and runs
-// `chunk` sweeps there.  A 3D halo of 2*chunk cells a side does not fit in
-// a Hopper block's 227 KB of shared memory at a tile worth having, so this
-// kernel blocks time in 2.5D instead:
+// `chunk` sweeps there.  A 3D halo of 2*chunk cells a side does not fit on
+// a Hopper SM at a tile worth having, so this kernel blocks time in 2.5D:
 //
 // * A block owns a TH x TW tile of the array's (i, j) cells and a chunk of
-//   ZC planes, and holds the tile +- S cells (its window) one z-plane at a
-//   time: S is the pass's depth, the number of half-sweeps it fuses.
-// * It marches z.  At step t, level k (its k-th half-sweep, k = 1..S)
-//   updates plane z = zlo + 2 + t - k, so level k runs one plane behind
-//   level k - 1, and the levels of a step run in order with a barrier
-//   between them.  Level k at z then reads level k - 1's values at z - 1,
-//   z and z + 1, and its writes come after every read of the values they
-//   replace (level k - 1 at z + 1 ran earlier in the same step).  One
-//   in-place ring of S + 3 planes holds p: the S + 2 planes the levels read
-//   and the plane the copy engine fills for the next step (cp.async, 4
-//   bytes a cell, 0 outside).  A ring of the same size holds d.
-// * The trapezoid: level k updates only the window's rows and columns
-//   [k, rows - k) x [k, cols - k) and the planes [z0 - S + k, z1 + S - k)
-//   (z0, z1: the block's chunk), the cells whose value still reaches the
-//   block's tile and chunk after the pass; the rest of the window holds
-//   the pass's input and is read, never written.  After S levels the tile
-//   and chunk are exact, and they alone are written out.
+//   ZC planes, and holds the tile +- S rows and +- A columns (its window;
+//   A is S rounded up to a multiple of 4, so a window row starts on a
+//   16-byte boundary).  S is the pass's depth, the half-sweeps it fuses.
+// * Each thread owns a quad: four neighbouring cells of one window row, on
+//   every plane.  It marches z with the quad's p and dx * d of the last R
+//   planes in registers (R >= S + 2, the march unrolled R steps so every
+//   ring slot is a fixed register).  The copy engine brings each plane's
+//   quad of p and d (16 bytes each, cp.async) into a staging slot of
+//   shared memory kLead steps before it enters the registers.
+// * At step t, level k (its k-th half-sweep, k = 1..S) updates plane z =
+//   zlo + 2 + t - k, one plane behind level k - 1, and every level of a
+//   step updates the quad's two cells of one colour (a level's colour and
+//   its plane change together).  Its z-neighbours, the quad's other two
+//   cells and d are the thread's own registers.  Only the in-plane
+//   neighbours in other quads (the rows above and below, the cell left or
+//   right) come through shared memory, and those are the other colour,
+//   which level k - 1 finished in step t - 1.  So each level publishes its
+//   two cells for the next level to read in the next step (a buffer a
+//   level, two by step parity), and a step needs one barrier, not one a
+//   level.
+// * The trapezoid: level k's updates reach the tile only from the window's
+//   rows and columns within S - k of it and the planes [z0 - S + k, z1 + S
+//   - k) (z0, z1: the block's chunk).  A cell's last level confines the
+//   rows and columns; in z every level updates every plane of the array in
+//   the domain, since a wrong value outside the trapezoid never reaches a
+//   cell inside it.  The last level's plane is then exact on the tile, and
+//   the thread stores its quad with one 16-byte store.
 // * Passes chain through device memory: a pass reads the previous pass's
 //   p and writes another buffer (the wrapper ping-pongs), since its window
 //   reads the neighbour tiles' cells.  The first pass of a solve from zero
-//   reads no p (the copy fills 0).
+//   reads no p.
 //
-// Each plane is stored split by the in-plane colour (gi + gj) & 1, as
-// RbWindow does in csrc/rb2d.cuh: half q holds window row a's cells of
-// in-plane colour q at a * hp + (b >> 1).  The levels of a step all update
-// one half (a level's colour and its plane change together), a thread two
-// neighbouring words of it at once (8-byte shared-memory accesses): their
-// in-plane neighbours lie in the other half, at consecutive words, and
-// their z-neighbours in the same half of the planes z - 1 and z + 1.  Each
-// thread works out once which window cells it loads and stores and which
-// pairs it updates, with their flags and levels, and keeps them in
-// registers for the whole march.
+// Threads are laid out by row parity (the even window rows first, padded
+// to whole warps), so the rows above and below a warp's quads are
+// contiguous slots.  Quads that straddle the array's or the domain's edge,
+// or rows whose start is not 16-byte aligned (W % 4 != 0), load and store
+// cell by cell.
 //
 // Bound on the H100: device-memory bytes of the solve (d read once and p
-// written once: 8 B per cell, 134 MB at 256^3, 0.040 ms at 3.35 TB/s).  A
-// pass reads d and p (or only d) and writes p once, plus the windows'
-// rings of neighbour cells (mostly from L2).  What holds it back is the
-// half-sweeps in shared memory: about 34 bytes of shared-memory traffic
-// and 30 instructions a cell update, on a trapezoid 1.5-1.8 times the tile
-// and chunk, with a barrier between levels.  The launch per half-sweep
-// that this replaces streamed p and d through device memory 20 times.
+// written once: 8 B per cell, 134 MB at 256^3, 0.040 ms at 3.35 TB/s).
+// The design before this one (every plane of the window in shared-memory
+// rings of p and d, 4-byte copies waited for at the end of each step, a
+// barrier a level; 1.075 ms at 256^3) lost a third of its time to the
+// copies' latency and most of the rest to issuing the levels: 34 bytes of
+// shared-memory traffic a cell update, each with its address arithmetic.
+// Its barriers cost 6%.  Here a cell update reads 10 bytes of shared
+// memory and writes 4, and what bounds the pass is issue: ~35 instructions
+// a level for two cells, 20 of them the update's arithmetic, on a window
+// ~2x the tile, 16 warps a block and one block an SM (the registers: 2R
+// planes of 4 floats a thread).  Timed in phases (clock64), a warp spends
+// ~60% of a step in the levels, 15% entering and fetching a plane, 10%
+// storing, 2% at the barrier and 1% waiting for copies.  On a plain step,
+// most of them, the levels skip their checks of the array's planes and
+// the z-walls.
 //
 // Arithmetic follows ops/poisson.py: neighbours summed
 // ((((z- + z+) + i-) + i+) + j-) + j+ with zero ghosts, the -1/a_ii LUT of
@@ -73,6 +85,8 @@
 
 #include <cuda_runtime.h>
 
+#include <utility>
+
 namespace {
 
 // -1/a for a = 1..6, double divisions rounded to float (poisson.cpp:67)
@@ -94,33 +108,103 @@ struct Geom3 {
 
 // One pass: d, the input p (nullptr: 0) and the output p; the first
 // half-sweep's global index h0 (its colour is h0 & 1); the tile (TH x TW
-// cells, ZC planes).
+// cells, ZC planes); vec: rows start 16-byte aligned in all three arrays.
 struct Pass3 {
   const float* d;
   const float* p_in;
   float* p_out;
   Geom3 g;
-  int h0, TH, TW, ZC;
+  int h0, TH, TW, ZC, vec;
   float dx, omega, one_m_w;
 };
 
-// A window row's, column's or plane's flags: bits 0-1 its count of global
-// walls, kOutside if it lies outside the array or the domain.
+// A row's, column's or plane's flags: bits 0-1 its count of global walls,
+// kOutside if it lies outside the array or the domain.
 constexpr int kOutside = 4;
 
-// The deepest pass the kernel is built for (its depth is a template
-// argument, so the levels of a step unroll).
+// The deepest pass the kernel is built for, and a block's most threads (a
+// thread's registers: 128 at most, so a block of them fits an SM).
 constexpr int kMaxDepth = 6;
+constexpr int kMaxThreads = 512;
+// Planes fetched ahead of the one that enters the registers, and the
+// staging slots they land in.
+constexpr int kLead = 3;
+constexpr int kStage = kLead + 1;
 
 __device__ __forceinline__ int axis_flags(int x, int n, int gx, int gn) {
   if (x < 0 || x >= n || gx < 0 || gx >= gn) return kOutside;
   return (gx == 0) + (gx == gn - 1);
 }
 
-// 4 bytes from src to the shared address dst through the copy engine, or
-// 0 when !valid (src is then not read).
-__device__ __forceinline__ void copy_async(unsigned dst, const float* src,
-                                           bool valid) {
+// The window's column margin: S rounded up to a multiple of 4.
+__host__ __device__ constexpr int margin(int S) { return (S + 3) / 4 * 4; }
+
+// Quads in a window row of a tile tw columns wide.
+__host__ __device__ inline int row_quads(int tw, int S) {
+  return (tw + 2 * margin(S) + 3) / 4;
+}
+
+// Threads of the even window rows, padded to whole warps.
+__host__ __device__ inline int even_threads(int th, int tw, int S) {
+  return ((th + 2 * S + 1) / 2 * row_quads(tw, S) + 31) / 32 * 32;
+}
+
+// A block's threads for a th x tw tile at depth S.
+__host__ __device__ inline int pass_threads(int th, int tw, int S) {
+  return (even_threads(th, tw, S) + (th + 2 * S) / 2 * row_quads(tw, S) +
+          31) / 32 * 32;
+}
+
+// Shared-memory bytes of a pass: two buffers (by step parity) of every
+// level but the last, a float2 a thread, and the staging slots, a float4
+// of d and one of p a thread.
+__host__ __device__ constexpr int pass_bytes(int S) {
+  return 2 * S * kMaxThreads * 8 + kStage * 2 * kMaxThreads * 16;
+}
+
+// A thread's quad and what it needs of it for the whole march.  The quad's
+// cells are kept in the order (u0, u1, v0, v1): u the cells e and e + 2,
+// which even steps update, v the cells 1 - e and 3 - e.
+struct Quad {
+  bool e;          // the quad's cell 1 is one of the even steps' cells
+  int load;        // 0: nothing (0), 1: one 16-byte load, 2: cell by cell
+  int lmask;       // cells inside the array and the domain (cell order)
+  int store;       // 0: nothing, 1: one 16-byte store, 2: cell by cell
+  int smask;       // cells in the tile (cell order)
+  int goff;        // the array offset of its cell 0 in a plane
+  int last[4];     // the last level that updates each cell (0: none)
+  float ni[4];     // -1/a_ii of each cell on a plane without a z-wall
+  float niw[4];    // and on a plane with one
+  int pub, up, dn;  // float2 slots: its own and the rows above and below
+  int edge[2];     // the float of a neighbour quad's pair that even and odd
+                   // steps read
+};
+// (Every array of a Quad is indexed by constants only, so it stays in
+// registers.)
+
+// The block's extent in z and its march: steps t = -2 .. t_last; level k
+// updates plane zlo + 2 + t - k where it lies in [zf, zc), the array's
+// planes in the domain.  Levels also update the planes of the window
+// outside the trapezoid: a cell there never reaches one inside it, whose
+// dependences shrink by a plane a level as the trapezoid does.
+struct Chunk {
+  int z0, z1, zlo, zhi, zf, zc, t_last, zstride;
+};
+
+__device__ __forceinline__ void barrier(int n) {
+  asm volatile("bar.sync 1, %0;" ::"r"(n) : "memory");
+}
+
+// bytes (16 or 4) from src to the shared address dst through the copy
+// engine, or zeros when !valid (src is then not read)
+__device__ __forceinline__ void copy16(unsigned dst, const float* src,
+                                       bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void copy4(unsigned dst, const float* src,
+                                      bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 4 : 0));
 }
@@ -129,301 +213,306 @@ __device__ __forceinline__ void copy_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__device__ __forceinline__ void copy_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// The half-plane pitch hp (at least half a window row, even) and the words
-// of one half of a window plane (rows x hp), for a TH x TW tile at depth S.
-__host__ __device__ __forceinline__ int half_pitch(int TW, int S) {
-  return (TW + 2 * S + 3) / 4 * 2;  // even: pairs of words never straddle rows
+// Plane x's quad of d and p into the thread's staging slot at the shared
+// addresses sd, sp (0 outside the array, the domain or the window; p 0
+// without an input p); one commit group a call.
+__device__ __forceinline__ void fetch(const Pass3& a, const Quad& q,
+                                      const Chunk& c, int x, unsigned sd,
+                                      unsigned sp) {
+  // the planes [zf, zhi) of the array in the domain, zhi <= D
+  const bool in = x >= c.zf && x < c.zhi;
+  const int o = in ? x * c.zstride + q.goff : 0;
+  const float* pz = a.p_in ? a.p_in : a.d;
+  if (q.load == 2) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool v = in && ((q.lmask >> i) & 1);
+      copy4(sd + 4 * i, a.d + (v ? o + i : 0), v);
+      copy4(sp + 4 * i, pz + (v ? o + i : 0), v && a.p_in);
+    }
+  } else {
+    const bool v = in && q.load == 1;
+    copy16(sd, a.d + o, v);
+    copy16(sp, pz + o, v && a.p_in);
+  }
+  copy_commit();
 }
 
-__host__ __device__ __forceinline__ int half_words(int TH, int TW, int S) {
-  return (TH + 2 * S) * half_pitch(TW, S);
+// (u0, u1, v0, v1) of the cells x0..x3
+__device__ __forceinline__ void to_uv(bool e, float4 x, float (&r)[4]) {
+  r[0] = e ? x.y : x.x;
+  r[1] = e ? x.w : x.z;
+  r[2] = e ? x.x : x.y;
+  r[3] = e ? x.z : x.w;
 }
 
-// Shared-memory bytes of a pass: rings of S + 3 planes of p and of d.
-__host__ __device__ __forceinline__ int pass_bytes(int TH, int TW, int S) {
-  return 4 * 2 * (S + 3) * 2 * half_words(TH, TW, S);
+// The cells of the quads above, below and beside that level K reads in
+// step U: level K - 1's pairs of the previous step.
+struct Around {
+  float2 up, dn;
+  float edge;
+};
+
+template <int U, int K>
+__device__ __forceinline__ Around around(const Quad& q, const float2* buf) {
+  const float2* in = buf + (2 * (K - 1) + ((U + 1) & 1)) * kMaxThreads;
+  return {in[q.up], in[q.dn],
+          reinterpret_cast<const float*>(in)[q.edge[U & 1]]};
+}
+
+// Level K of step t (static position U in its unrolled block of R steps):
+// the quad's two cells of the step's colour on plane zb - K, zb = zlo + 2
+// + t, from the neighbours' cells n.  It runs without branches: off the
+// array's planes in the domain it computes and keeps nothing.  On a plain
+// step (EDGE false) every level's plane is one of those and none a
+// z-wall, and it checks neither.  Level K + 1's neighbours are read first,
+// so their latency overlaps this level's arithmetic.
+template <int S, int R, int U, int K, bool EDGE>
+__device__ __forceinline__ void level(const Pass3& a, const Quad& q,
+                                      const Chunk& c, int zb,
+                                      float (&pr)[R][4], float (&dr)[R][4],
+                                      float2* buf, const Around n) {
+  // (zb: the step's plane of level 0; the plane of level K is zb - K)
+  Around next;
+  if constexpr (K < S) next = around<U, K + 1>(q, buf);
+  constexpr int P = U & 1;            // even steps update u, odd ones v
+  constexpr int a0 = 2 * P, a1 = a0 + 1, b0 = 2 - a0, b1 = b0 + 1;
+  constexpr int sl = (U + 2 - K + R) % R;
+  constexpr int sb = (U + 1 - K + R) % R;
+  constexpr int sa = (U + 3 - K + R) % R;
+  const Geom3& g = a.g;
+  const int z = zb - K;
+  const bool on = !EDGE || (z >= c.zf && z < c.zc);
+  // the quad's left and right neighbours of its cells a0 and a1
+  const bool f = P ? !q.e : q.e;
+  const float jm0 = f ? pr[sl][b0] : n.edge;
+  const float jp0 = f ? pr[sl][b1] : pr[sl][b0];
+  const float jp1 = f ? n.edge : pr[sl][b1];
+  const float nb0 =
+      ((((pr[sb][a0] + pr[sa][a0]) + n.up.x) + n.dn.x) + jm0) + jp0;
+  const float nb1 =
+      ((((pr[sb][a1] + pr[sa][a1]) + n.up.y) + n.dn.y) + jp0) + jp1;
+  const bool zw = EDGE && (g.oz + z == 0 || g.oz + z == g.GD - 1);
+  const float n0 = zw ? q.niw[a0] : q.ni[a0];
+  const float n1 = zw ? q.niw[a1] : q.ni[a1];
+  const float v0 =
+      a.one_m_w * pr[sl][a0] + a.omega * (n0 * (dr[sl][a0] - nb0));
+  const float v1 =
+      a.one_m_w * pr[sl][a1] + a.omega * (n1 * (dr[sl][a1] - nb1));
+  // a cell this level leaves keeps its value
+  if (on && K <= q.last[a0]) pr[sl][a0] = v0;
+  if (on && K <= q.last[a1]) pr[sl][a1] = v1;
+  if constexpr (K < S) {
+    buf[(2 * K + (U & 1)) * kMaxThreads + q.pub] =
+        make_float2(pr[sl][a0], pr[sl][a1]);
+    level<S, R, U, K + 1, EDGE>(a, q, c, zb, pr, dr, buf, next);
+  }
+}
+
+// plane z's quad u (in the order u0, u1, v0, v1) into p_out where it lies
+// in the block's chunk and the quad in its tile
+__device__ __forceinline__ void store(const Pass3& a, const Quad& q,
+                                      const Chunk& c, int z,
+                                      const float (&u)[4]) {
+  if (z < c.z0 || z >= c.z1 || !q.store) return;
+  const float x[4] = {q.e ? u[2] : u[0], q.e ? u[0] : u[2],
+                      q.e ? u[3] : u[1], q.e ? u[1] : u[3]};
+  float* out = a.p_out + (z * c.zstride + q.goff);  // < 2^31 cells
+  if (q.store == 1) {
+    *reinterpret_cast<float4*>(out) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if ((q.smask >> i) & 1) out[i] = x[i];
+  }
+}
+
+// Step t: plane zlo + t + 2 enters the registers from its staging slot and
+// its cells of the step's colour are published (the pass's input, for
+// level 1 in the next step), plane zlo + t + 2 + kLead is fetched, the
+// levels run, and the plane the last level finished is stored.
+template <int S, int R, int U>
+__device__ __forceinline__ void step(const Pass3& a, const Quad& q,
+                                     const Chunk& c, int tb,
+                                     float (&pr)[R][4], float (&dr)[R][4],
+                                     const float4* stage, float2* buf) {
+  const int t = tb + U;
+  if (t < -2 || t > c.t_last) return;  // uniform over the block
+  constexpr int P = U & 1;
+  constexpr int sn = (U + 2) % R;
+  constexpr int in_slot = (U + 2) % kStage;
+  constexpr int out_slot = (U + 2 + kLead) % kStage;
+  const int tid = threadIdx.x;
+  copy_wait<kLead - 1>();
+  to_uv(q.e, stage[(2 * in_slot) * kMaxThreads + tid], pr[sn]);
+  float dv[4];
+  to_uv(q.e, stage[(2 * in_slot + 1) * kMaxThreads + tid], dv);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) dr[sn][i] = a.dx * dv[i];
+  if constexpr (S > 0)
+    buf[(U & 1) * kMaxThreads + q.pub] =
+        make_float2(pr[sn][2 * P], pr[sn][2 * P + 1]);
+  const unsigned st = static_cast<unsigned>(__cvta_generic_to_shared(stage));
+  fetch(a, q, c, c.zlo + t + 2 + kLead,
+        st + 16 * ((2 * out_slot + 1) * kMaxThreads + tid),
+        st + 16 * ((2 * out_slot) * kMaxThreads + tid));
+  if constexpr (S > 0) {
+    // a plain step: every level's plane is one of the array's in the
+    // domain, and none a z-wall
+    const int zb = c.zlo + 2 + t;
+    const int w0 = -a.g.oz, w1 = a.g.GD - 1 - a.g.oz;
+    const Around n = around<U, 1>(q, buf);
+    if (zb - S >= c.zf && zb - 1 < c.zc && (zb - S > w0 || zb - 1 < w0) &&
+        (zb - S > w1 || zb - 1 < w1))
+      level<S, R, U, 1, false>(a, q, c, zb, pr, dr, buf, n);
+    else
+      level<S, R, U, 1, true>(a, q, c, zb, pr, dr, buf, n);
+  }
+  store(a, q, c, c.zlo + 2 + t - S, pr[(U + 2 - S + R) % R]);
+  barrier(blockDim.x);
+}
+
+template <int S, int R, int... U>
+__device__ __forceinline__ void steps(const Pass3& a, const Quad& q,
+                                      const Chunk& c, int tb,
+                                      float (&pr)[R][4], float (&dr)[R][4],
+                                      const float4* stage, float2* buf,
+                                      std::integer_sequence<int, U...>) {
+  (step<S, R, U>(a, q, c, tb, pr, dr, stage, buf), ...);
 }
 
 // One pass on the tile (blockIdx.x, blockIdx.y) of a TH x TW tiling of the
-// array's (i, j) and the chunk blockIdx.z of ZC planes.  Every thread
-// takes up to NL cells of the window (which it loads) and of the tile
-// (which it stores) and up to NU pairs of neighbouring half-plane words
-// (which it updates, two cells of a colour at once), the same on every
-// plane, and works out their addresses, flags and levels once.
-template <int S, int NL, int NU>
-__global__ void __launch_bounds__(512, 1) sor3d_pass_kernel(const Pass3 a) {
-  extern __shared__ float smem[];
-  const Geom3 g = a.g;
-  constexpr int P = S + 3;
+// array's (i, j) and the chunk blockIdx.z of ZC planes.  The march runs in
+// blocks of R steps, so that plane zlo + x sits in the fixed register slot
+// x % R and its staging slot x % kStage.
+template <int S>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    sor3d_pass_kernel(const Pass3 a) {
+  extern __shared__ float4 smem[];
+  float2* buf = reinterpret_cast<float2*>(smem);
+  const float4* stage = smem + S * kMaxThreads;
+  const Geom3& g = a.g;
+  constexpr int A = margin(S);
+  constexpr int R = (S + 5) / 4 * 4;  // at least S + 2
+  static_assert(R % kStage == 0, "staging slots must repeat with the ring");
   const int t0 = blockIdx.y * a.TH, u0 = blockIdx.x * a.TW;
   const int th = min(a.TH, g.H - t0), tw = min(a.TW, g.W - u0);
-  const int rows = th + 2 * S, cols = tw + 2 * S;
-  const int z0 = blockIdx.z * a.ZC, z1 = min(z0 + a.ZC, g.D);
-  // the planes in the window: [zlo, zhi), one beyond the array at most
-  const int zlo = max(z0 - S, -1), zhi = min(z1 + S, g.D + 1);
-  const int ai0 = t0 - S, aj0 = u0 - S;  // window cell (0, 0) in the array
-  const int base = (ai0 + g.oi + aj0 + g.oj) & 1;
-  const int hp = half_pitch(a.TW, S);
-  const int half = half_words(a.TH, a.TW, S);
-  const int plane = 2 * half;
-  float* sp = smem;
-  float* sd = sp + P * plane;
-  const long long zstride = (long long)g.H * g.W;
-  // plane z sits in ring slot (z - zlo) % P, kept by the step loop
-  auto wrap = [&](int i) { return i < 0 ? i + P : i >= P ? i - P : i; };
-  auto row_flags = [&](int r) {
-    return axis_flags(ai0 + r, g.H, g.oi + ai0 + r, g.GH);
-  };
-  auto col_flags = [&](int c) {
-    return c < cols ? axis_flags(aj0 + c, g.W, g.oj + aj0 + c, g.GW)
-                    : kOutside;
-  };
-  // a window cell's word in a plane
-  auto word = [&](int r, int c) {
-    return ((base + r + c) & 1) * half + r * hp + (c >> 1);
+  const int rows = th + 2 * S, cols = tw + 2 * S, qw = row_quads(tw, S);
+  const int ai0 = t0 - S, aj0 = u0 - A;
+
+  Chunk c;
+  c.z0 = blockIdx.z * a.ZC;
+  c.z1 = min(c.z0 + a.ZC, g.D);
+  c.zlo = max(c.z0 - S, -1);
+  c.zf = max(0, -g.oz);
+  c.zc = min(g.D, g.GD - g.oz);
+  c.zhi = min(c.z1 + S, c.zc);
+  c.t_last = c.z1 - 3 - c.zlo + S;  // stores plane z1 - 1
+  c.zstride = g.H * g.W;
+
+  // the thread's quad: the even window rows first, then the odd ones, each
+  // row qw quads
+  const int tid = threadIdx.x;
+  const int n_even = (rows + 1) / 2 * qw;
+  const int pad = (n_even + 31) / 32 * 32;
+  const int odd = tid >= pad;
+  const int idx = odd ? tid - pad : tid;
+  const int r = 2 * (idx / qw) + odd, gq = idx % qw;
+  const bool active = idx < (odd ? rows / 2 : (rows + 1) / 2) * qw;
+  auto slot = [&](int rr, int gg) {
+    return ((rr & 1) ? pad : 0) + (rr >> 1) * qw + gg;
   };
 
-  // load[i]: the plane word of a window cell and its offset in an array
-  // plane (-1: outside the array or the domain, loaded as 0); store[i]: a
-  // tile cell's plane word and array offset.  upd_w[j]: the first word w =
-  // r * hp + m of a pair in a half-plane; for either in-plane colour s of
-  // the cells b = 2m + s + 2u (u = 0, 1) there, upd_last[j] holds in byte
-  // 2s + u the last level that updates the cell (0: none; the window's rim
-  // and cells outside are never updated) and upd_f[j] in bits 4s + 2u and
-  // up the cell's count of row and column walls, and in bit 8 (base + r)
-  // & 1.
-  const int tid = threadIdx.y * 32 + threadIdx.x;
-  const int nthreads = 32 * blockDim.y;
-  int load_w[NL], load_g[NL], store_w[NL], store_g[NL];
+  // the cells the levels of step t update: (e' + t + i) even for cell i,
+  // e' the parity of the row's global position, the march's start and the
+  // pass's first half-sweep; e: whether that makes cell 1 an even step's
+  Quad q;
+  q.e = (g.oz + g.oi + g.oj + c.zlo + ai0 + aj0 + r + a.h0 + 1) & 1;
+  q.pub = tid;
+  const bool inner_row = active && r > 0 && r < rows - 1;
+  q.up = inner_row ? slot(r - 1, gq) : tid;
+  q.dn = inner_row ? slot(r + 1, gq) : tid;
+  // a neighbour's pair holds its cells of the other colour in cell order:
+  // the left quad's cell 3 is its pair's second, the right quad's cell 0
+  // its first
+  const int left = 2 * (active && gq > 0 ? tid - 1 : tid) + 1;
+  const int right = 2 * (active && gq < qw - 1 ? tid + 1 : tid);
+  q.edge[0] = q.e ? right : left;
+  q.edge[1] = q.e ? left : right;
+  const int rf = axis_flags(ai0 + r, g.H, g.oi + ai0 + r, g.GH);
+  const int rd = min(r, rows - 1 - r);
+  q.lmask = q.smask = 0;
 #pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    const int e = tid + i * nthreads;
-    load_w[i] = load_g[i] = store_w[i] = store_g[i] = -1;
-    if (e < rows * cols) {
-      const int r = e / cols, c = e % cols;
-      load_w[i] = word(r, c);
-      if (!((row_flags(r) | col_flags(c)) & kOutside))
-        load_g[i] = (ai0 + r) * g.W + aj0 + c;
-    }
-    if (e < th * tw) {
-      const int r = S + e / tw, c = S + e % tw;
-      store_w[i] = word(r, c);
-      store_g[i] = (ai0 + r) * g.W + aj0 + c;
-    }
+  for (int k = 0; k < 4; ++k) {
+    // the cell at place k of (u0, u1, v0, v1)
+    const int i = ((k < 2) == q.e ? 1 : 0) + 2 * (k & 1);
+    const int col = 4 * gq + i;  // window column
+    const int cf = axis_flags(aj0 + col, g.W, g.oj + aj0 + col, g.GW);
+    const bool out = !active || ((rf | cf) & kOutside);
+    const int cw = col - (A - S);  // column in the trapezoid's base
+    q.last[k] = out || cw < 0 || cw >= cols
+                    ? 0
+                    : min(rd, min(cw, cols - 1 - cw));
+    const int walls = (rf & 3) + (cf & 3);
+    q.ni[k] = kNegInv[6 - walls];
+    q.niw[k] = kNegInv[5 - walls];
+    if (!out) q.lmask |= 1 << i;
+    if (active && r >= S && r < S + th && col >= A && col < A + tw)
+      q.smask |= 1 << i;
   }
-  int upd_w[NU], upd_last[NU], upd_f[NU];
-#pragma unroll
-  for (int j = 0; j < NU; ++j) {
-    const int w = 2 * (tid + j * nthreads);
-    upd_w[j] = -1;
-    upd_last[j] = upd_f[j] = 0;
-    if (w < rows * hp) {
-      const int r = w / hp, m = w % hp;
-      const int rf = row_flags(r);
-      int last = 0, f = ((base + r) & 1) << 8;
-      for (int s = 0; s < 2; ++s) {
-        for (int u = 0; u < 2; ++u) {
-          const int b = 2 * (m + u) + s;
-          const int cf = col_flags(b);
-          const int l = ((rf | cf) & kOutside)
-                            ? 0
-                            : min(255, min(min(r, rows - 1 - r),
-                                           min(b, cols - 1 - b)));
-          last |= l << (8 * (2 * s + u));
-          f |= ((rf & 3) + (cf & 3)) << (4 * s + 2 * u);
-        }
-      }
-      upd_w[j] = w;
-      upd_last[j] = last;
-      upd_f[j] = f;
-    }
-  }
+  q.goff = (ai0 + r) * g.W + aj0 + 4 * gq;
+  q.load = !q.lmask ? 0 : (q.lmask == 15 && a.vec) ? 1 : 2;
+  q.store = !q.smask ? 0 : (q.smask == 15 && a.vec) ? 1 : 2;
 
-  // plane z of p and d into ring slot i (0 outside the array or the
-  // domain)
-  const unsigned ring_p = (unsigned)__cvta_generic_to_shared(sp);
-  const unsigned ring_d = (unsigned)__cvta_generic_to_shared(sd);
-  auto load = [&](int z, int i_slot) {
-    const bool z_in = !(axis_flags(z, g.D, g.oz + z, g.GD) & kOutside);
-    const bool with_p = z_in && a.p_in;
-    const unsigned dp = ring_p + 4 * i_slot * plane;
-    const unsigned dd = ring_d + 4 * i_slot * plane;
-    const long long zo = z_in ? z * zstride : 0;
-    const float* pz = (a.p_in ? a.p_in : a.d) + zo;
-    const float* dz = a.d + zo;
+  // the levels read their neighbours' buffers before the trapezoid reaches
+  // them: zeros, not whatever the shared memory held
+  for (int i = tid; i < 2 * S * kMaxThreads; i += blockDim.x)
+    buf[i] = make_float2(0.f, 0.f);
+  float pr[R][4], dr[R][4];
 #pragma unroll
-    for (int i = 0; i < NL; ++i) {
-      if (load_w[i] < 0) continue;
-      const int o = max(load_g[i], 0);
-      copy_async(dp + 4 * load_w[i], pz + o, with_p && load_g[i] >= 0);
-      copy_async(dd + 4 * load_w[i], dz + o, z_in && load_g[i] >= 0);
-    }
-    copy_commit();
-  };
-
-  // The levels of step t update the cells of in-plane colour q = (h0 + 1 +
-  // oz + zlo + t) & 1: level k's colour (h0 + k - 1) & 1 and plane zlo + 2
-  // + t - k change together.  For each pair, the step's cells: the last
-  // level that updates either (bits 0-7, 8-15), the offset of the
-  // horizontal neighbour outside the pair (-1 or 2) and -1/a_ii of either
-  // cell on a plane without and with a wall (domain extents are >= 2, so a
-  // plane has one wall at most).
-  int pair_last[NU], pair_edge[NU];
-  float pair_ni[NU][2][2];
-  auto colour = [&](int q) {
+  for (int j = 0; j < R; ++j)
 #pragma unroll
-    for (int j = 0; j < NU; ++j) {
-      // the pair's cells are b = 2m + s and 2m + s + 2, s = (q + base +
-      // r) & 1
-      const int s = q ^ (upd_f[j] >> 8);
-      const int walls = upd_f[j] >> (4 * s);
-      pair_last[j] = (upd_last[j] >> (16 * s)) & 0xffff;
-      pair_edge[j] = s ? 2 : -1;
+    for (int i = 0; i < 4; ++i) pr[j][i] = dr[j][i] = 0.f;
+  const unsigned st = static_cast<unsigned>(__cvta_generic_to_shared(stage));
 #pragma unroll
-      for (int u = 0; u < 2; ++u)
-#pragma unroll
-        for (int zw = 0; zw < 2; ++zw)
-          pair_ni[j][u][zw] = kNegInv[6 - ((walls >> (2 * u)) & 3) - zw];
-    }
-  };
-
-  // level k (1-based) of the pass on plane z, in ring slot i: the window's
-  // cells of in-plane colour q in rows and columns [k, rows - k) x [k,
-  // cols - k)
-  auto level = [&](int k, int z, int i_slot, int q) {
-    const int zf = axis_flags(z, g.D, g.oz + z, g.GD);
-    if (zf & kOutside) return;
-    float* own = sp + i_slot * plane + q * half;
-    const float* other = sp + i_slot * plane + (1 - q) * half;
-    const float* zm = sp + wrap(i_slot - 1) * plane + q * half;
-    const float* zp = sp + wrap(i_slot + 1) * plane + q * half;
-    const float* dq = sd + i_slot * plane + q * half;
-    const bool zw = zf & 3;
-#pragma unroll
-    for (int j = 0; j < NU; ++j) {
-      const int w = upd_w[j];
-      const int l0 = pair_last[j] & 255, l1 = pair_last[j] >> 8;
-      if (w < 0 || (k > l0 && k > l1)) continue;
-      const float2 up = *reinterpret_cast<const float2*>(other + w - hp);
-      const float2 dn = *reinterpret_cast<const float2*>(other + w + hp);
-      const float2 mid = *reinterpret_cast<const float2*>(other + w);
-      const float edge = other[w + pair_edge[j]];
-      const float2 below = *reinterpret_cast<const float2*>(zm + w);
-      const float2 above = *reinterpret_cast<const float2*>(zp + w);
-      const float2 dv = *reinterpret_cast<const float2*>(dq + w);
-      float2 pv = *reinterpret_cast<float2*>(own + w);
-      // the in-plane neighbours left and right of either cell
-      const bool right = pair_edge[j] > 0;
-      const float lf0 = right ? mid.x : edge, rt0 = right ? mid.y : mid.x;
-      const float lf1 = right ? mid.y : mid.x, rt1 = right ? edge : mid.y;
-      const float nb0 =
-          ((((below.x + above.x) + up.x) + dn.x) + lf0) + rt0;
-      const float nb1 =
-          ((((below.y + above.y) + up.y) + dn.y) + lf1) + rt1;
-      const float ni0 = zw ? pair_ni[j][0][1] : pair_ni[j][0][0];
-      const float ni1 = zw ? pair_ni[j][1][1] : pair_ni[j][1][0];
-      const float p0 =
-          a.one_m_w * pv.x + a.omega * (ni0 * (a.dx * dv.x - nb0));
-      const float p1 =
-          a.one_m_w * pv.y + a.omega * (ni1 * (a.dx * dv.y - nb1));
-      // a cell this level leaves keeps its value
-      if (k <= l0) pv.x = p0;
-      if (k <= l1) pv.y = p1;
-      *reinterpret_cast<float2*>(own + w) = pv;
-    }
-  };
-
-  // plane z's tile, in ring slot i, into p_out
-  auto store = [&](int z, int i_slot) {
-    const float* pz = sp + i_slot * plane;
-    float* out = a.p_out + z * zstride;
-#pragma unroll
-    for (int i = 0; i < NL; ++i)
-      if (store_w[i] >= 0) out[store_g[i]] = pz[store_w[i]];
-  };
-
-  load(zlo, 0);
-  load(zlo + 1, 1);
-  copy_wait_all();
-  __syncthreads();
-  // step t: store the plane the last level finished in step t - 1, fetch
-  // the plane level 1 reads first in step t + 1, run the levels; plane
-  // zlo + 2 + t sits in ring slot i_top
-  const int steps = z1 - 1 - zlo + S;
-  for (int t = -1, i_top = 1; t < steps; ++t, i_top = wrap(i_top + 1)) {
-    const int q = (a.h0 + 1 + g.oz + zlo + t) & 1;
-    colour(q);
-    const int z_done = zlo + 1 + t - S;
-    if (z_done >= z0 && z_done < z1) store(z_done, wrap(i_top - 1 - S));
-    if (zlo + t + 3 < zhi) load(zlo + t + 3, wrap(i_top + 1));
-#pragma unroll
-    for (int k = 1; k <= S; ++k) {
-      const int z = zlo + 2 + t - k;
-      // uniform over the block: every thread takes the same branches
-      if (z < max(z0 - S + k, 0) || z >= min(z1 + S - k, g.D)) continue;
-      level(k, z, wrap(i_top - k), q);
-      if (k < S) __syncthreads();
-    }
-    copy_wait_all();
-    __syncthreads();
-  }
+  for (int j = 0; j < kLead; ++j)
+    fetch(a, q, c, c.zlo + j, st + 16 * ((2 * j + 1) * kMaxThreads + tid),
+          st + 16 * ((2 * j) * kMaxThreads + tid));
+  barrier(blockDim.x);
+  for (int tb = -R; tb <= c.t_last; tb += R)
+    steps<S, R>(a, q, c, tb, pr, dr, stage, buf,
+                std::make_integer_sequence<int, R>{});
 }
 
-template <int S, int NL, int NU>
-cudaError_t launch_pass(const Pass3& a, int threads_y, cudaStream_t s) {
-  const int bytes = pass_bytes(a.TH, a.TW, S);
-  cudaError_t err = cudaFuncSetAttribute(
-      sor3d_pass_kernel<S, NL, NU>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
+template <int S>
+cudaError_t launch_pass(const Pass3& a, int threads, cudaStream_t s) {
+  constexpr int bytes = pass_bytes(S);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sor3d_pass_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err != cudaSuccess) return err;
+  }
   const dim3 grid((a.g.W + a.TW - 1) / a.TW, (a.g.H + a.TH - 1) / a.TH,
                   (a.g.D + a.ZC - 1) / a.ZC);
-  sor3d_pass_kernel<S, NL, NU><<<grid, dim3(32, threads_y), bytes, s>>>(a);
+  sor3d_pass_kernel<S><<<grid, threads, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
-// The largest instance: window cells and pairs of half-plane words a thread
-// may take.
-constexpr int kMaxCells = 16, kMaxPairs = 4;
-
-// A pass of depth S with a thread's nl window cells and nu pairs.
-template <int S>
-cudaError_t launch_depth(const Pass3& a, int threads_y, int nl, int nu,
-                         cudaStream_t s) {
-  if (nl <= 8 && nu <= 2) return launch_pass<S, 8, 2>(a, threads_y, s);
-  if (nl <= kMaxCells && nu <= kMaxPairs)
-    return launch_pass<S, kMaxCells, kMaxPairs>(a, threads_y, s);
-  return cudaErrorInvalidValue;
-}
-
-// A thread's window cells (nl) and pairs of half-plane words (nu) on a
-// pass of `depth` on a tile_h x tile_w tile, blocks of 32 x threads_y.
-void thread_share(int tile_h, int tile_w, int depth, int threads_y, int* nl,
-                  int* nu) {
-  const int threads = 32 * threads_y;
-  const int rows = tile_h + 2 * depth;
-  *nl = (rows * (tile_w + 2 * depth) + threads - 1) / threads;
-  *nu = (rows * half_pitch(tile_w, depth) / 2 + threads - 1) / threads;
-}
-
-// Whether an instance takes the pass and its shared memory fits a block of
-// the current device.
-bool pass_fits(int tile_h, int tile_w, int depth, int threads_y) {
-  if (depth < 0 || depth > kMaxDepth || tile_h < 1 || tile_w < 1 ||
-      threads_y < 1 || threads_y > 16)
-    return false;
-  int nl, nu, dev, limit;
-  thread_share(tile_h, tile_w, depth, threads_y, &nl, &nu);
-  if (nl > kMaxCells || nu > kMaxPairs) return false;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return false;
-  return pass_bytes(tile_h, tile_w, depth) <= limit;
+// A block's threads for a pass of `depth` on a tile_h x tile_w tile, or 0
+// if the kernel does not take it (too deep, a tile width not a multiple of
+// 4, more threads than a block of it may have).
+int threads_of(int tile_h, int tile_w, int depth) {
+  if (depth < 0 || depth > kMaxDepth || tile_h < 1 || tile_w < 4 ||
+      tile_w % 4)
+    return 0;
+  const int n = pass_threads(tile_h, tile_w, depth);
+  return n <= kMaxThreads ? n : 0;
 }
 
 }  // namespace
@@ -432,16 +521,17 @@ bool pass_fits(int tile_h, int tile_w, int depth, int threads_y) {
 // parity first), on d and p_in ([D, H, W] float32; p_in nullptr: from
 // zero), into p_out (not p_in).  The array's cell (0, 0, 0) sits at global
 // (oz, oi, oj) of a GD x GH x GW domain (0 and the array's own extent
-// without block mode).  Tiles of tile_h x tile_w cells and zchunk planes,
-// blocks of 32 x threads_y threads.
+// without block mode).  Tiles of tile_h x tile_w cells and zchunk planes;
+// vec: W % 4 == 0 and the three pointers 16-byte aligned.
 extern "C" int fluid_sor3d_pass(const void* d, const void* p_in, void* p_out,
                                 int D, int H, int W, int oz, int oi, int oj,
                                 int GD, int GH, int GW, float dx, int h0,
                                 int depth, float omega, float one_m_w,
-                                int tile_h, int tile_w, int zchunk,
-                                int threads_y, void* stream) {
-  if (!pass_fits(tile_h, tile_w, depth, threads_y) || zchunk < 1 || D < 1 ||
-      H < 1 || W < 1 || (long long)H * W >= (1LL << 31))
+                                int tile_h, int tile_w, int zchunk, int vec,
+                                void* stream) {
+  const int threads = threads_of(tile_h, tile_w, depth);
+  if (!threads || zchunk < 1 || D < 1 || H < 1 || W < 1 ||
+      (long long)D * H * W >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const Pass3 a{static_cast<const float*>(d),
                 static_cast<const float*>(p_in),
@@ -451,31 +541,25 @@ extern "C" int fluid_sor3d_pass(const void* d, const void* p_in, void* p_out,
                 tile_h,
                 tile_w,
                 zchunk,
+                vec,
                 dx,
                 omega,
                 one_m_w};
-  int nl, nu;
-  thread_share(tile_h, tile_w, depth, threads_y, &nl, &nu);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (depth) {
-    case 0: return (int)launch_depth<0>(a, threads_y, nl, nu, s);
-    case 1: return (int)launch_depth<1>(a, threads_y, nl, nu, s);
-    case 2: return (int)launch_depth<2>(a, threads_y, nl, nu, s);
-    case 3: return (int)launch_depth<3>(a, threads_y, nl, nu, s);
-    case 4: return (int)launch_depth<4>(a, threads_y, nl, nu, s);
-    case 5: return (int)launch_depth<5>(a, threads_y, nl, nu, s);
-    case 6: return (int)launch_depth<6>(a, threads_y, nl, nu, s);
+    case 0: return (int)launch_pass<0>(a, threads, s);
+    case 1: return (int)launch_pass<1>(a, threads, s);
+    case 2: return (int)launch_pass<2>(a, threads, s);
+    case 3: return (int)launch_pass<3>(a, threads, s);
+    case 4: return (int)launch_pass<4>(a, threads, s);
+    case 5: return (int)launch_pass<5>(a, threads, s);
+    case 6: return (int)launch_pass<6>(a, threads, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// The shared-memory bytes of a pass of `depth` on a tile_h x tile_w tile
-// with blocks of 32 x threads_y threads, or 0 if fluid_sor3d_pass refuses
-// it on the current device (too deep, too many cells or pairs a thread,
-// more shared memory than a block may have).
-extern "C" int fluid_sor3d_pass_bytes(int tile_h, int tile_w, int depth,
-                                      int threads_y) {
-  return pass_fits(tile_h, tile_w, depth, threads_y)
-             ? pass_bytes(tile_h, tile_w, depth)
-             : 0;
+// A block's threads for a pass of `depth` on a tile_h x tile_w tile, or 0
+// if fluid_sor3d_pass refuses it.
+extern "C" int fluid_sor3d_pass_threads(int tile_h, int tile_w, int depth) {
+  return threads_of(tile_h, tile_w, depth);
 }

@@ -82,11 +82,11 @@ _SIGNATURES = {
     # vel, p, out, D, H, W, inv2dx, stream
     "fluid_subtract_gradient3d": (_P, _P, _P, _I, _I, _I, _F, _P),
     # d, p_in, p_out, D, H, W, oz, oi, oj, GD, GH, GW, dx, h0, depth,
-    # omega, one_m_w, tile_h, tile_w, zchunk, threads_y, stream
+    # omega, one_m_w, tile_h, tile_w, zchunk, vec, stream
     "fluid_sor3d_pass": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                          _I, _I, _F, _F, _I, _I, _I, _I, _P),
-    # tile_h, tile_w, depth, threads_y -> shared-memory bytes (0: refused)
-    "fluid_sor3d_pass_bytes": (_I, _I, _I, _I),
+    # tile_h, tile_w, depth -> a block's threads (0: refused)
+    "fluid_sor3d_pass_threads": (_I, _I, _I),
     # d, p, dxd, H, W, mh, mw, oi, oj, GH, GW, halo, p_out, dx, iters,
     # omega, one_m_w, stream
     "fluid_sor": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I,

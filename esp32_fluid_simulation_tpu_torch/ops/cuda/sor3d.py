@@ -9,14 +9,18 @@ neighbour order and ``-1/a_ii`` LUT) and ``sor3d_chunk_reference``, for
 CPU tensors — only because they lie on the CPU.  Any other device raises.
 
 The kernel runs the half-sweeps in passes, one launch each
-(``csrc/sor3d.cu``): a block marches z through its tile's window in shared
-memory and fuses ``depth`` half-sweeps, a trapezoid of ``depth`` cells a
-side.  The depth is the kernel's own choice (``pass_plan``): the fewest
-passes of at most ``SOR3D_MAX_DEPTH`` (``ceil(2*iters / 6)``, 4 passes of
-5 at the plume's 10 iters), on a tile whose window fits them; the result
-does not depend on the depth or the tile.  ``chunk`` (sweeps per TPU
-launch) does not change the result there either and has no counterpart
-here; it is validated as the JAX contract validates it.
+(``csrc/sor3d.cu``): a block marches z through its tile's window, a thread
+a quad of four cells of a window row with the quad's last planes in its
+registers, and fuses ``depth`` half-sweeps, a trapezoid of ``depth`` cells
+a side, with one barrier a plane.  ``pass_plan`` picks the passes, the tile
+and the planes a block marches from the shape, the number of half-sweeps
+and the card's streaming multiprocessors: the fewest passes of at most
+``SOR3D_MAX_DEPTH`` (``ceil(2*iters / 6)``, 4 passes of 5 at the plume's 10
+iters), and of the tiles whose block fits ``SOR3D_MAX_THREADS`` the one
+whose waves of blocks march the fewest warp-planes; the result does not
+depend on any of them.  ``chunk`` (sweeps per TPU launch) does not change
+the result there either and has no counterpart here; it is validated as
+the JAX contract validates it.
 
 ``sor3d_chunk`` is one chunk of the sharded steps' solve
 (``parallel/sharded3d.py``): ``sweeps`` sweeps on a whole haloed block
@@ -34,6 +38,8 @@ tile sizes have no counterpart here.  ``sor3d_chunk.launches`` and
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -43,27 +49,38 @@ from .build import load, stream_of
 from .modes import chunk_geometry
 
 _LANE = 128  # the TPU kernel's fixed column halo, which bounds ``chunk``
-# A pass's tiles, in order of preference: (rows, columns) of the array's
-# (i, j) a block owns, and its thread rows (32 threads each).  A window, the
-# tile +- depth cells, holds rings of depth + 3 planes of p and of d in
-# shared memory: 32 x 64 takes passes of up to 5 half-sweeps, 28 x 47 the
-# sharded chain's 6.
-SOR3D_TILES = ((32, 64, 14), (28, 47, 10))
 # The deepest pass (half-sweeps fused in one launch): the sharded chain's
 # chunk of 3 sweeps is one pass
 SOR3D_MAX_DEPTH = 6
-# A block marches at least SOR3D_MIN_ZCHUNK planes; the planes are cut into
-# chunks until the grid has about SOR3D_BLOCKS blocks (one a streaming
-# multiprocessor: a window takes most of one's shared memory)
-SOR3D_BLOCKS = 128
-SOR3D_MIN_ZCHUNK = 32
+# A block's most threads (``csrc/sor3d.cu`` ``kMaxThreads``): a thread
+# keeps its quad's last planes of p and d in registers, at most 128 of
+# them, so one block fills an SM's registers
+SOR3D_MAX_THREADS = 512
+# The tiles a pass may take: (rows, columns) of the array's (i, j) a block
+# owns, the columns a multiple of 4 (a window row is whole quads)
+SOR3D_TILES = tuple((th, tw) for th in range(8, 65, 4)
+                    for tw in range(16, 65, 4))
+# A block of fewer warps marches a plane no faster than one of this many:
+# each level of a plane waits on the one before it in the same thread
+SOR3D_MIN_WARPS = 12
 
 
-def fits(tile, depth):
-    """Whether ``csrc/sor3d.cu`` takes a pass of ``depth`` on ``tile`` on the
-    current CUDA device (its shared memory, its threads' registers)."""
-    th, tw, ny = tile
-    return load().value("fluid_sor3d_pass_bytes", th, tw, depth, ny) > 0
+def margin(depth):
+    """A window's columns on either side of the tile: ``depth`` rounded up
+    to a multiple of 4, so a window row starts on a 16-byte boundary."""
+    return -(-depth // 4) * 4
+
+
+def pass_threads(tile, depth):
+    """A block's threads for a pass of ``depth`` on ``tile`` (``csrc/
+    sor3d.cu`` ``pass_threads``): one a quad of the window (the tile +-
+    ``depth`` rows, +- ``margin(depth)`` columns), the even rows' padded to
+    whole warps."""
+    th, tw = tile
+    rows = th + 2 * depth
+    quads = -(-(tw + 2 * margin(depth)) // 4)
+    even = -(-((rows + 1) // 2 * quads) // 32) * 32
+    return -(-(even + rows // 2 * quads) // 32) * 32
 
 
 def pass_depths(levels, deepest):
@@ -73,27 +90,38 @@ def pass_depths(levels, deepest):
     return [levels // n + (k < levels % n) for k in range(n)]
 
 
-def pass_plan(levels):
-    """``(tile, depths)`` for ``levels`` half-sweeps: the fewest passes of
-    at most ``SOR3D_MAX_DEPTH``, on the first of ``SOR3D_TILES`` whose
-    window fits the deepest; else the last tile, with passes as deep as fit
-    on it."""
+@functools.lru_cache(maxsize=64)
+def pass_plan(shape, levels, sms):
+    """``(tile, zchunk, depths)`` for ``levels`` half-sweeps on a ``[D, H,
+    W]`` array on a card of ``sms`` streaming multiprocessors (a block
+    each): the fewest passes of at most ``SOR3D_MAX_DEPTH``, and of
+    ``SOR3D_TILES`` and the chunks of planes the pair whose waves of blocks
+    march the fewest warp-planes (a block marches its chunk + 2 * depth
+    planes); of equal ones, the fewest window cells to load."""
     depths = pass_depths(levels, SOR3D_MAX_DEPTH)
+    s = max(depths)
+    d, h, w = shape
+    best = None
     for tile in SOR3D_TILES:
-        if fits(tile, max(depths)):
-            return tile, depths
-    deepest = max(depths) - 1
-    while deepest > 1 and not fits(tile, deepest):
-        deepest -= 1
-    return tile, pass_depths(levels, deepest)
+        threads = pass_threads(tile, s)
+        if threads > SOR3D_MAX_THREADS:
+            continue
+        tiles = -(-h // tile[0]) * -(-w // tile[1])
+        window = tiles * (tile[0] + 2 * s) * (tile[1] + 2 * margin(s))
+        warps = max(threads // 32, SOR3D_MIN_WARPS)
+        for n in range(1, min(d, -(-4 * sms // tiles)) + 1):
+            zc = -(-d // n)
+            cost = -(-tiles * -(-d // zc) // sms) * (zc + 2 * s) * warps
+            key = (cost, window, tile, zc)
+            if best is None or key < best:
+                best = key
+    return best[2], best[3], depths
 
 
-def z_chunk(depth_planes, tiles):
-    """Planes per block: all of them, or fewer (at least
-    ``SOR3D_MIN_ZCHUNK``) until ``tiles`` tiles make about
-    ``SOR3D_BLOCKS`` blocks."""
-    n = min(-(-SOR3D_BLOCKS // tiles), depth_planes // SOR3D_MIN_ZCHUNK)
-    return -(-depth_planes // max(1, n))
+@functools.lru_cache(maxsize=None)
+def sm_count(index):
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def sor3d_reference(d, dx=1.0, iters=10, omega=1.5):
@@ -150,16 +178,19 @@ def _passes(name, d, p, dx, levels, omega, origin, domain):
     if not (d.is_contiguous() and (p is None or p.is_contiguous())):
         raise ValueError(f"{name}: inputs must be contiguous")
     dd, h, w = d.shape
-    with torch.cuda.device(d.device):
-        (th, tw, ny), depths = pass_plan(levels)
-    if min(dd, h, w) < 2 or -(-h // th) > 65535 or h * w >= 1 << 31:
+    if min(dd, h, w) < 2 or dd * h * w >= 1 << 31:
         raise ValueError(f"{name}: shape {tuple(d.shape)} not supported "
-                         f"(each extent >= 2, H <= {65535 * th}, "
-                         "H * W < 2^31)")
-    zc = z_chunk(dd, -(-h // th) * -(-w // tw))
+                         "(each extent >= 2, D * H * W < 2^31)")
+    (th, tw), zc, depths = pass_plan(tuple(d.shape), levels,
+                                     sm_count(d.device.index))
+    if -(-h // th) > 65535:
+        raise ValueError(f"{name}: H = {h} > {65535 * th}")
     out = torch.empty_like(d)
     # ping-pong: the last pass writes out
     scratch = torch.empty_like(d) if len(depths) > 1 else None
+    # 16-byte loads and stores: rows start aligned in every array
+    vec = int(w % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in
+                                 (d, out, p, scratch) if t is not None))
     src, h0 = p, 0
     lib = load()
     with torch.cuda.device(d.device):
@@ -169,7 +200,7 @@ def _passes(name, d, p, dx, levels, omega, origin, domain):
                      None if src is None else src.data_ptr(), dst.data_ptr(),
                      dd, h, w, *origin, *domain, float(dx), h0, depth,
                      float(omega), float(np.float32(1.0 - omega)), th, tw,
-                     zc, ny, stream_of(d))
+                     zc, vec, stream_of(d))
             src, h0 = dst, h0 + depth
     return out
 

@@ -380,19 +380,53 @@ def test_sor3d_kernel_bit_equal(cuda, rng, iters):
                        sor3d_reference(d, 1.0, iters, 1.5))
 
 
-@pytest.mark.parametrize("tile, deepest, blocks", [
-    ((16, 32, 8), 6, 264), ((7, 12, 4), 1, 264), ((16, 32, 8), 2, 1 << 20),
-    ((13, 40, 16), 6, 1), ((32, 64, 8), 10, 264), ((28, 47, 10), 6, 128)])
+@pytest.mark.parametrize("shape", [
+    (256, 256, 256), (37, 83, 150), (24, 61, 97), (12, 384, 512)])
+def test_sor3d_kernel_bit_equal_at_plume_and_ragged_shapes(cuda, shape):
+    """K9 at the plume's 256^3 and 10 iters, at H and W that no tile of the
+    plan divides, at W % 4 != 0 (loads and stores cell by cell) and with
+    every plane in one chunk, bit-equal to the plain version."""
+    from esp32_fluid_simulation_tpu_torch.ops.cuda import sor3d
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    d = torch.randn(shape, generator=gen, device=cuda)
+    (th, tw), zc, depths = sor3d.pass_plan(shape, 20,
+                                          sor3d.sm_count(cuda.index))
+    assert depths == [5, 5, 5, 5]
+    if shape[0] == 12:
+        assert zc >= shape[0]
+    if shape[1:] == (83, 150):
+        assert 83 % th and 150 % tw
+    assert torch.equal(sor3d_solve(d, 1.0, 10, 1.5),
+                       sor3d_reference(d, 1.0, 10, 1.5))
+
+
+@pytest.mark.parametrize("origin", [(0, -6, -6), (0, 122, 122)])
+def test_sor3d_chunk_bit_equal_on_the_sharded_chains_shards(cuda, origin):
+    """One chunk of the sharded 256^3 smoke's chain (3 sweeps on a shard's
+    block haloed by 6, one pass of 6) on an edge shard and a far shard,
+    bit-equal to the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(origin[1] + 7)
+    d = torch.randn((256, 140, 140), generator=gen, device=cuda)
+    p = torch.randn((256, 140, 140), generator=gen, device=cuda)
+    before = sor3d_chunk.launches
+    got = sor3d_chunk(d, p, 1.0, 3, 1.5, global_offset=origin,
+                      global_shape=(256, 256, 256))
+    assert sor3d_chunk.launches == before + 1
+    assert torch.equal(got, sor3d_chunk_reference(d, p, 1.0, 3, 1.5, origin,
+                                                  (256, 256, 256)))
+
+
+@pytest.mark.parametrize("tile, deepest, zc", [
+    ((16, 32), 6, 3), ((8, 12), 1, 20), ((16, 32), 2, 1), ((13, 40), 6, 7),
+    ((45, 20), 3, 20), ((8, 64), 5, 5), ((20, 52), 5, 20), ((20, 48), 6, 2)])
 def test_sor3d_passes_do_not_depend_on_depth_or_tile(cuda, rng, monkeypatch,
-                                                     tile, deepest, blocks):
+                                                     tile, deepest, zc):
     """K9's z-marching passes at other pass depths, ragged tiles and chunks
     of planes: whole grid from zero and a chunk of a larger domain from a
     given p, both bit-equal to their plain versions."""
     from esp32_fluid_simulation_tpu_torch.ops.cuda import sor3d
-    monkeypatch.setattr(sor3d, "SOR3D_TILES", (tile,))
-    monkeypatch.setattr(sor3d, "SOR3D_MAX_DEPTH", deepest)
-    monkeypatch.setattr(sor3d, "SOR3D_BLOCKS", blocks)
-    monkeypatch.setattr(sor3d, "SOR3D_MIN_ZCHUNK", 2)
+    monkeypatch.setattr(sor3d, "pass_plan", lambda shape, levels, sms: (
+        tile, zc, sor3d.pass_depths(levels, deepest)))
     d = _on(rng.standard_normal((20, 45, 70)).astype(np.float32), cuda)
     p = _on(rng.standard_normal((20, 45, 70)).astype(np.float32), cuda)
     assert torch.equal(sor3d_solve(d, 0.7, 7, 1.5),
@@ -407,18 +441,25 @@ def test_sor3d_passes_do_not_depend_on_depth_or_tile(cuda, rng, monkeypatch,
 
 
 def test_sor3d_pass_plan_follows_the_kernel(cuda):
-    """``pass_plan`` asks ``csrc/sor3d.cu`` what fits: the plume's 10 iters
-    are 4 passes of 5 on 32x64 tiles (a pass of 6 overruns a block's shared
-    memory there), a sharded chunk of 3 sweeps one pass of 6 on 28x47;
-    depths past the deepest instance and windows too large for a thread's
-    share are refused, and the pass entry refuses them too."""
+    """``pass_threads`` is ``csrc/sor3d.cu``'s count of a block's threads,
+    the plans fit it, and the kernel refuses a pass past the deepest, a
+    tile width not a multiple of 4 and a block past
+    ``SOR3D_MAX_THREADS``; the pass entry refuses them too."""
     from esp32_fluid_simulation_tpu_torch.ops.cuda import sor3d
     from esp32_fluid_simulation_tpu_torch.ops.cuda.build import load
-    assert sor3d.pass_plan(20) == ((32, 64, 14), [5, 5, 5, 5])
-    assert sor3d.pass_plan(6) == ((28, 47, 10), [6])
-    assert sor3d.fits((32, 64, 14), 5) and not sor3d.fits((32, 64, 14), 6)
-    assert not sor3d.fits((8, 8, 1), 7)
-    assert not sor3d.fits((64, 64, 4), 1)
+    lib = load()
+    for depth in range(sor3d.SOR3D_MAX_DEPTH + 1):
+        for tile in ((8, 16), (20, 52), (20, 48), (33, 44), (13, 40)):
+            want = sor3d.pass_threads(tile, depth)
+            got = lib.value("fluid_sor3d_pass_threads", *tile, depth)
+            assert got == (want if want <= sor3d.SOR3D_MAX_THREADS else 0)
+    sms = sor3d.sm_count(cuda.index)
+    for shape, levels in (((256, 256, 256), 20), ((256, 140, 140), 6)):
+        tile, _, depths = sor3d.pass_plan(shape, levels, sms)
+        assert lib.value("fluid_sor3d_pass_threads", *tile, max(depths)) > 0
+    assert not lib.value("fluid_sor3d_pass_threads", 8, 16, 7)
+    assert not lib.value("fluid_sor3d_pass_threads", 8, 18, 2)
+    assert not lib.value("fluid_sor3d_pass_threads", 64, 64, 6)
     d = torch.zeros((4, 8, 8), device=cuda)
     with pytest.raises(RuntimeError, match="fluid_sor3d_pass failed"):
         load().call("fluid_sor3d_pass", d.data_ptr(), None, d.data_ptr(),
