@@ -542,10 +542,9 @@ def seam_impulses(shape, iters, dev):
     active slot wins) and an out-of-range position."""
     from esp32_fluid_simulation_tpu_torch import SimConfig, Impulses
     from esp32_fluid_simulation_tpu_torch.ops.cuda import project
-    from esp32_fluid_simulation_tpu_torch.ops.cuda.build import load
     it = min(iters, project.WINDOW_MAX_ITERS)
     n_strips, n_segs = project.strip_plan(
-        *shape, it, project.strip_blocks(load(), torch.device(dev), it))
+        *shape, it, project.strip_blocks(torch.device(dev), it))
     th, tw = max(shape[0] // n_segs, 1), max(shape[1] // n_strips, 1)
     r = 2 * iters + 2
     return Impulses.from_lists(
@@ -1611,8 +1610,7 @@ def k1_design(vel, cfg, imp):
     finally:
         project.WINDOW_MAX_ITERS = limit
     want_v, want_p = project.project_fused_reference(vel, dx, it, om, imp)
-    from esp32_fluid_simulation_tpu_torch.ops.cuda.build import load
-    planned = project.strip_blocks(load(), vel.device, it)
+    planned = project.strip_blocks(vel.device, it)
     key = (vel.device.index, it <= 10)
     try:
         for blocks in (planned // 2, planned, 2 * planned):

@@ -41,6 +41,9 @@ from ..state import SimState, Impulses
 from ..ops.advect import advect, advect_maccormack, advect_rk2
 from ..ops.blur import triangular_blur_inplace
 from ..ops.fd import divergence, subtract_gradient, vorticity_confinement
+# the drain, whose names stay importable from here
+from ..ops.impulses import (_resolved_impulse_targets, apply_impulses,
+                            apply_impulses_, impulses_in_window)
 from ..ops.poisson import (jacobi_solve, poisson_solve, poisson_residual,
                            sor_solve)
 from ..ops.cuda.advect import advect_kernel, advect_maccormack_kernel
@@ -88,61 +91,6 @@ def init_state(cfg: SimConfig, device="cuda") -> SimState:
     vel = torch.zeros((cfg.ndim,) + tuple(cfg.shape), dtype=cfg.torch_dtype,
                       device=device)
     return SimState(velocity=vel, color=init_color(cfg, device), step=0)
-
-
-def _resolved_impulse_targets(imp: Impulses, shape):
-    """Queue-drain resolution in slot space (``.ino:264-269``): each slot's
-    cell, clamped to the grid, and the index of the LAST active slot that
-    writes that cell (-1 where no active slot does)."""
-    nd = len(shape)
-    k = imp.pos.shape[0]
-    idx = tuple(imp.pos[:, a].long().clamp(0, shape[a] - 1)
-                for a in range(nd))
-    same = idx[0][:, None] == idx[0][None, :]
-    for ax in range(1, nd):
-        same &= idx[ax][:, None] == idx[ax][None, :]
-    slots = torch.arange(k, device=imp.pos.device)
-    winner = torch.where(same & imp.active[None, :], slots[None, :],
-                         torch.full_like(slots[None, :], -1)).amax(dim=1)
-    return idx, winner
-
-
-def apply_impulses(vel: torch.Tensor, imp: Impulses) -> torch.Tensor:
-    """Write drag velocities into cells (``.ino:264-269``), the last active
-    slot winning at a duplicated cell; positions are clamped to the grid.
-    Returns a fresh tensor; ``apply_impulses_`` writes into ``vel``."""
-    return apply_impulses_(vel.clone(), imp)
-
-
-def apply_impulses_(vel: torch.Tensor, imp: Impulses) -> torch.Tensor:
-    """``apply_impulses`` in place: ``vel`` (2D or 3D) is written and
-    returned.
-
-    One scatter for all slots: every slot writes the value its cell ends
-    with (the winner's, or the cell's own where no active slot writes it),
-    so duplicate indices carry equal values and the write order does not
-    matter — no host sync, no per-slot pass, no copy of the field."""
-    idx, winner = _resolved_impulse_targets(imp, vel.shape[1:])
-    where = (slice(None),) + idx
-    vals = imp.velocity.to(vel.dtype)[winner.clamp(min=0)].T   # [nd, k]
-    vel[where] = torch.where(winner >= 0, vals, vel[where])
-    return vel
-
-
-def impulses_in_window(imp: Impulses, global_shape, origin,
-                       shape) -> Impulses:
-    """``imp`` in the frame of a ``shape`` window whose first cell sits at
-    global ``origin`` of a ``global_shape`` grid (2D or 3D): positions
-    clamped to the grid, then shifted; the slots whose cell lies outside
-    the window become inactive, so ``apply_impulses`` on the window writes
-    exactly the window's cells of the whole grid's drain."""
-    idx = [imp.pos[:, a].long().clamp(0, global_shape[a] - 1) - origin[a]
-           for a in range(len(global_shape))]
-    inside = imp.active
-    for x, n in zip(idx, shape):
-        inside = inside & (x >= 0) & (x < n)
-    return Impulses(pos=torch.stack(idx, dim=1).to(imp.pos.dtype),
-                    velocity=imp.velocity, active=inside)
 
 
 def write_cells(cells, write, vals, shape, base=None):
@@ -213,41 +161,26 @@ def _advect_by(cfg: SimConfig, vel: torch.Tensor):
         raise NotImplementedError(
             "advect_sample_dtype='bfloat16' is not ported (ROADMAP.md queue "
             "1, 'Not to port')")
-    if cfg.advector == "maccormack":
-        if not use_kernel:
-            return advect_maccormack
-
-        def adv_mc(field, vel, dt, no_slip):
-            return advect_maccormack_kernel(field, vel, dt, no_slip,
-                                            max_disp=cfg.advect_max_disp)
-        return adv_mc
     if cfg.advector == "rk2":
         return advect_rk2
     if not use_kernel:
-        return advect
-
-    def adv(field, vel, dt, no_slip, clip01=False, self_advect=False):
-        return advect_kernel(field, vel, dt, no_slip,
-                             max_disp=cfg.advect_max_disp, clip01=clip01,
-                             self_advect=self_advect)
-    adv.fuses_clip01 = True
-    adv.takes_self_advect = True
-    return adv
+        return advect_maccormack if cfg.advector == "maccormack" else advect
+    kernel = (advect_maccormack_kernel if cfg.advector == "maccormack"
+              else advect_kernel)
+    return functools.partial(kernel, max_disp=cfg.advect_max_disp)
 
 
-def _self_advect(adv, vel, dt):
-    """Velocity self-advect (``.ino:251-256``)."""
-    if getattr(adv, "takes_self_advect", False):
-        return adv(vel, vel, dt, no_slip=True, self_advect=True)
-    return adv(vel, vel, dt, no_slip=True)
-
-
-def _advect_color(adv, color, vel, cfg: SimConfig):
-    clip = cfg.clamps_dye
-    if clip and getattr(adv, "fuses_clip01", False):
-        return adv(color, vel, cfg.dt, no_slip=False, clip01=True)
+def _advect_color(adv, color, vel, cfg: SimConfig, rgb565: bool = False,
+                  bswap: bool = True):
+    """Dye advect (``.ino:280-282``), clipped to [0, 1] where
+    ``cfg.clamps_dye``.  Where K2 advects the dye (the semi-Lagrangian
+    advector on the kernel path) the clip rides its store, and with
+    ``rgb565`` so does the frame: ``(color, frame)``."""
+    if cfg.clamps_dye and _use_pallas_advect(cfg, vel):
+        return adv(color, vel, cfg.dt, no_slip=False, clip01=True,
+                   rgb565=rgb565, bswap=bswap)
     color = adv(color, vel, cfg.dt, no_slip=False)
-    return torch.clamp(color, 0.0, 1.0) if clip else color
+    return torch.clamp(color, 0.0, 1.0) if cfg.clamps_dye else color
 
 
 def _project(vel: torch.Tensor, cfg: SimConfig,
@@ -384,14 +317,13 @@ def _step_tiled(state: SimState, impulses: Impulses | None, cfg: SimConfig,
                     step=state.step + 1)
 
 
-def step(state: SimState, impulses: Impulses, cfg: SimConfig) -> SimState:
-    """One simulation step — the reference's ``loop()`` (``.ino:249-289``).
-    ``impulses`` may lie on the CPU; they follow the state's device."""
-    if cfg.domain_tile is not None:
-        return _step_tiled(state, impulses, cfg)
+def _step(state: SimState, impulses: Impulses, cfg: SimConfig,
+          rgb565: bool = False, bswap: bool = True):
+    """``step`` on a grid without member tiles, as ``(state, frame)``: the
+    frame K2 packs on the dye store with ``rgb565``, else None."""
     impulses = _on_device(impulses, state.velocity.device)
     adv = _advect_by(cfg, state.velocity)
-    vel = _self_advect(adv, state.velocity, cfg.dt)
+    vel = adv(state.velocity, state.velocity, cfg.dt, no_slip=True)
     if cfg.solver == "fused_pallas" and cfg.vorticity_eps == 0.0:
         # K1 drains the queue itself (same .ino:258-278 order)
         vel = _project(vel, cfg, impulses=impulses)
@@ -399,8 +331,17 @@ def step(state: SimState, impulses: Impulses, cfg: SimConfig) -> SimState:
         # confinement sits between the impulses and the projection, so
         # this order keeps the drain out of K1
         vel = _project(_impulses_and_forces(vel, impulses, cfg), cfg)
-    color = _advect_color(adv, state.color, vel, cfg)
-    return SimState(velocity=vel, color=color, step=state.step + 1)
+    color = _advect_color(adv, state.color, vel, cfg, rgb565, bswap)
+    color, frame = color if rgb565 else (color, None)
+    return SimState(velocity=vel, color=color, step=state.step + 1), frame
+
+
+def step(state: SimState, impulses: Impulses, cfg: SimConfig) -> SimState:
+    """One simulation step — the reference's ``loop()`` (``.ino:249-289``).
+    ``impulses`` may lie on the CPU; they follow the state's device."""
+    if cfg.domain_tile is not None:
+        return _step_tiled(state, impulses, cfg)
+    return _step(state, impulses, cfg)[0]
 
 
 def step_render(state: SimState, impulses: Impulses, cfg: SimConfig,
@@ -418,18 +359,11 @@ def step_render(state: SimState, impulses: Impulses, cfg: SimConfig,
                  and _use_pallas_advect(cfg, state.velocity))
         if fused and cfg.domain_tile is not None:
             return _step_tiled(state, impulses, cfg, rgb565=True, bswap=bswap)
-        if not fused:
-            st = step(state, impulses, cfg)
-            return st, render_rgb565(st.color, s=cfg.scaling, bswap=bswap,
-                                     unit_range=cfg.clamps_dye)
-        impulses = _on_device(impulses, state.velocity.device)
-        adv = _advect_by(cfg, state.velocity)
-        vel = _self_advect(adv, state.velocity, cfg.dt)
-        vel = _project(vel, cfg, impulses=impulses)
-        color, frame = advect_kernel(state.color, vel, cfg.dt, False,
-                                     max_disp=cfg.advect_max_disp, clip01=True,
-                                     rgb565=True, bswap=bswap)
-        return SimState(velocity=vel, color=color, step=state.step + 1), frame
+        if fused:
+            return _step(state, impulses, cfg, rgb565=True, bswap=bswap)
+        st = step(state, impulses, cfg)
+        return st, render_rgb565(st.color, s=cfg.scaling, bswap=bswap,
+                                 unit_range=cfg.clamps_dye)
 
 
 def make_step(cfg: SimConfig, donate: bool = True):
@@ -461,7 +395,7 @@ def step_with_metrics(state: SimState, impulses: Impulses, cfg: SimConfig):
     ignored: the whole grid steps as one domain."""
     impulses = _on_device(impulses, state.velocity.device)
     adv = _advect_by(cfg, state.velocity)
-    vel = _self_advect(adv, state.velocity, cfg.dt)
+    vel = adv(state.velocity, state.velocity, cfg.dt, no_slip=True)
     vel = _impulses_and_forces(vel, impulses, cfg)
 
     div = divergence(vel, cfg.dx)

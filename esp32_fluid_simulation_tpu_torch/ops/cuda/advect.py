@@ -71,8 +71,9 @@ import torch
 from ...render.upscale import pack_rgb565
 from ...spans import span
 from ..advect import noslip_axis_factor
-from .build import load, stream_of
-from .modes import BLOCK_MODE, check_block, check_member, refuse_unported
+from .build import launch
+from .modes import (BLOCK_MODE, F32, FLOATS, check_block, check_launch,
+                    check_member, refuse_unported)
 
 _NONE, _RAW = 0, 1   # enum MinMax in csrc/advect.cu
 _WINDOW_TOO_LARGE = -1   # kWindowTooLarge in csrc/advect.cu
@@ -179,24 +180,16 @@ def advect_maccormack_reference(field, vel, dt, no_slip, max_disp=12,
 
 def _checked_3d(name, field, vel, max_disp, block=None):
     """Validate a CUDA launch's inputs; the field as ``[C, H, W]``."""
-    if not field.is_cuda:
-        raise ValueError(f"{name}: unsupported device {field.device}")
     f3 = field[None] if field.dim() == 2 else field
     c, h, w = f3.shape
     # the launch puts rows on grid.y, 8 a block, at most 65535 blocks
     if c not in (1, 2, 3) or h < 2 or w < 2 or h > 8 * 65535:
         raise ValueError(f"{name}: field shape {tuple(field.shape)} not "
                          "supported (C <= 3, 2 <= H <= 524280, W >= 2)")
-    if f3.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{name}: field dtype {f3.dtype} not supported "
-                         "(float32, bfloat16)")
     vshape = (2, h, w) if block is None else (2, block.bh, block.bw)
-    if vel.shape != vshape or vel.dtype != torch.float32:
+    if vel.shape != vshape:
         raise ValueError(f"{name}: vel must be float32 {list(vshape)}")
-    if vel.device != field.device:
-        raise ValueError(f"{name}: field and vel on different devices")
-    if not (f3.is_contiguous() and vel.is_contiguous()):
-        raise ValueError(f"{name}: inputs must be contiguous")
+    check_launch(name, field=(f3, FLOATS), vel=(vel, F32))
     if not 0 <= max_disp < 2 ** 24:
         raise ValueError(f"{name}: max_disp={max_disp} out of range")
     return f3
@@ -231,16 +224,10 @@ def _launch_advect(f3, vel, dt, no_slip, max_disp, clip01=False,
                          device=f3.device) if rgb565 else None)
     lo = torch.empty_like(out) if minmax else None
     hi = torch.empty_like(out) if minmax else None
-    lib = load()
-    with torch.cuda.device(f3.device):
-        lib.call("fluid_advect", f3.data_ptr(), vel.data_ptr(),
-                 None if overlay is None else overlay.data_ptr(),
-                 out.data_ptr(), frame.data_ptr() if rgb565 else None,
-                 lo.data_ptr() if minmax else None,
-                 hi.data_ptr() if minmax else None,
-                 c, h, w, int(f3.dtype == torch.bfloat16), float(dt),
-                 int(max_disp), mh, mw, ox, oy, g, gh, gw, int(no_slip),
-                 int(clip01), int(bswap), int(minmax), stream_of(f3))
+    launch("fluid_advect", f3, f3, vel, overlay, out, frame, lo, hi, c, h, w,
+           int(f3.dtype == torch.bfloat16), float(dt), int(max_disp), mh, mw,
+           ox, oy, g, gh, gw, int(no_slip), int(clip01), int(bswap),
+           int(minmax))
     return out, frame, lo, hi
 
 
@@ -332,39 +319,22 @@ def maccormack_reach(vel, dt, max_disp):
     return tuple(int(x) + 1 for x in r.amax(dim=(1, 2)))
 
 
-def _launch_maccormack(f3, vel, dt, no_slip, max_disp, member):
-    """The window route: one launch, or None where its window does not fit
-    a block of the device."""
+def _maccormack_args(f3, dt, no_slip, max_disp, member):
+    """The launch arguments K5's two entries share after their buffers."""
     c, h, w = f3.shape
     mh, mw = member or (0, 0)
-    out = torch.empty_like(f3)
-    with torch.cuda.device(f3.device):
-        err = load().value("fluid_maccormack", f3.data_ptr(), vel.data_ptr(),
-                           out.data_ptr(), c, h, w,
-                           int(f3.dtype == torch.bfloat16), float(dt),
-                           int(max_disp), mh, mw, int(no_slip),
-                           stream_of(f3))
-    if err == _WINDOW_TOO_LARGE:
-        return None
-    if err != 0:
-        raise RuntimeError(f"fluid_maccormack failed with CUDA error {err}")
-    return out
+    return (c, h, w, int(f3.dtype == torch.bfloat16), float(dt),
+            int(max_disp), mh, mw, int(no_slip))
 
 
 def _launch_two(f3, vel, dt, no_slip, max_disp, member):
     """The two-launch route: K2 with the raw extrema, then the backward
     pass and the limiter."""
-    c, h, w = f3.shape
-    mh, mw = member or (0, 0)
     phi_hat, _, cmin, cmax = _launch_advect(f3, vel, dt, no_slip, max_disp,
                                             minmax=_RAW, member=member)
     out = torch.empty_like(f3)
-    with torch.cuda.device(f3.device):
-        load().call("fluid_maccormack_correct", f3.data_ptr(),
-                    phi_hat.data_ptr(), cmin.data_ptr(), cmax.data_ptr(),
-                    vel.data_ptr(), out.data_ptr(), c, h, w,
-                    int(f3.dtype == torch.bfloat16), float(dt),
-                    int(max_disp), mh, mw, int(no_slip), stream_of(f3))
+    launch("fluid_maccormack_correct", f3, f3, phi_hat, cmin, cmax, vel, out,
+           *_maccormack_args(f3, dt, no_slip, max_disp, member))
     return out
 
 
@@ -389,8 +359,11 @@ def advect_maccormack_kernel(field: torch.Tensor, vel: torch.Tensor,
         return advect_maccormack_reference(field, vel, dt, no_slip,
                                            max_disp=max_disp, member=member)
     f3 = _checked_3d("advect_maccormack_kernel", field, vel, max_disp)
-    out = _launch_maccormack(f3, vel, dt, no_slip, max_disp, member)
-    if out is not None:
+    out = torch.empty_like(f3)
+    # the window route, unless its window does not fit a block
+    if launch("fluid_maccormack", f3, f3, vel, out,
+              *_maccormack_args(f3, dt, no_slip, max_disp, member),
+              refused=_WINDOW_TOO_LARGE):
         advect_maccormack_kernel.launches += 1
         advect_maccormack_kernel.member_launches += member is not None
     else:

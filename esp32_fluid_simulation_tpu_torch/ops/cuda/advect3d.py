@@ -44,8 +44,8 @@ import torch
 
 from ..advect import noslip_axis_factor
 from ...spans import span
-from .build import load, stream_of
-from .modes import check_block3d
+from .build import launch
+from .modes import FLOATS, check_block3d, check_launch
 
 
 def _clamped_source(x, raw, max_disp, n):
@@ -136,40 +136,24 @@ def advect3d_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
                                         else ""))
         if field.device.type == "cpu":
             return advect3d_reference(field, vel, dt, no_slip, max_disp, blk)
-        if not field.is_cuda:
-            raise ValueError(f"advect3d_kernel: unsupported device "
-                             f"{field.device}")
-
         # the launch puts planes on grid.z and rows on grid.y, 8 a block
         if not 1 <= c <= 4 or min(d, h, w) < 2 or d > 65535 or h > 8 * 65535:
             raise ValueError(f"advect3d_kernel: field shape "
                              f"{tuple(field.shape)} not supported (C <= 4, "
                              "2 <= D <= 65535, 2 <= H <= 524280, W >= 2)")
-        # the self-advect in block mode reads the velocity from the field
-        v = f4 if vel is None else vel
-        for name, t in (("field", f4), ("vel", v)):
-            if t.dtype not in (torch.float32, torch.bfloat16):
-                raise ValueError(f"advect3d_kernel: {name} dtype {t.dtype} "
-                                 "not supported (float32, bfloat16)")
-        if v.device != field.device:
-            raise ValueError("advect3d_kernel: field and vel on different "
-                             "devices")
-        if not (f4.is_contiguous() and v.is_contiguous()):
-            raise ValueError("advect3d_kernel: inputs must be contiguous")
+        check_launch("advect3d_kernel", field=(f4, FLOATS), vel=(vel, FLOATS))
         if not 0 <= max_disp < 2 ** 24:
             raise ValueError(f"advect3d_kernel: max_disp={max_disp} out of "
                              "range")
 
         ox, oy, g, gh, gw = ((0, 0, 0, h, w) if blk is None else
                              (blk.ox, blk.oy, blk.halo, blk.gh, blk.gw))
+        # the self-advect in block mode reads the velocity from the field
+        v = f4 if vel is None else vel
         out = f4.new_empty((c, d, h, w))
-        lib = load()
-        with torch.cuda.device(field.device):
-            lib.call("fluid_advect3d", f4.data_ptr(),
-                     None if vel is None else vel.data_ptr(), out.data_ptr(),
-                     c, d, h, w, int(f4.dtype == torch.bfloat16),
-                     int(v.dtype == torch.bfloat16), float(dt), int(max_disp),
-                     int(no_slip), ox, oy, g, gh, gw, stream_of(field))
+        launch("fluid_advect3d", f4, f4, vel, out, c, d, h, w,
+               int(f4.dtype == torch.bfloat16), int(v.dtype == torch.bfloat16),
+               float(dt), int(max_disp), int(no_slip), ox, oy, g, gh, gw)
         advect3d_kernel.launches += 1
         advect3d_kernel.block_launches += blk is not None
         return out[0] if field.dim() == 3 else out

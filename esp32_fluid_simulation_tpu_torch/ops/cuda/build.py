@@ -14,8 +14,12 @@ see each other's half-written output.
 ``--fmad=false`` keeps every product and sum rounded on its own, so each
 kernel matches its plain PyTorch version to the bit.
 
-Every C entry point returns ``cudaGetLastError()`` after its launches;
-``KernelLibrary.call`` raises on anything but 0.
+Every C entry point returns ``cudaGetLastError()`` after its launches.
+The kernel wrappers reach the library through one path, ``launch`` (and
+``query`` for the entries that answer the host): it loads the library,
+makes the launch's device current where it is not, passes tensors as their
+pointers and the device's current stream last, and raises on a nonzero
+code.
 """
 
 from __future__ import annotations
@@ -99,6 +103,10 @@ _SIGNATURES = {
     # segments, inv_vmax, bswap, stream
     "fluid_smoke_mip": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
+# Each entry's buffer arguments by position (a launch entry's stream, last,
+# aside): the launch path passes a tensor there as its data pointer
+_BUFFERS = {name: tuple(k for k, t in enumerate(argtypes[:-1]) if t is _P)
+            for name, argtypes in _SIGNATURES.items()}
 
 
 class KernelLibrary:
@@ -190,6 +198,39 @@ def _compile_and_link(srcs, tmp: Path, target: Path) -> str:
     return log
 
 
-def stream_of(t) -> ctypes.c_void_p:
-    """The current PyTorch stream on ``t``'s device, as a C pointer."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def _invoke(entry: str, device: torch.device, args, stream: bool) -> int:
+    """What entry ``entry`` returns, called with ``device`` current: a
+    tensor in a buffer argument as its data pointer (None is a null
+    pointer) and, with ``stream``, the device's current stream last."""
+    args = list(args)
+    for k in _BUFFERS[entry]:
+        if args[k] is not None:
+            args[k] = args[k].data_ptr()
+    if stream:
+        # read at every call, as torch.cuda.stream() and graph capture set
+        # it; torch.cuda.current_stream(device).cuda_stream is the same
+        # handle by way of a Stream object, 7-9 us a launch more (H100 host)
+        args.append(torch._C._cuda_getCurrentRawStream(device.index))
+    lib = load()
+    if device.index == torch.cuda.current_device():
+        return lib.value(entry, *args)
+    with torch.cuda.device(device):
+        return lib.value(entry, *args)
+
+
+def launch(entry: str, on: torch.Tensor, *args, refused=None) -> bool:
+    """Launch entry ``entry`` on ``on``'s device and current stream with
+    ``args`` (tensors and None as ``_invoke`` passes them).  Raises
+    RuntimeError on a nonzero code other than ``refused``, the code with
+    which an entry says it launched nothing; returns whether it
+    launched."""
+    code = _invoke(entry, on.device, args, True)
+    if code not in (0, refused):
+        raise RuntimeError(f"{entry} failed with CUDA error {code}")
+    return code == 0
+
+
+def query(entry: str, device: torch.device, *args) -> int:
+    """What query entry ``entry`` answers for ``device`` (made current; it
+    takes no stream)."""
+    return _invoke(entry, device, args, False)

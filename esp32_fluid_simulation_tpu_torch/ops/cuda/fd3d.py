@@ -15,7 +15,8 @@ import torch
 
 from ..fd import divergence, subtract_gradient
 from ...spans import span
-from .build import load, stream_of
+from .build import launch
+from .modes import F32, check_launch
 
 
 def divergence3d_reference(vel, dx=1.0):
@@ -28,16 +29,18 @@ def subtract_gradient3d_reference(vel, p, dx=1.0):
     return subtract_gradient(vel, p, dx)
 
 
-def _check_vel(name, vel):
-    if vel.dim() != 4 or vel.shape[0] != 3 or vel.dtype != torch.float32:
+def _checked(name, vel, p=None):
+    """Validate a CUDA launch's inputs; ``(D, H, W)``."""
+    if vel.dim() != 4 or vel.shape[0] != 3:
         raise ValueError(f"{name}: vel must be float32 [3, D, H, W]")
-    if not vel.is_contiguous():
-        raise ValueError(f"{name}: vel must be contiguous")
     _, d, h, w = vel.shape
     # the launch puts planes on grid.z and rows on grid.y, 8 a block
     if min(d, h, w) < 2 or d > 65535 or h > 8 * 65535:
         raise ValueError(f"{name}: shape {tuple(vel.shape)} not supported "
                          "(2 <= D <= 65535, 2 <= H <= 524280, W >= 2)")
+    if p is not None and p.shape != (d, h, w):
+        raise ValueError(f"{name}: p must be float32 [D, H, W]")
+    check_launch(name, vel=(vel, F32), p=(p, F32))
     return d, h, w
 
 
@@ -51,14 +54,9 @@ def divergence3d(vel: torch.Tensor, dx: float = 1.0) -> torch.Tensor:
     with span("fluid.k8.fd3d"):
         if vel.device.type == "cpu":
             return divergence3d_reference(vel, dx)
-        if not vel.is_cuda:
-            raise ValueError(f"divergence3d: unsupported device {vel.device}")
-        d, h, w = _check_vel("divergence3d", vel)
+        d, h, w = _checked("divergence3d", vel)
         out = torch.empty((d, h, w), dtype=torch.float32, device=vel.device)
-        lib = load()
-        with torch.cuda.device(vel.device):
-            lib.call("fluid_divergence3d", vel.data_ptr(), out.data_ptr(), d,
-                     h, w, _inv2dx(dx), stream_of(vel))
+        launch("fluid_divergence3d", vel, vel, out, d, h, w, _inv2dx(dx))
         divergence3d.launches += 1
         return out
 
@@ -69,21 +67,10 @@ def subtract_gradient3d(vel: torch.Tensor, p: torch.Tensor,
     with span("fluid.k8.fd3d"):
         if vel.device.type == "cpu":
             return subtract_gradient3d_reference(vel, p, dx)
-        if not vel.is_cuda:
-            raise ValueError(f"subtract_gradient3d: unsupported device "
-                             f"{vel.device}")
-        d, h, w = _check_vel("subtract_gradient3d", vel)
-        if p.shape != (d, h, w) or p.dtype != torch.float32:
-            raise ValueError("subtract_gradient3d: p must be float32 "
-                             "[D, H, W]")
-        if p.device != vel.device or not p.is_contiguous():
-            raise ValueError("subtract_gradient3d: p must be contiguous, on "
-                             "vel's device")
+        d, h, w = _checked("subtract_gradient3d", vel, p)
         out = torch.empty_like(vel)
-        lib = load()
-        with torch.cuda.device(vel.device):
-            lib.call("fluid_subtract_gradient3d", vel.data_ptr(), p.data_ptr(),
-                     out.data_ptr(), d, h, w, _inv2dx(dx), stream_of(vel))
+        launch("fluid_subtract_gradient3d", vel, vel, p, out, d, h, w,
+               _inv2dx(dx))
         subtract_gradient3d.launches += 1
         return out
 

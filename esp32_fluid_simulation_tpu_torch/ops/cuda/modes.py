@@ -1,6 +1,6 @@
-"""Argument checks shared by the kernel wrappers: block mode (K11) of K1,
-K2, K4, K7 and K9, and the member-tile shape of the tiled-domain modes
-(K6)."""
+"""Argument checks shared by the kernel wrappers: the tensors of a CUDA
+launch, block mode (K11) of K1, K2, K4, K7 and K9, and the member-tile
+shape of the tiled-domain modes (K6)."""
 
 from __future__ import annotations
 
@@ -9,6 +9,32 @@ from typing import NamedTuple
 import torch
 
 BLOCK_MODE = ("global_offset", "global_shape", "halo")
+F32 = (torch.float32,)
+FLOATS = (torch.float32, torch.bfloat16)
+
+
+def check_launch(name, **tensors):
+    """Raise ValueError unless each keyword's ``(tensor, dtypes)`` is fit
+    for a launch of wrapper ``name``: the tensors on one CUDA device (the
+    first's; else "unsupported device"), contiguous, each of one of its
+    ``dtypes``.  A None tensor is an absent buffer.  The keywords name the
+    tensors in the messages."""
+    first = None
+    for label, (t, dtypes) in tensors.items():
+        if t is None:
+            continue
+        if first is None:
+            if not t.is_cuda:
+                raise ValueError(f"{name}: unsupported device {t.device}")
+            first = label, t.device
+        elif t.device != first[1]:
+            raise ValueError(f"{name}: {label} and {first[0]} on different "
+                             "devices")
+        if t.dtype not in dtypes:
+            raise ValueError(f"{name}: {label} dtype {t.dtype} not supported "
+                             f"({', '.join(str(d)[6:] for d in dtypes)})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
 
 
 def refuse_unported(name, kwargs, also=()):

@@ -52,13 +52,16 @@ import torch
 
 from ...spans import span
 from ..fd import divergence, subtract_gradient
+from ..impulses import apply_impulses, impulses_in_window
 from ..poisson import _shift_zero, sor_solve
-from .build import load, stream_of
-from .modes import block_coords, check_block, check_member, refuse_unported
+from .build import launch, query
+from .modes import (F32, block_coords, check_block, check_launch,
+                    check_member, refuse_unported)
 from .sor import (WINDOW_MAX_ITERS, member_sor_solve, member_walls, owned,
                   walls_at, window_tile)
 
 _MAX_IMPULSES = 64  # kMaxImpulses in csrc/project.cu
+_I32, _BOOL = (torch.int32,), (torch.bool,)
 
 
 # The window route's widest window: 4 warps a block, a lane one plane
@@ -77,14 +80,14 @@ def strip_plan(bh, bw, iters, blocks):
     return n_strips, max(1, min(bh, -(-blocks // n_strips)))
 
 
-def strip_blocks(lib, device, iters):
-    """The window route's blocks for a call: two waves of the blocks the
-    card holds at once (its SMs times the blocks per SM it reports for
-    ``iters``'s instance), so that blocks start and end at different
-    times."""
+def strip_blocks(device, iters):
+    """The window route's blocks for a call on ``device``: two waves of the
+    blocks the card holds at once (its SMs times the blocks per SM it
+    reports for ``iters``'s instance), so that blocks start and end at
+    different times."""
     key = (device.index, iters <= 10)
     if key not in strip_blocks.cache:
-        per_sm = lib.value("fluid_project_window_blocks", int(iters))
+        per_sm = query("fluid_project_window_blocks", device, int(iters))
         if per_sm < 1:
             raise RuntimeError("project_fused: the window route's kernel "
                                "cannot run on this card")
@@ -127,7 +130,6 @@ def block_project(vel, dx, iters, omega, impulses, member, blk):
     crop."""
     gi, gj, in_dom = block_coords(blk, vel.shape[1:], vel.device)
     if impulses is not None:
-        from ...models.stable_fluids import apply_impulses, impulses_in_window
         vel = apply_impulses(vel, impulses_in_window(
             impulses, (blk.gh, blk.gw), blk.origin, vel.shape[1:]))
     walls = walls_at(gi, gj, blk.gh, blk.gw, member)
@@ -145,7 +147,6 @@ def project_fused_reference(vel, dx=1.0, iters=10, omega=1.96,
     if block is not None:
         return block_project(vel, dx, iters, omega, impulses, member, block)
     if impulses is not None:
-        from ...models.stable_fluids import apply_impulses
         vel = apply_impulses(vel, impulses)
     if member is None:
         p = sor_solve(divergence(vel, dx), dx, iters, omega)
@@ -178,12 +179,6 @@ def project_fused(vel: torch.Tensor, dx: float = 1.0, iters: int = 10,
         if vel.device.type == "cpu":
             return project_fused_reference(vel, dx, iters, omega, impulses,
                                            member, blk)
-        if not vel.is_cuda:
-            raise ValueError(f"project_fused: unsupported device {vel.device}")
-        if vel.dtype != torch.float32:
-            raise ValueError("project_fused: vel must be float32 [2, H, W]")
-        if not vel.is_contiguous():
-            raise ValueError("project_fused: vel must be contiguous")
         _, h, w = vel.shape
         # the launches put rows on grid.y, 8 a block, at most 65535 blocks
         if h < 2 or w < 2 or h > 8 * 65535 or iters < 0:
@@ -197,15 +192,13 @@ def project_fused(vel: torch.Tensor, dx: float = 1.0, iters: int = 10,
             if n_imp > _MAX_IMPULSES or impulses.pos.shape != (n_imp, 2):
                 raise ValueError(f"project_fused: impulses must be [K, 2] "
                                  f"with K <= {_MAX_IMPULSES}")
-            for t in impulses:
-                if t.device != vel.device:
-                    raise ValueError("project_fused: impulses and vel on "
-                                     "different devices")
             ipos = impulses.pos.to(torch.int32).contiguous()
             # round the written values through vel.dtype, as the scatter does
             ivel = (impulses.velocity.to(vel.dtype).to(torch.float32)
                     .contiguous())
             iact = impulses.active.to(torch.bool).contiguous()
+        check_launch("project_fused", vel=(vel, F32), ipos=(ipos, _I32),
+                     ivel=(ivel, F32), iact=(iact, _BOOL))
 
         mh, mw = member or (0, 0)
         if blk is None:
@@ -215,35 +208,27 @@ def project_fused(vel: torch.Tensor, dx: float = 1.0, iters: int = 10,
             bh, bw = blk.bh, blk.bw
         out = torch.empty((2, bh, bw), dtype=vel.dtype, device=vel.device)
         p_out = torch.empty((bh, bw), dtype=vel.dtype, device=vel.device)
-        imp_ptrs = [None if t is None else t.data_ptr()
-                    for t in (ipos, ivel, iact)]
+        imps = (ipos, ivel, iact)
         geometry = (n_imp, h, w, mh, mw, oi, oj, gh, gw, g)
         numbers = (float(dx), float(np.float32(1.0 / (2.0 * dx))), int(iters),
                    float(omega), float(np.float32(1.0 - omega)))
-        lib = load()
-        with torch.cuda.device(vel.device):
-            if iters <= WINDOW_MAX_ITERS and member is None:
-                plan = strip_plan(bh, bw, iters,
-                                  strip_blocks(lib, vel.device, iters))
-                lib.call("fluid_project_window", vel.data_ptr(),
-                         out.data_ptr(), p_out.data_ptr(), *imp_ptrs,
-                         *geometry, *numbers, *plan, stream_of(vel))
-                project_fused.window_launches += 1
-            elif iters <= WINDOW_MAX_ITERS:
-                lib.call("fluid_project_trapezoid", vel.data_ptr(),
-                         out.data_ptr(), p_out.data_ptr(), *imp_ptrs,
-                         *geometry, *numbers, *window_tile(2 * iters + 1),
-                         stream_of(vel))
-                project_fused.window_launches += 1
-                project_fused.trapezoid_launches += 1
-            else:
-                # scratch: the haloed block's pressure in block mode, dx * div
-                p = p_out if blk is None else torch.empty_like(vel[0])
-                dxd = torch.empty_like(vel[0])
-                lib.call("fluid_project", vel.data_ptr(), out.data_ptr(),
-                         p.data_ptr(), dxd.data_ptr(), *imp_ptrs, *geometry,
-                         p_out.data_ptr(), *numbers, stream_of(vel))
-                project_fused.sequence_launches += 1
+        if iters <= WINDOW_MAX_ITERS and member is None:
+            plan = strip_plan(bh, bw, iters, strip_blocks(vel.device, iters))
+            launch("fluid_project_window", vel, vel, out, p_out, *imps,
+                   *geometry, *numbers, *plan)
+            project_fused.window_launches += 1
+        elif iters <= WINDOW_MAX_ITERS:
+            launch("fluid_project_trapezoid", vel, vel, out, p_out, *imps,
+                   *geometry, *numbers, *window_tile(2 * iters + 1))
+            project_fused.window_launches += 1
+            project_fused.trapezoid_launches += 1
+        else:
+            # scratch: the haloed block's pressure in block mode, dx * div
+            p = p_out if blk is None else torch.empty_like(vel[0])
+            dxd = torch.empty_like(vel[0])
+            launch("fluid_project", vel, vel, out, p, dxd, *imps, *geometry,
+                   p_out, *numbers)
+            project_fused.sequence_launches += 1
         project_fused.launches += 1
         project_fused.member_launches += member is not None
         project_fused.block_launches += blk is not None

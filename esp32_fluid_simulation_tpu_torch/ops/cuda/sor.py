@@ -43,8 +43,9 @@ import numpy as np
 import torch
 
 from ..poisson import _parity, _shift_zero, neg_inv_of, sor_solve
-from .build import load, stream_of
-from .modes import block_coords, check_block, check_member, refuse_unported
+from .build import launch
+from .modes import (F32, block_coords, check_block, check_launch,
+                    check_member, refuse_unported)
 
 
 # The window routes' tile (K4 here, K1 in project.py): (rows, columns) of
@@ -163,12 +164,7 @@ def sor_solve_kernel(d: torch.Tensor, dx: float = 1.0, iters: int = 10,
                           *(d.shape if blk is None else (blk.gh, blk.gw)))
     if d.device.type == "cpu":
         return sor_solve_reference(d, dx, iters, omega, member, blk)
-    if not d.is_cuda:
-        raise ValueError(f"sor_solve_kernel: unsupported device {d.device}")
-    if d.dtype != torch.float32:
-        raise ValueError("sor_solve_kernel: d must be float32 [H, W]")
-    if not d.is_contiguous():
-        raise ValueError("sor_solve_kernel: d must be contiguous")
+    check_launch("sor_solve_kernel", d=(d, F32))
     h, w = d.shape
     # the half-sweeps put rows on grid.y, 8 a block, at most 65535 blocks
     if h < 2 or w < 2 or h > 8 * 65535 or iters < 0:
@@ -184,20 +180,16 @@ def sor_solve_kernel(d: torch.Tensor, dx: float = 1.0, iters: int = 10,
     geometry = (h, w, mh, mw, oi, oj, gh, gw, g)
     numbers = (float(dx), int(iters), float(omega),
                float(np.float32(1.0 - omega)))
-    lib = load()
-    with torch.cuda.device(d.device):
-        if iters <= WINDOW_MAX_ITERS:
-            lib.call("fluid_sor_window", d.data_ptr(), out.data_ptr(),
-                     *geometry, *numbers, *window_tile(2 * iters),
-                     stream_of(d))
-            sor_solve_kernel.window_launches += 1
-        else:
-            # scratch: the haloed block's pressure in block mode, dx * d
-            p = out if g == 0 else torch.empty_like(d)
-            dxd = torch.empty_like(d)
-            lib.call("fluid_sor", d.data_ptr(), p.data_ptr(), dxd.data_ptr(),
-                     *geometry, out.data_ptr(), *numbers, stream_of(d))
-            sor_solve_kernel.sequence_launches += 1
+    if iters <= WINDOW_MAX_ITERS:
+        launch("fluid_sor_window", d, d, out, *geometry, *numbers,
+               *window_tile(2 * iters))
+        sor_solve_kernel.window_launches += 1
+    else:
+        # scratch: the haloed block's pressure in block mode, dx * d
+        p = out if g == 0 else torch.empty_like(d)
+        dxd = torch.empty_like(d)
+        launch("fluid_sor", d, d, p, dxd, *geometry, out, *numbers)
+        sor_solve_kernel.sequence_launches += 1
     sor_solve_kernel.launches += 1
     sor_solve_kernel.member_launches += member is not None
     sor_solve_kernel.block_launches += blk is not None

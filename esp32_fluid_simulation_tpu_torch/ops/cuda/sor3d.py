@@ -45,8 +45,8 @@ import torch
 
 from ..poisson import _shift_zero, neg_inv_of, sor_solve
 from ...spans import span
-from .build import load, stream_of
-from .modes import chunk_geometry
+from .build import launch
+from .modes import F32, check_launch, chunk_geometry
 
 _LANE = 128  # the TPU kernel's fixed column halo, which bounds ``chunk``
 # The deepest pass (half-sweeps fused in one launch): the sharded chain's
@@ -170,13 +170,7 @@ def sor3d_chunk_reference(d, p, dx, sweeps, omega, origin, domain):
 def _passes(name, d, p, dx, levels, omega, origin, domain):
     """``levels`` half-sweeps from ``p`` (None: from zero) on a CUDA ``d``,
     one launch per pass, into a fresh tensor."""
-    if d.dtype != torch.float32 or (p is not None
-                                    and p.dtype != torch.float32):
-        raise ValueError(f"{name}: d and p must be float32")
-    if p is not None and p.device != d.device:
-        raise ValueError(f"{name}: d and p on different devices")
-    if not (d.is_contiguous() and (p is None or p.is_contiguous())):
-        raise ValueError(f"{name}: inputs must be contiguous")
+    check_launch(name, d=(d, F32), p=(p, F32))
     dd, h, w = d.shape
     if min(dd, h, w) < 2 or dd * h * w >= 1 << 31:
         raise ValueError(f"{name}: shape {tuple(d.shape)} not supported "
@@ -192,16 +186,12 @@ def _passes(name, d, p, dx, levels, omega, origin, domain):
     vec = int(w % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in
                                  (d, out, p, scratch) if t is not None))
     src, h0 = p, 0
-    lib = load()
-    with torch.cuda.device(d.device):
-        for k, depth in enumerate(depths):
-            dst = out if (len(depths) - 1 - k) % 2 == 0 else scratch
-            lib.call("fluid_sor3d_pass", d.data_ptr(),
-                     None if src is None else src.data_ptr(), dst.data_ptr(),
-                     dd, h, w, *origin, *domain, float(dx), h0, depth,
-                     float(omega), float(np.float32(1.0 - omega)), th, tw,
-                     zc, vec, stream_of(d))
-            src, h0 = dst, h0 + depth
+    for k, depth in enumerate(depths):
+        dst = out if (len(depths) - 1 - k) % 2 == 0 else scratch
+        launch("fluid_sor3d_pass", d, d, src, dst, dd, h, w, *origin, *domain,
+               float(dx), h0, depth, float(omega),
+               float(np.float32(1.0 - omega)), th, tw, zc, vec)
+        src, h0 = dst, h0 + depth
     return out
 
 
@@ -219,8 +209,6 @@ def sor3d_chunk(d: torch.Tensor, p: torch.Tensor, dx: float, sweeps: int,
         raise ValueError(f"sor3d_chunk: sweeps={sweeps} must be >= 0")
     if d.device.type == "cpu":
         return sor3d_chunk_reference(d, p, dx, sweeps, omega, origin, domain)
-    if not d.is_cuda:
-        raise ValueError(f"sor3d_chunk: unsupported device {d.device}")
     out = _passes("sor3d_chunk", d, p, dx, 2 * sweeps, omega, origin, domain)
     sor3d_chunk.launches += 1
     return out
@@ -245,8 +233,6 @@ def sor3d_solve(d: torch.Tensor, dx: float = 1.0, iters: int = 10,
                 f"{_LANE}-lane panel; use chunk <= {_LANE // 2}")
         if d.device.type == "cpu":
             return sor3d_reference(d, dx, iters, omega)
-        if not d.is_cuda:
-            raise ValueError(f"sor3d_solve: unsupported device {d.device}")
         if d.dim() != 3:
             raise ValueError("sor3d_solve: d must be float32 [D, H, W]")
         if iters < 0:

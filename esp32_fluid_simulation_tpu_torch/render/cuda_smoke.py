@@ -26,7 +26,8 @@ import torch
 from .smoke import heat_colormap
 from .upscale import pack_rgb565
 from ..spans import span
-from ..ops.cuda.build import load, stream_of
+from ..ops.cuda.build import launch
+from ..ops.cuda.modes import FLOATS, check_launch
 
 # Launch geometry: pixel groups and depth segments a block, the fastest
 # cold at 256^3 bf16 within 1% (tools/torch_k10_mip.py --sweep, PERF.md)
@@ -83,18 +84,10 @@ def render_smoke_mip_kernel(density: torch.Tensor, bswap: bool = True,
     with span("fluid.k10.mip"):
         if density.device.type == "cpu":
             return render_smoke_mip_reference(density, bswap, vmax)
-        if not density.is_cuda:
-            raise ValueError(f"render_smoke_mip_kernel: unsupported device "
-                             f"{density.device}")
         if density.dim() != 3:
             raise ValueError("render_smoke_mip_kernel: density must be "
                              "[D, H, W]")
-        if density.dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"render_smoke_mip_kernel: dtype {density.dtype} "
-                             "not supported (float32, bfloat16)")
-        if not density.is_contiguous():
-            raise ValueError("render_smoke_mip_kernel: density must be "
-                             "contiguous")
+        check_launch("render_smoke_mip_kernel", density=(density, FLOATS))
         d, h, w = density.shape
         plan = mip_plan(density)
         # the grid is one-dimensional, at most 2^31 - 1 blocks
@@ -103,13 +96,10 @@ def render_smoke_mip_kernel(density: torch.Tensor, bswap: bool = True,
             raise ValueError(f"render_smoke_mip_kernel: shape "
                              f"{tuple(density.shape)} not supported")
         out = torch.empty((h, w), dtype=torch.uint16, device=density.device)
-        lib = load()
-        with torch.cuda.device(density.device):
-            lib.call("fluid_smoke_mip", density.data_ptr(), out.data_ptr(), d,
-                     h, w, int(density.dtype == torch.bfloat16), plan.vec,
-                     plan.seg_len, plan.threads_x, plan.segments,
-                     float(np.float32(1.0 / vmax)), int(bswap),
-                     stream_of(density))
+        launch("fluid_smoke_mip", density, density, out, d, h, w,
+               int(density.dtype == torch.bfloat16), plan.vec, plan.seg_len,
+               plan.threads_x, plan.segments, float(np.float32(1.0 / vmax)),
+               int(bswap))
         render_smoke_mip_kernel.launches += 1
         return out
 

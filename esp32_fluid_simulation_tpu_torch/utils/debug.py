@@ -19,7 +19,7 @@ from ..config import SimConfig
 from ..state import SimState, Impulses
 from ..models.stable_fluids import (_advect_by, _advect_color,
                                     _impulses_and_forces, _on_device,
-                                    _project, _self_advect)
+                                    _project)
 
 
 class StepError:
@@ -61,7 +61,7 @@ def make_checked_step(cfg: SimConfig):
                 error = (f"non-finite {stage} output at step "
                          f"{state.step + 1}")
 
-        vel = _self_advect(adv, state.velocity, cfg.dt)
+        vel = adv(state.velocity, state.velocity, cfg.dt, no_slip=True)
         check("self-advect", vel)
         vel = _impulses_and_forces(vel, impulses, cfg)
         check("impulses", vel)

@@ -243,7 +243,6 @@ def _seam_impulses(shape, iters, dev, member=False):
     within a window's reach of them, a duplicate and an out-of-range
     position."""
     from esp32_fluid_simulation_tpu_torch.ops.cuda import project
-    from esp32_fluid_simulation_tpu_torch.ops.cuda.build import load
     from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import window_tile
     iters = min(iters, project.WINDOW_MAX_ITERS)
     if member:
@@ -251,7 +250,7 @@ def _seam_impulses(shape, iters, dev, member=False):
     else:
         n_strips, n_segs = project.strip_plan(
             *shape, iters,
-            project.strip_blocks(load(), torch.device(dev), iters))
+            project.strip_blocks(torch.device(dev), iters))
         th, tw = max(shape[0] // n_segs, 1), max(shape[1] // n_strips, 1)
     r = 2 * iters + 2
     return Impulses.from_lists(
@@ -858,3 +857,82 @@ def test_sharded_kernel_step_on_one_card(cuda, solver):
             sor_solve_kernel.block_launches) == (before[0] + 24,
                                                  before[1] + k1,
                                                  before[2] + 12 - k1)
+
+
+# One call of each wrapper the launch path serves: (its inputs from a
+# generator, as float32 arrays; the call)
+LAUNCH_CASES = {
+    "K1 project_fused": (
+        lambda g: [200 * g.standard_normal((2,) + SHAPE)],
+        lambda v: project_fused(v, 1.0, 10, 1.96)),
+    "K2 advect_kernel": (
+        lambda g: [g.random((3,) + SHAPE), 200 * g.standard_normal(
+            (2,) + SHAPE)],
+        lambda f, v: advect_kernel(f, v, 1 / 30, False, clip01=True)),
+    "K3 render_rgb565_kernel": (
+        lambda g: [g.random((3,) + SHAPE)],
+        lambda c: render_rgb565_kernel(c, 3)),
+    "K4 sor_solve_kernel": (
+        lambda g: [g.standard_normal(SHAPE)], sor_solve_kernel),
+    "K5 advect_maccormack_kernel": (
+        lambda g: [g.random((3,) + SHAPE), 200 * g.standard_normal(
+            (2,) + SHAPE)],
+        lambda f, v: advect_maccormack_kernel(f, v, 1 / 30, False)),
+    "K7 advect3d_kernel": (
+        lambda g: [20 * g.standard_normal((3,) + SHAPE3)],
+        lambda v: advect3d_kernel(v, None, 1 / 30, True)),
+    "K8 divergence3d": (
+        lambda g: [g.standard_normal((3,) + SHAPE3)], divergence3d),
+    "K8 subtract_gradient3d": (
+        lambda g: [g.standard_normal((3,) + SHAPE3),
+                   g.standard_normal(SHAPE3)], subtract_gradient3d),
+    "K9 sor3d_solve": (lambda g: [g.standard_normal(SHAPE3)], sor3d_solve),
+    "K10 render_smoke_mip_kernel": (
+        lambda g: [g.random(SHAPE3)], render_smoke_mip_kernel),
+}
+
+
+def _outputs(got):
+    return got if isinstance(got, tuple) else (got,)
+
+
+@pytest.mark.parametrize("case", sorted(LAUNCH_CASES))
+def test_wrapper_launches_on_the_current_stream(cuda, rng, case):
+    """Under ``torch.cuda.stream(s)`` a wrapper's kernels run on ``s``: its
+    inputs are written on ``s`` behind a ~25 ms sleep, so a kernel on any
+    other stream would read them unwritten (zeros).  The result equals the
+    default stream's bit for bit."""
+    make, call = LAUNCH_CASES[case]
+    inputs = [_on(a.astype(np.float32), cuda) for a in make(rng)]
+    want = _outputs(call(*inputs))
+    blank = [torch.zeros_like(t) for t in inputs]
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(50_000_000)
+        for b, t in zip(blank, inputs):
+            b.copy_(t)
+        got = _outputs(call(*blank))
+    s.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("case", sorted(LAUNCH_CASES))
+def test_wrapper_launches_on_a_second_card(cuda, rng, case):
+    """With cuda:0 current, a wrapper given tensors on cuda:1 runs its
+    kernels there (the launch path makes that card current for the launch
+    only), bit-equal to the same call on cuda:0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    make, call = LAUNCH_CASES[case]
+    arrays = [a.astype(np.float32) for a in make(rng)]
+    second = torch.device("cuda", 1)
+    want = _outputs(call(*[_on(a, cuda) for a in arrays]))
+    got = _outputs(call(*[_on(a, second) for a in arrays]))
+    torch.cuda.synchronize(second)
+    assert torch.cuda.current_device() == cuda.index
+    for g, w in zip(got, want):
+        assert g.device == second
+        assert torch.equal(_bits(g).cpu(), _bits(w).cpu())

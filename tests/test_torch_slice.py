@@ -16,6 +16,7 @@
 * config JSON, the interop round trip, and the package importing no JAX.
 """
 
+import ast
 import functools
 import json
 import os
@@ -284,6 +285,31 @@ def test_port_imports_no_jax():
             assert not any(refused(w) for w in names), (src, line)
         assert "libfluidhost.so" not in src.read_text() or \
             src.name == "native.py", src
+
+
+def test_ops_and_render_import_no_layer_above():
+    """No module under ``ops/`` or ``render/`` imports the models, the mesh,
+    the host side, the utilities or the entry points, at its top or inside
+    a function: the kernels and their plain versions sit below every
+    caller."""
+    above = {"models", "parallel", "io_host", "utils", "run", "demo"}
+    for src in sorted((PKG / "ops").rglob("*.py")) + sorted(
+            (PKG / "render").rglob("*.py")):
+        package = src.relative_to(ROOT).parts[:-1]
+        for node in ast.walk(ast.parse(src.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name.split(".") for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                base = list(package[:len(package) - node.level + 1]
+                            if node.level else [])
+                base += node.module.split(".") if node.module else []
+                names = [base] if node.module else [base + [a.name]
+                                                    for a in node.names]
+            else:
+                continue
+            for name in names:
+                assert not (name[0] == PKG.name and len(name) > 1
+                            and name[1] in above), (src, node.lineno, name)
 
 
 def test_chip_smoke_refuses_without_gpu():

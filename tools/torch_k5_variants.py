@@ -30,7 +30,7 @@ from esp32_fluid_simulation_tpu_torch.io_host.touch import (  # noqa: E402
     scripted_swirl)
 from esp32_fluid_simulation_tpu_torch.ops.cuda import advect  # noqa: E402
 from esp32_fluid_simulation_tpu_torch.ops.cuda.build import (  # noqa: E402
-    NVCC_FLAGS, _nvcc, stream_of)
+    NVCC_FLAGS, _nvcc)
 
 VARIANTS = {"registers": 1, "bands": 2, "no ring (split)": 3,
             "forward only (split)": 4}
@@ -100,7 +100,9 @@ def main():
         err = lib.k5_variant(var, field.data_ptr(), vel.data_ptr(),
                              out.data_ptr(), *field.shape,
                              int(field.dtype == torch.bfloat16), dt, md,
-                             int(no_slip), stream_of(field))
+                             int(no_slip),
+                             torch.cuda.current_stream(field.device)
+                             .cuda_stream)
         if err:
             raise RuntimeError(f"variant {var}: CUDA error {err}")
         return out
