@@ -23,7 +23,8 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    tile's ring;
    K3 at s = 1 to 5 (s = 4 its own instance), f32 and bf16, ``bswap`` and
    ``unit_range`` both ways.
-1b. The same for the 3D smoke kernels (K7 advection, K8 divergence and
+1b. The same for the 3D smoke kernels (K7 advection, also its scalar
+   launch with the plume's source and buoyancy, K8 divergence and
    gradient subtract, K9 SOR at iters 0, 1 and 10, K10 MIP render) at
    (9, 33, 130) and 256^3, K10 also at each volume of
    ``tests/mip_cases.py`` (every branch of its launch plan: short depths,
@@ -42,9 +43,11 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    ``tests/golden/path_smoke3d.npz`` (rtol 1e-4, atol 1e-4).
 7. The 3D main path: the default ``SmokeConfig`` at 256^3 through
    ``make_smoke_step`` + ``render_smoke`` for 20 steps, with the launch
-   counters proving K7 ran twice, K8 (each) and K9 once per step and K10
-   once per frame; the plume checked and held against the same steps on
-   the plain path on the card.
+   counters proving K7 ran twice (once with the source and buoyancy), K8
+   (each) and K9 once per step and K10 once per frame; the plume checked
+   and held bit for bit to the same steps on the plain path on the card
+   (the source and buoyancy there as eager ops after K7's plain
+   version).
 8. Config 3: ``examples/config3_2048_maccormack_multigrid.json`` through
    ``make_step_render`` for 20 steps (K5 = 2 one-launch calls per step,
    no two-launch call, no K2 launch), bit-identical to the plain path on
@@ -617,8 +620,11 @@ def phase1b_kernels3d(dev):
     and at the plume's 256^3, K10 also at every branch of its plan.
     Returns the largest difference per summary row and K10's calls
     (volume, vmax), whose device launches phase 5 counts."""
+    from esp32_fluid_simulation_tpu_torch import SmokeConfig
+    from esp32_fluid_simulation_tpu_torch.models.smoke3d import (
+        inject_and_buoy, plume_source, source_tensor)
     from esp32_fluid_simulation_tpu_torch.ops.cuda.advect3d import (
-        advect3d_kernel, advect3d_reference)
+        advect3d_kernel, advect3d_reference, advect3d_source_kernel)
     from esp32_fluid_simulation_tpu_torch.ops.cuda.fd3d import (
         divergence3d, divergence3d_reference, subtract_gradient3d,
         subtract_gradient3d_reference)
@@ -647,6 +653,20 @@ def phase1b_kernels3d(dev):
         check("K7 advect3d_kernel", "K7 bf16 density+temperature",
               advect3d_kernel(pair, vel, dt, False, 2),
               advect3d_reference(pair, vel, dt, False, 2))
+        # the scalar launch with the plume's source on the default sphere,
+        # against the plain launch and inject_and_buoy's eager ops
+        scfg = SmokeConfig(shape=shape)
+        mask = source_tensor(scfg, dev)
+        got_vel, want_vel = vel.clone(), vel.clone()
+        got = advect3d_source_kernel(pair[0], pair[1], got_vel, dt, False,
+                                     plume_source(scfg, mask), 2)
+        want_vel, rho_w, temp_w = inject_and_buoy(
+            want_vel, *advect3d_reference(pair, want_vel, dt, False, 2),
+            mask, scfg)
+        check("K7 advect3d_kernel", "K7 scalars + source: velocity",
+              got_vel, want_vel)
+        check("K7 advect3d_kernel", "K7 scalars + source: scalars", got,
+              torch.stack([rho_w, temp_w]))
         p = torch.randn(shape, generator=gen, device=dev)
         check("K8 divergence3d", "K8 divergence", divergence3d(vel, 1.0),
               divergence3d_reference(vel, 1.0))
@@ -751,6 +771,8 @@ def reset_counts():
         "K5 two-launch route": (advect_maccormack_kernel,
                                 "two_launch_calls"),
         "K7 advect3d_kernel": (advect3d_kernel, "launches"),
+        # K7's scalar launches with the plume's source and buoyancy
+        "K7 source launches": (advect3d_kernel, "source_launches"),
         "K8 divergence3d": (divergence3d, "launches"),
         "K8 subtract_gradient3d": (subtract_gradient3d, "launches"),
         "K9 sor3d_solve": (sor3d_solve, "launches"),
@@ -1884,12 +1906,15 @@ def phase6_smoke_golden(dev):
           "(rtol 1e-4, atol 1e-4) ok")
 
 
-def plain_smoke_step(state, cfg, src):
+def plain_smoke_step(state, cfg, src, impulses=None):
     """The plume step through the kernels' plain versions (the same
-    arithmetic in PyTorch ops), on any device."""
+    arithmetic in PyTorch ops) and the source and buoyancy as eager ops,
+    draining ``impulses`` as ``smoke_step`` does, on any device."""
     from esp32_fluid_simulation_tpu_torch import SmokeState
     from esp32_fluid_simulation_tpu_torch.models.smoke3d import (
         inject_and_buoy)
+    from esp32_fluid_simulation_tpu_torch.models.stable_fluids import (
+        apply_impulses_)
     from esp32_fluid_simulation_tpu_torch.ops.cuda.advect3d import (
         advect3d_reference)
     from esp32_fluid_simulation_tpu_torch.ops.cuda.fd3d import (
@@ -1905,6 +1930,8 @@ def plain_smoke_step(state, cfg, src):
     vel, rho, temp = inject_and_buoy(vel, scal[0], scal[1], src, cfg)
     if cfg.vorticity_eps > 0:
         vel = vorticity_confinement(vel, cfg.vorticity_eps, dt, cfg.dx)
+    if impulses is not None:
+        vel = apply_impulses_(vel, impulses)
     p = sor3d_reference(divergence3d_reference(vel, cfg.dx), cfg.dx,
                         cfg.sor_iters, cfg.omega)
     vel = subtract_gradient3d_reference(vel, p, cfg.dx)
@@ -1937,9 +1964,11 @@ def phase7_smoke_main_path(dev, cfg):
             "K8 subtract_gradient3d": SMOKE_STEPS,
             "K9 sor3d_solve": SMOKE_STEPS,
             "K10 render_smoke_mip_kernel": SMOKE_STEPS}
-    if any(n[k] != v for k, v in want.items()):
+    if any(n[k] != v for k, v in want.items()) or (
+            n["K7 source launches"] != SMOKE_STEPS):
         raise AssertionError(f"phase 7: launch counts {n} for {SMOKE_STEPS} "
-                             f"steps (want {want})")
+                             f"steps (want {want}, K7 source launches "
+                             f"{SMOKE_STEPS})")
     for name in ("velocity", "density", "temperature"):
         if not torch.isfinite(getattr(st, name).float()).all():
             raise AssertionError(f"phase 7: non-finite {name}")
@@ -1959,7 +1988,8 @@ def phase7_smoke_main_path(dev, cfg):
         raise AssertionError(f"phase 7: frame {frame.dtype} "
                              f"{tuple(frame.shape)}")
     print(f"phase 7 smoke main path {cfg.shape} {SMOKE_STEPS} steps + "
-          f"renders: launches {want}; finite, density in [{lo}, {hi}], "
+          f"renders: launches {want}, K7 with the source "
+          f"{n['K7 source launches']}; finite, density in [{lo}, {hi}], "
           f"smoke above the source {above:.4g}, sum v0*rho {w_up:.4g} (< 0: "
           f"rising), frame uint16 {tuple(frame.shape)}")
 
@@ -1979,25 +2009,22 @@ def phase7_smoke_main_path(dev, cfg):
     print(f"phase 7 plain path on the card: max|dv|={dv:.3g} "
           f"max|drho|={dr:.3g} frame equal={100 * frame_eq:.4f}% "
           f"bit-identical={same}")
-    # stated tolerance: each kernel is bit-equal to its plain version, so
-    # the trajectories must agree to the bit up to float32 noise
-    torch.testing.assert_close(st.velocity, ps.velocity, rtol=1e-5,
-                               atol=1e-5)
-    for a, b in ((st.density, ps.density),
-                 (st.temperature, ps.temperature)):
-        torch.testing.assert_close(a.float(), b.float(), rtol=0,
-                                   atol=2.0 ** -8)
-    if frame_eq < 0.9999:
-        raise AssertionError(f"phase 7: frames agree on {frame_eq:.6f}")
+    # each kernel, K7's source epilogue included, is bit-equal to its plain
+    # version, so the trajectories and frames agree to the bit
+    if not same or frame_eq != 1.0:
+        raise AssertionError(f"phase 7: the kernel path differs from the "
+                             f"plain path (max|dv| {dv}, max|drho| {dr}, "
+                             f"frames agree on {frame_eq:.6f})")
     return {k: n[k] for k in want}, st
 
 
 def phase5_smoke_timing(dev, cfg, state, card):
     from esp32_fluid_simulation_tpu_torch import make_smoke_step, render_smoke
     from esp32_fluid_simulation_tpu_torch.models.smoke3d import (
-        source_tensor)
+        plume_source, source_tensor)
     from esp32_fluid_simulation_tpu_torch.ops.cuda.advect3d import (
-        advect3d_kernel, advect3d_reference)
+        advect3d_kernel, advect3d_reference, advect3d_source_kernel,
+        advect3d_source_reference)
     from esp32_fluid_simulation_tpu_torch.ops.cuda.fd3d import (
         divergence3d, divergence3d_reference, subtract_gradient3d,
         subtract_gradient3d_reference)
@@ -2024,14 +2051,22 @@ def phase5_smoke_timing(dev, cfg, state, card):
     vel, rho = state.velocity, state.density
     pair = torch.stack([state.density, state.temperature])
     md, dt, dx = cfg.advect_max_disp, cfg.dt, cfg.dx
+    # the step's scalar launch: the source and buoyancy as its epilogue,
+    # the force written into a copy of the velocity (the plain version
+    # stacks the pair and runs inject_and_buoy's eager ops)
+    source = plume_source(cfg, src)
+    vsrc = vel.clone()
     div = divergence3d(vel, dx)
     p = sor3d_solve(div, dx, cfg.sor_iters, cfg.omega)
     it, om = cfg.sor_iters, cfg.omega
     per_kernel = {
         "K7 velocity": (lambda: advect3d_kernel(vel, vel, dt, True, md),
                         lambda: advect3d_reference(vel, vel, dt, True, md)),
-        "K7 scalars": (lambda: advect3d_kernel(pair, vel, dt, False, md),
-                       lambda: advect3d_reference(pair, vel, dt, False, md)),
+        "K7 scalars": (
+            lambda: advect3d_source_kernel(pair[0], pair[1], vsrc, dt, False,
+                                           source, md),
+            lambda: advect3d_source_reference(pair[0], pair[1], vsrc, dt,
+                                              False, source, md)),
         "K8 divergence3d": (lambda: divergence3d(vel, dx),
                             lambda: divergence3d_reference(vel, dx)),
         "K8 subtract_gradient3d": (
@@ -2060,12 +2095,14 @@ def phase5_smoke_timing(dev, cfg, state, card):
 
     n = vel[0].numel()
     d, h, w = cfg.shape
+    # the epilogue's bytes: axis 0 of the velocity stored, the mask read
+    epilogue = nbytes(vel[0], src)
     return {
         "K7 advect3d_kernel": (
             res["K7 velocity"] + res["K7 scalars"],
             res["K7 velocity plain"] + res["K7 scalars plain"],
-            3 * nbytes(vel) + 2 * nbytes(pair), n * ((34 + 3 * 19 + 17)
-                                                     + (34 + 2 * 19))),
+            3 * nbytes(vel) + 2 * nbytes(pair) + epilogue,
+            n * ((34 + 3 * 19 + 17) + (34 + 2 * 19 + 13))),
         "K8 divergence3d": (res["K8 divergence3d"],
                             res["K8 divergence3d plain"],
                             nbytes(vel, div), 9 * n),

@@ -49,6 +49,19 @@
 // stores where the rows allow them, was timed against a thread per cell
 // and lost at 256^3 on the whole grid (PERF.md, PR 9), so a thread owns one
 // cell.
+//
+// The plume's source and buoyancy (SOURCE, the whole grid's scalar launch,
+// models/smoke3d.py inject_and_buoy): density and temperature are read
+// through two pointers, and the thread that owns a cell, which alone reads
+// that cell's velocity, finishes its step there before the stores:
+//   rho  = min(bf16(bf16(rho_adv) + bf16(rho_in * src)), 1)  (NaN kept)
+//   temp = bf16(bf16(temp_adv) + bf16(temp_in * src))
+//   vel[0] -= (alpha * temp - beta * rho) * dt               (float32)
+// with src the mask's cell, each operation rounded where PyTorch rounds it,
+// so the step stays bit-equal to the advection followed by inject_and_buoy's
+// eager ops.  The velocity is the
+// step's own, fresh from the self-advect: axis 0 is written in place, through
+// a pointer that is not restrict-qualified.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -67,6 +80,11 @@ __device__ __forceinline__ void store(float* p, long long k, float v) {
 __device__ __forceinline__ void store(__nv_bfloat16* p, long long k,
                                       float v) {
   p[k] = __float2bfloat16_rn(v);
+}
+// a float32 value rounded to the storage dtype T and back
+__device__ __forceinline__ float rounded(const float*, float v) { return v; }
+__device__ __forceinline__ float rounded(const __nv_bfloat16*, float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // advect.h:62-70: a sample past the wall attenuates to zero over half a
@@ -92,12 +110,22 @@ struct Block {
   int ox, oy, halo, GH, GW;
 };
 
-template <typename T, typename V, bool BLOCK, bool SELF>
+// SOURCE's operands: the temperature (field channel 1), the mask (field
+// dtype), the velocity written in place, the injections dt * rate and the
+// buoyancy's alpha and beta.
+struct Source {
+  const void* field1;
+  const void* mask;
+  void* vel;
+  float rho_in, temp_in, alpha, beta;
+};
+
+template <typename T, typename V, bool BLOCK, bool SELF, bool SOURCE>
 __global__ void advect3d_kernel(const T* __restrict__ field,
                                 const V* __restrict__ vel,
                                 T* __restrict__ out, int C, int D, int H,
                                 int W, float dt, float md, int no_slip,
-                                const Block b) {
+                                const Block b, const Source src) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   const int z = blockIdx.z;
@@ -119,9 +147,11 @@ __global__ void advect3d_kernel(const T* __restrict__ field,
   const long long vc =
       SELF ? z * fplane + (long long)(i + b.halo) * FW + (j + b.halo) : c;
   const long long vvol = SELF ? fvol : vol;
-  const float sz_raw = zf - load(vel, vc) * dt;
-  const float si_raw = xi - load(vel, vvol + vc) * dt;
-  const float sj_raw = xj - load(vel, 2 * vvol + vc) * dt;
+  const V* v = SOURCE ? static_cast<const V*>(src.vel) : vel;
+  const float v0 = load(v, vc);
+  const float sz_raw = zf - v0 * dt;
+  const float si_raw = xi - load(v, vvol + vc) * dt;
+  const float sj_raw = xj - load(v, 2 * vvol + vc) * dt;
   const float sz = source(zf, sz_raw, md, D);
   const float si = source(xi, si_raw, md, GH);
   const float sj = source(xj, sj_raw, md, GW);
@@ -145,8 +175,12 @@ __global__ void advect3d_kernel(const T* __restrict__ field,
   if (no_slip)
     ns = (noslip_factor(sz_raw, D) * noslip_factor(si_raw, GH)) *
          noslip_factor(sj_raw, GW);
+  float acc0 = 0.f, acc1 = 0.f;  // SOURCE: density and temperature
   for (int ch = 0; ch < C; ++ch) {
-    const T* f = field + ch * fvol + t;
+    const T* f =
+        (SOURCE ? (ch == 0 ? field : static_cast<const T*>(src.field1))
+                : field + ch * fvol) +
+        t;
     const float c00 = (load(f, 0) * one_m_dj + load(f, 1) * dj) * w00;
     const float c01 = (load(f, FW) * one_m_dj + load(f, FW + 1) * dj) * w01;
     const float c10 =
@@ -156,19 +190,37 @@ __global__ void advect3d_kernel(const T* __restrict__ field,
         w11;
     float acc = ((c00 + c01) + c10) + c11;
     if (no_slip) acc = acc * ns;
-    store(out, ch * vol + c, acc);
+    if (!SOURCE)
+      store(out, ch * vol + c, acc);
+    else if (ch == 0)
+      acc0 = acc;
+    else
+      acc1 = acc;
+  }
+  if (SOURCE) {
+    const float s = load(static_cast<const T*>(src.mask), c);
+    float rho = rounded(out, rounded(out, acc0) +
+                                 rounded(out, src.rho_in * s));
+    if (rho > 1.f) rho = 1.f;  // torch.clamp(max=1): NaN passes
+    const float temp = rounded(out, rounded(out, acc1) +
+                                        rounded(out, src.temp_in * s));
+    const float buoy = (src.alpha * temp - src.beta * rho) * dt;
+    store(static_cast<V*>(src.vel), c, v0 - buoy);
+    store(out, c, rho);
+    store(out, vol + c, temp);
   }
 }
 
-template <typename T, typename V, bool BLOCK, bool SELF>
+template <typename T, typename V, bool BLOCK, bool SELF, bool SOURCE = false>
 cudaError_t launch_mode(const void* field, const void* vel, void* out, int C,
                         int D, int H, int W, float dt, float md, int no_slip,
-                        const Block& b, cudaStream_t stream) {
+                        const Block& b, cudaStream_t stream,
+                        const Source& src = Source{}) {
   const dim3 block(32, 8);
   const dim3 grid((W + 31) / 32, (H + 7) / 8, D);
-  advect3d_kernel<T, V, BLOCK, SELF><<<grid, block, 0, stream>>>(
+  advect3d_kernel<T, V, BLOCK, SELF, SOURCE><<<grid, block, 0, stream>>>(
       static_cast<const T*>(field), static_cast<const V*>(vel),
-      static_cast<T*>(out), C, D, H, W, dt, md, no_slip, b);
+      static_cast<T*>(out), C, D, H, W, dt, md, no_slip, b, src);
   return cudaGetLastError();
 }
 
@@ -218,4 +270,23 @@ extern "C" int fluid_advect3d(const void* field, const void* vel, void* out,
                                                         no_slip, b, s)
                         : launch<float, float>(field, vel, out, C, D, H, W,
                                                dt, md, no_slip, b, s));
+}
+
+// The plume's scalar launch with its source and buoyancy (SOURCE): rho and
+// temp [D, H, W] bfloat16 (the density and temperature, read through two
+// pointers), vel [3, D, H, W] float32 (axis 0 receives the force in place),
+// out [2, D, H, W] bfloat16, mask [D, H, W] bfloat16; rho_in and temp_in
+// the injections dt * rate, alpha and beta the buoyancy's.
+extern "C" int fluid_advect3d_source(const void* rho, const void* temp,
+                                     void* vel, void* out, const void* mask,
+                                     int D, int H, int W, float dt,
+                                     int max_disp, int no_slip,
+                                     float rho_in, float temp_in,
+                                     float alpha, float beta, void* stream) {
+  const Source src{temp, mask, vel, rho_in, temp_in, alpha, beta};
+  const Block b{0, 0, 0, H, W};
+  // the kernel reads and writes the velocity through src.vel only
+  return (int)launch_mode<__nv_bfloat16, float, false, false, true>(
+      rho, nullptr, out, 2, D, H, W, dt, (float)max_disp, no_slip, b,
+      static_cast<cudaStream_t>(stream), src);
 }

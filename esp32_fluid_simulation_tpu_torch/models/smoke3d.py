@@ -11,7 +11,10 @@ projection, as in the dye bed: a user stirs the rising column.
 
 On CUDA tensors at the sizes the JAX package sends to its TPU kernels the
 step runs the hand-written kernels: K7 ``ops/cuda/advect3d.py`` (velocity
-self-advect, then density + temperature in one 2-channel call), K8
+self-advect, then density + temperature in one 2-channel call, which on
+a float32 velocity and bfloat16 scalars and mask also injects the source
+and applies the buoyancy before it stores, bit-equal to
+``inject_and_buoy``: ``advect3d_source_kernel``), K8
 ``ops/cuda/fd3d.py`` (divergence, gradient subtract) and K9
 ``ops/cuda/sor3d.py`` (the SOR solve).  Smaller or CPU grids run the
 rank-polymorphic eager ops.  PyTorch runs eagerly: ``make_smoke_step``
@@ -29,7 +32,8 @@ from ..ops.advect import advect
 from ..ops.fd import divergence, subtract_gradient, vorticity_confinement
 from ..ops.poisson import sor_solve
 from ..ops.multigrid import multigrid_solve
-from ..ops.cuda.advect3d import advect3d_kernel
+from ..ops.cuda.advect3d import (Source, advect3d_kernel,
+                                 advect3d_source_kernel, apply_source)
 from ..ops.cuda.fd3d import divergence3d, subtract_gradient3d
 from ..ops.cuda.sor3d import sor3d_solve
 from ..spans import span
@@ -105,6 +109,13 @@ def source_tensor(cfg: SmokeConfig, device) -> torch.Tensor:
     return _source_mask(cfg, device).to(cfg.torch_sdtype)
 
 
+def plume_source(cfg: SmokeConfig, src: torch.Tensor) -> Source:
+    """The step's source and buoyancy, from the mask ``src``."""
+    return Source(src, cfg.dt * cfg.source_density,
+                  cfg.dt * cfg.source_temperature, cfg.buoyancy_alpha,
+                  cfg.buoyancy_beta)
+
+
 def init_smoke(cfg: SmokeConfig, device="cuda") -> SmokeState:
     """Zero velocity, density and temperature on ``device``."""
     return SmokeState(
@@ -152,18 +163,20 @@ def _use_fd3d_kernel(cfg: SmokeConfig, vel: torch.Tensor) -> bool:
             and vel.is_cuda and cfg.advect_impl != "jnp")
 
 
+def _source_in_k7(vel, rho, temp, src) -> bool:
+    """Whether K7's scalar launch applies the source and buoyancy: on the
+    plume's dtypes (float32 velocity, bfloat16 scalars and mask)."""
+    return (vel.dtype == torch.float32 and rho.dtype == torch.bfloat16
+            and temp.dtype == torch.bfloat16 and src.dtype == torch.bfloat16)
+
+
 def inject_and_buoy(vel, rho, temp, src, cfg: SmokeConfig):
-    """Plume source and buoyancy (``smoke3d.py:169-179``).  The scalars
-    round in their storage dtype after every op; the force is computed in
-    the velocity dtype and subtracted from axis 0 of ``vel`` in place
-    (``vel`` is the fresh tensor the advection returned)."""
-    dt = cfg.dt
-    rho = torch.clamp(rho + dt * cfg.source_density * src, max=1.0)
-    temp = temp + dt * cfg.source_temperature * src
-    buoy = (cfg.buoyancy_alpha * temp.to(cfg.torch_dtype)
-            - cfg.buoyancy_beta * rho.to(cfg.torch_dtype)) * dt
-    vel[0] -= buoy
-    return vel, rho, temp
+    """Plume source and buoyancy (``smoke3d.py:169-179``) in eager ops
+    (``ops/cuda/advect3d.py`` ``apply_source``).  The scalars round in
+    their storage dtype after every op; the force is computed in the
+    velocity dtype and subtracted from axis 0 of ``vel`` in place (``vel``
+    is the fresh tensor the advection returned)."""
+    return apply_source(vel, rho, temp, plume_source(cfg, src), cfg.dt)
 
 
 def smoke_step(state: SmokeState, cfg: SmokeConfig,
@@ -182,21 +195,29 @@ def smoke_step(state: SmokeState, cfg: SmokeConfig,
         if src is None:
             src = source_tensor(cfg, vel.device)
 
-        # 1. advect everything through the current flow
+        # 1. advect everything through the current flow; 2-3. plume
+        # source, buoyancy along -axis 0 (low indices are up)
         if _use_pallas_advect3d(cfg, vel):
             md = cfg.advect_max_disp
             vel = advect3d_kernel(vel, vel, dt, no_slip=True, max_disp=md)
-            # rho + temp share one backtrace: one 2-channel call
-            scal = advect3d_kernel(torch.stack([rho, temp]), vel, dt,
-                                   no_slip=False, max_disp=md)
+            # rho + temp share one backtrace: one 2-channel call, which on
+            # the plume's dtypes also applies the source and buoyancy
+            fused = _source_in_k7(vel, rho, temp, src)
+            if fused:
+                scal = advect3d_source_kernel(
+                    rho, temp, vel, dt, no_slip=False,
+                    source=plume_source(cfg, src), max_disp=md)
+            else:
+                scal = advect3d_kernel(torch.stack([rho, temp]), vel, dt,
+                                       no_slip=False, max_disp=md)
             rho, temp = scal[0], scal[1]
         else:
+            fused = False
             vel = advect(vel, vel, dt, no_slip=True)
             rho = advect(rho, vel, dt, no_slip=False)
             temp = advect(temp, vel, dt, no_slip=False)
-
-        # 2-3. plume source, buoyancy along -axis 0 (low indices are up)
-        vel, rho, temp = inject_and_buoy(vel, rho, temp, src, cfg)
+        if not fused:
+            vel, rho, temp = inject_and_buoy(vel, rho, temp, src, cfg)
         if cfg.vorticity_eps > 0:   # smoke3d.py:180-182
             vel = vorticity_confinement(vel, cfg.vorticity_eps, dt, cfg.dx)
         if impulses is not None:

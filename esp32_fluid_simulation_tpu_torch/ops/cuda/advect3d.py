@@ -36,16 +36,58 @@ grid that is ``vel = field``; in block mode the backtrace reads the
 velocity from the haloed field's owned interior (``field[:, :, halo:-halo,
 halo:-halo]``), so a shard's owned velocity is read once, not a second time
 as its own array (``csrc/advect3d.cu``, the ``SELF`` flag).
+
+The plume's source and buoyancy (``advect3d_source_kernel``, a
+``Source``; the whole grid): the density and temperature, read through one
+pointer each, are advected as one 2-channel launch that applies
+``apply_source`` to what it advects before it stores, writing the
+buoyancy into axis 0 of ``vel`` in place (the step's own velocity, fresh
+from the self-advect).  Every operation rounds where ``apply_source``'s
+eager ops round, so the result equals the advection followed by
+``apply_source`` to the bit.  The kernel takes float32 velocities and
+bfloat16 scalars and mask, the plume's dtypes; the plain version
+(``advect3d_source_reference``) any.  It runs under K7's span and counts
+in ``advect3d_kernel.launches``; ``advect3d_kernel.source_launches``
+counts its launches and, on the CPU, its plain version's runs, so the
+route a step takes shows without a card.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from ..advect import noslip_axis_factor
 from ...spans import span
 from .build import launch
-from .modes import FLOATS, check_block3d, check_launch
+from .modes import F32, FLOATS, check_block3d, check_launch
+
+
+class Source(NamedTuple):
+    """The plume's source and buoyancy for a scalar launch: ``mask`` the
+    ``[D, H, W]`` source in the scalars' dtype; ``density`` and
+    ``temperature`` what a step injects where the mask is 1 (dt times the
+    rate); ``alpha`` and ``beta`` the buoyancy's lift and weight."""
+
+    mask: torch.Tensor
+    density: float
+    temperature: float
+    alpha: float
+    beta: float
+
+
+def apply_source(vel, rho, temp, source: Source, dt):
+    """The plume's source and buoyancy over ``dt`` in eager ops: the
+    scalars round in their storage dtype after every op; the force is
+    computed in the velocity dtype and subtracted from axis 0 of ``vel`` in
+    place.  Returns ``(vel, rho, temp)``."""
+    rho = torch.clamp(rho + source.density * source.mask, max=1.0)
+    temp = temp + source.temperature * source.mask
+    buoy = (source.alpha * temp.to(vel.dtype)
+            - source.beta * rho.to(vel.dtype)) * dt
+    vel[0] -= buoy
+    return vel, rho, temp
 
 
 def _clamped_source(x, raw, max_disp, n):
@@ -103,6 +145,27 @@ def advect3d_reference(field, vel, dt, no_slip, max_disp=4, block=None):
     return out[0] if squeeze else out
 
 
+def advect3d_source_reference(rho, temp, vel, dt, no_slip, source: Source,
+                              max_disp=4):
+    """Plain PyTorch version of the launch with the source: the 2-channel
+    advection of ``(rho, temp)``, then ``apply_source`` (``vel`` written in
+    place); returns the ``[2, D, H, W]`` scalars."""
+    out = advect3d_reference(torch.stack([rho, temp]), vel, dt, no_slip,
+                             max_disp)
+    _, rho, temp = apply_source(vel, out[0], out[1], source, dt)
+    return torch.stack([rho, temp])
+
+
+def _check_launch_grid(name, shape, c, d, h, w, max_disp):
+    """The launch's limits: planes on grid.z, rows on grid.y, 8 a block."""
+    if not 1 <= c <= 4 or min(d, h, w) < 2 or d > 65535 or h > 8 * 65535:
+        raise ValueError(f"{name}: field shape {tuple(shape)} not supported "
+                         "(C <= 4, 2 <= D <= 65535, 2 <= H <= 524280, "
+                         "W >= 2)")
+    if not 0 <= max_disp < 2 ** 24:
+        raise ValueError(f"{name}: max_disp={max_disp} out of range")
+
+
 def advect3d_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
                     no_slip: bool, max_disp: int = 4, global_offset=None,
                     global_shape=None, halo: int = 0):
@@ -136,15 +199,9 @@ def advect3d_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
                                         else ""))
         if field.device.type == "cpu":
             return advect3d_reference(field, vel, dt, no_slip, max_disp, blk)
-        # the launch puts planes on grid.z and rows on grid.y, 8 a block
-        if not 1 <= c <= 4 or min(d, h, w) < 2 or d > 65535 or h > 8 * 65535:
-            raise ValueError(f"advect3d_kernel: field shape "
-                             f"{tuple(field.shape)} not supported (C <= 4, "
-                             "2 <= D <= 65535, 2 <= H <= 524280, W >= 2)")
+        _check_launch_grid("advect3d_kernel", field.shape, c, d, h, w,
+                           max_disp)
         check_launch("advect3d_kernel", field=(f4, FLOATS), vel=(vel, FLOATS))
-        if not 0 <= max_disp < 2 ** 24:
-            raise ValueError(f"advect3d_kernel: max_disp={max_disp} out of "
-                             "range")
 
         ox, oy, g, gh, gw = ((0, 0, 0, h, w) if blk is None else
                              (blk.ox, blk.oy, blk.halo, blk.gh, blk.gw))
@@ -159,5 +216,43 @@ def advect3d_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
         return out[0] if field.dim() == 3 else out
 
 
+def advect3d_source_kernel(rho: torch.Tensor, temp: torch.Tensor,
+                           vel: torch.Tensor, dt: float, no_slip: bool,
+                           source: Source, max_disp: int = 4):
+    """Advect the density and temperature (``[D, H, W]`` each) through
+    ``vel`` (``[3, D, H, W]``) in one launch that injects ``source`` and
+    subtracts the buoyancy from ``vel[0]`` in place (module docstring);
+    returns the ``[2, D, H, W]`` scalars, a fresh tensor."""
+    with span("fluid.k7.advect3d"):
+        shape = tuple(rho.shape)
+        if (len(shape) != 3 or tuple(temp.shape) != shape
+                or tuple(vel.shape) != (3,) + shape
+                or tuple(source.mask.shape) != shape):
+            raise ValueError("advect3d_source_kernel: needs [D, H, W] "
+                             "density, temperature and mask and the [3, D, "
+                             "H, W] velocity")
+        if rho.device.type == "cpu":
+            out = advect3d_source_reference(rho, temp, vel, dt, no_slip,
+                                            source, max_disp)
+            advect3d_kernel.source_launches += 1
+            return out
+        _check_launch_grid("advect3d_source_kernel", shape, 2, *shape,
+                           max_disp)
+        bf16 = (torch.bfloat16,)
+        check_launch("advect3d_source_kernel", density=(rho, bf16),
+                     temperature=(temp, bf16), vel=(vel, F32),
+                     mask=(source.mask, bf16))
+        d, h, w = shape
+        out = rho.new_empty((2,) + shape)
+        launch("fluid_advect3d_source", rho, rho, temp, vel, out, source.mask,
+               d, h, w, float(dt), int(max_disp), int(no_slip),
+               float(source.density), float(source.temperature),
+               float(source.alpha), float(source.beta))
+        advect3d_kernel.launches += 1
+        advect3d_kernel.source_launches += 1
+        return out
+
+
 advect3d_kernel.launches = 0
 advect3d_kernel.block_launches = 0
+advect3d_kernel.source_launches = 0

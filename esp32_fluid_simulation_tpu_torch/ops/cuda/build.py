@@ -81,6 +81,10 @@ _SIGNATURES = {
     # no_slip, ox, oy, halo, GH, GW, stream
     "fluid_advect3d": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                        _I, _I, _I, _I, _P),
+    # rho, temp, vel, out, mask, D, H, W, dt, max_disp, no_slip, rho_in,
+    # temp_in, alpha, beta, stream
+    "fluid_advect3d_source": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _F,
+                              _F, _F, _F, _P),
     # vel, out, D, H, W, inv2dx, stream
     "fluid_divergence3d": (_P, _P, _I, _I, _I, _F, _P),
     # vel, p, out, D, H, W, inv2dx, stream

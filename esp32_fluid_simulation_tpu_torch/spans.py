@@ -23,7 +23,8 @@ The spans, which the benchmark's breakdown of the card's idle time names
 ``fluid.k2.advect``    ``ops.cuda.advect.advect_kernel``
 ``fluid.k3.render``    ``render.cuda_upscale.render_rgb565_kernel``
 ``fluid.smoke_step``   ``models.smoke3d.smoke_step``
-``fluid.k7.advect3d``  ``ops.cuda.advect3d.advect3d_kernel``
+``fluid.k7.advect3d``  ``ops.cuda.advect3d.advect3d_kernel`` and
+                       ``advect3d_source_kernel``
 ``fluid.k8.fd3d``      ``ops.cuda.fd3d.divergence3d`` and
                        ``subtract_gradient3d``
 ``fluid.k9.sor3d``     ``ops.cuda.sor3d.sor3d_solve``

@@ -12,6 +12,8 @@ K2's ``overlay=``) at odd and even member tiles too; ``chip_smoke.py``
 repeats these checks at the production shapes.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -28,7 +30,8 @@ from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
 from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
     project_fused, project_fused_reference)
 from esp32_fluid_simulation_tpu_torch.ops.cuda.advect3d import (
-    advect3d_kernel, advect3d_reference)
+    advect3d_kernel, advect3d_reference, advect3d_source_kernel,
+    advect3d_source_reference)
 from esp32_fluid_simulation_tpu_torch.ops.cuda.fd3d import (
     divergence3d, divergence3d_reference, subtract_gradient3d,
     subtract_gradient3d_reference)
@@ -332,6 +335,113 @@ def test_advect3d_kernel_bit_equal(cuda, rng, vel_dtype):
     want = advect3d_reference(pair, vel, 1 / 30, False, max_disp=2)
     assert torch.equal(_bits(got), _bits(want))
     assert advect3d_kernel.launches == before + 3
+
+
+def _bits32(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _source_case(name, dev):
+    """(cfg, density, temperature, velocity, mask) of one case of K7's
+    scalar launch with the plume's source: at odd extents, a sphere that
+    crosses the launch's 32x8 blocks (columns 28-38, rows 12-21); an
+    arbitrary mask over the whole grid; densities above 1 before the
+    clamp, NaN, +-inf and -0 in either scalar."""
+    from esp32_fluid_simulation_tpu_torch.models.smoke3d import (
+        SmokeConfig, source_tensor)
+    g = torch.Generator().manual_seed(23)
+    cfg = SmokeConfig(shape=SHAPE3, source_center=(0.5, 0.5, 0.25),
+                      source_radius=0.6)
+    # sigma 60 cells/s at max_disp=2: the CFL clamp binds on some cells
+    vel = 60 * torch.randn((3,) + SHAPE3, generator=g)
+    rho = 1.3 * torch.rand(SHAPE3, generator=g)
+    temp = 2 * torch.randn(SHAPE3, generator=g)
+    mask = source_tensor(cfg, "cpu")
+    if name == "mask":
+        mask = (3 * torch.rand(SHAPE3, generator=g) - 1).to(torch.bfloat16)
+    if name == "specials":
+        cfg = dataclasses.replace(cfg, source_density=9.0,
+                                  source_temperature=-4.0)
+        # -0 where whole samples read it, inside and outside the sphere
+        rho[:, 16:, :] = -0.0
+        temp[:, :14, 30:] = -0.0
+        rho[2, 13, 30] = temp[5, 20, 33] = float("nan")
+        rho[4, 15, 35] = temp[1, 3, 90] = float("inf")
+        rho[7, 18, 31] = temp[3, 30, 120] = float("-inf")
+    return (cfg, rho.to(dev, torch.bfloat16), temp.to(dev, torch.bfloat16),
+            vel.to(dev), mask.to(dev))
+
+
+@pytest.mark.parametrize("name", ["sphere", "mask", "specials"])
+def test_advect3d_source_launch_bit_equal(cuda, name):
+    """K7's scalar launch with the plume's source and buoyancy equals the
+    launch without it followed by ``inject_and_buoy``'s eager ops on the
+    card, and the plain version ``advect3d_source_reference``, bit for bit
+    on the velocity (written in place) and both scalars; one launch."""
+    from esp32_fluid_simulation_tpu_torch.models.smoke3d import (
+        inject_and_buoy, plume_source)
+    cfg, rho, temp, vel, mask = _source_case(name, cuda)
+    dt, src = 1 / 30, plume_source(cfg, mask)
+    before = (advect3d_kernel.launches, advect3d_kernel.source_launches)
+    got_vel = vel.clone()
+    got = advect3d_source_kernel(rho, temp, got_vel, dt, False, src, 2)
+    assert (advect3d_kernel.launches, advect3d_kernel.source_launches) == (
+        before[0] + 1, before[1] + 1)
+    want_vel = vel.clone()
+    scal = advect3d_kernel(torch.stack([rho, temp]), want_vel, dt, False, 2)
+    want_vel, want_rho, want_temp = inject_and_buoy(want_vel, scal[0],
+                                                    scal[1], mask, cfg)
+    plain_vel = vel.clone()
+    plain = advect3d_source_reference(rho, temp, plain_vel, dt, False, src,
+                                      2)
+    for a, b in ((got_vel, want_vel), (got[0], want_rho),
+                 (got[1], want_temp), (got_vel, plain_vel),
+                 (got, plain)):
+        assert torch.equal(_bits32(a), _bits32(b))
+    if name == "specials":
+        neg0 = _bits32(torch.tensor(-0.0, device=cuda).bfloat16())
+        assert (want_rho == 1).any() and want_rho.isnan().any()
+        assert (_bits32(scal[0]) == neg0).any()
+        assert not (_bits32(got[0]) == neg0).any()
+
+
+def test_smoke_step_source_route_bit_equal_to_plain_step(cuda):
+    """Three stirred ``smoke_step`` steps at 128^3 (K7 with the source
+    epilogue, K8, K9) equal ``chip_smoke.py``'s ``plain_smoke_step`` (the
+    kernels' plain versions, the source and buoyancy as eager ops) bit for
+    bit; K7 twice a step, once with the source."""
+    import importlib.util
+    from pathlib import Path
+    from esp32_fluid_simulation_tpu_torch import (SmokeConfig, SmokeState,
+                                                  init_smoke,
+                                                  make_smoke_step)
+    from esp32_fluid_simulation_tpu_torch.models.smoke3d import (
+        source_tensor)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip)
+    cfg = SmokeConfig(shape=(128, 128, 128), advect_impl="pallas",
+                      sor_impl="pallas")
+    st = init_smoke(cfg, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(31)
+    st = st._replace(velocity=8 * torch.randn(st.velocity.shape,
+                                              generator=g, device=cuda))
+    ps = SmokeState(st.velocity.clone(), st.density, st.temperature, 0)
+    step, src = make_smoke_step(cfg), source_tensor(cfg, cuda)
+    before = (advect3d_kernel.launches, advect3d_kernel.source_launches)
+    for t in range(3):
+        pos = [(77, 64 + 30 * t, 64), (77, 40, 50 + 20 * t), (115, 64, 64)]
+        vel = [(0.0, 30.0, -20.0), (5.0, -25.0, 15.0), (-40.0, 0.0, 10.0)]
+        imp = Impulses.from_lists(cfg, pos, vel, device=cuda)
+        st = step(st, imp)
+        ps = chip.plain_smoke_step(ps, cfg, src, imp)
+    assert (advect3d_kernel.launches, advect3d_kernel.source_launches) == (
+        before[0] + 6, before[1] + 3)
+    for name in ("velocity", "density", "temperature"):
+        assert torch.equal(_bits32(getattr(st, name)),
+                           _bits32(getattr(ps, name))), name
+    assert float(st.density.float().max()) > 0.0
 
 
 @pytest.mark.parametrize("vel_dtype", [torch.float32, torch.bfloat16])
@@ -881,6 +991,10 @@ LAUNCH_CASES = {
     "K7 advect3d_kernel": (
         lambda g: [20 * g.standard_normal((3,) + SHAPE3)],
         lambda v: advect3d_kernel(v, None, 1 / 30, True)),
+    "K7 advect3d_kernel source": (
+        lambda g: [g.random((2,) + SHAPE3), 20 * g.standard_normal(
+            (3,) + SHAPE3)],
+        lambda s, v: _k7_with_source(s, v)),
     "K8 divergence3d": (
         lambda g: [g.standard_normal((3,) + SHAPE3)], divergence3d),
     "K8 subtract_gradient3d": (
@@ -890,6 +1004,21 @@ LAUNCH_CASES = {
     "K10 render_smoke_mip_kernel": (
         lambda g: [g.random(SHAPE3)], render_smoke_mip_kernel),
 }
+
+
+def _k7_with_source(pair, vel):
+    """K7's scalar launch with the plume's source on a sphere at SHAPE3
+    (the mask built on the inputs' device and stream); returns the scalars
+    and the velocity it wrote, a copy of ``vel``."""
+    from esp32_fluid_simulation_tpu_torch.models.smoke3d import (
+        SmokeConfig, plume_source, source_tensor)
+    cfg = SmokeConfig(shape=SHAPE3, source_center=(0.5, 0.5, 0.25),
+                      source_radius=0.6)
+    vel, pair = vel.clone(), pair.to(torch.bfloat16)
+    out = advect3d_source_kernel(
+        pair[0], pair[1], vel, 1 / 30, False,
+        plume_source(cfg, source_tensor(cfg, vel.device)), 2)
+    return out, vel
 
 
 def _outputs(got):

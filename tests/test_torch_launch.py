@@ -20,7 +20,7 @@ from esp32_fluid_simulation_tpu_torch.ops.cuda import build
 from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
     advect_kernel, advect_maccormack_kernel)
 from esp32_fluid_simulation_tpu_torch.ops.cuda.advect3d import (
-    advect3d_kernel)
+    Source, advect3d_kernel, advect3d_source_kernel)
 from esp32_fluid_simulation_tpu_torch.ops.cuda.fd3d import (
     divergence3d, subtract_gradient3d)
 from esp32_fluid_simulation_tpu_torch.ops.cuda.project import project_fused
@@ -165,6 +165,9 @@ WRAPPERS = {
     "render_rgb565_kernel": lambda: render_rgb565_kernel(_meta(3, 8, 8), 2),
     "advect3d_kernel": lambda: advect3d_kernel(_meta(3, 4, 8, 8), None, 0.1,
                                                True),
+    "advect3d_source_kernel": lambda: advect3d_source_kernel(
+        _meta(4, 8, 8), _meta(4, 8, 8), _meta(3, 4, 8, 8), 0.1, False,
+        Source(_meta(4, 8, 8), 0.1, 0.1, 1.0, 0.1)),
     "divergence3d": lambda: divergence3d(_meta(3, 4, 8, 8)),
     "subtract_gradient3d": lambda: subtract_gradient3d(_meta(3, 4, 8, 8),
                                                        _meta(4, 8, 8)),

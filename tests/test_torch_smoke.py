@@ -105,17 +105,24 @@ def test_kernel_selection_plain_versions_follow_jax(jax_runs, monkeypatch,
                  "_use_fd3d_kernel"):
         monkeypatch.setattr(ts, name, lambda cfg, vel: True)
     calls = {}
-    orig = ts.advect3d_kernel
 
-    def spy(field, vel, dt, no_slip, max_disp):
-        # the backtrace must stay inside the CFL clamp for the composed
-        # (unclamped) path to be an oracle
-        calls["disp"] = max(calls.get("disp", 0.0),
-                            float(vel.abs().max()) * dt)
-        calls["n"] = calls.get("n", 0) + 1
-        return orig(field, vel, dt, no_slip, max_disp)
+    def spying(name, at):
+        orig = getattr(ts, name)
 
-    monkeypatch.setattr(ts, "advect3d_kernel", spy)
+        def spy(*args, **kw):
+            # the backtrace must stay inside the CFL clamp for the composed
+            # (unclamped) path to be an oracle; ``vel`` is argument ``at``
+            # and ``dt`` the next (with bf16 scalars the second call is
+            # ``advect3d_source_kernel``)
+            calls["disp"] = max(calls.get("disp", 0.0),
+                                float(args[at].abs().max()) * args[at + 1])
+            calls["n"] = calls.get("n", 0) + 1
+            return orig(*args, **kw)
+
+        monkeypatch.setattr(ts, name, spy)
+
+    spying("advect3d_kernel", 1)
+    spying("advect3d_source_kernel", 2)
     st = _port_run(kw)
     assert calls["n"] == 2 * STEPS
     assert calls["disp"] < T.SmokeConfig().advect_max_disp
