@@ -17,7 +17,9 @@ The spans, which the benchmark's breakdown of the card's idle time names
 (``bench.step > fluid.k2.advect``):
 
 =====================  =============================================
-``fluid.impulses``     ``state.Impulses.from_lists``
+``fluid.impulses``     ``state.Impulses.from_lists`` (the padding; on
+                       the card the pinned staging and its one copy,
+                       which does not block the host)
 ``fluid.step_render``  ``models.stable_fluids.step_render``
 ``fluid.k1.project``   ``ops.cuda.project.project_fused``
 ``fluid.k2.advect``    ``ops.cuda.advect.advect_kernel``

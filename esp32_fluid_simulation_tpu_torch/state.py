@@ -43,6 +43,8 @@ class Impulses(NamedTuple):
     velocity: torch.Tensor  # [K, ndim] velocity to write (cells/s)
     active: torch.Tensor    # bool  [K]
 
+    staged_uploads = 0  # batches that crossed through pinned staging
+
     @classmethod
     def none(cls, cfg: SimConfig, device="cuda") -> "Impulses":
         k, nd = cfg.max_impulses, cfg.ndim
@@ -57,8 +59,14 @@ class Impulses(NamedTuple):
     def from_lists(cls, cfg: SimConfig, pos, vel, device="cuda") -> "Impulses":
         """Build a padded batch from Python lists of (pos, velocity) tuples.
 
-        Padding happens host-side in numpy; the batch then crosses to
-        ``device`` as three small copies."""
+        Padding happens host-side in numpy, the velocity cast from float32
+        to ``cfg.torch_dtype`` by torch's CPU cast.  For a CUDA ``device``
+        the batch is written into one pinned host buffer and crosses as
+        one copy that does not block the host, ordered on the device's
+        current stream; the three fields are views of the one device copy
+        (``Impulses.staged_uploads`` counts these batches).  To another
+        device the three fields are copied as they are; on the CPU they
+        are the padded arrays, the velocity cast."""
         with span("fluid.impulses"):
             k, nd = cfg.max_impulses, cfg.ndim
             n = min(len(pos), k)
@@ -69,7 +77,36 @@ class Impulses(NamedTuple):
                 p[:n] = np.asarray(pos[:n], np.int32)
                 v[:n] = np.asarray(vel[:n])
                 a[:n] = True
-            return cls(pos=torch.from_numpy(p).to(device),
-                       velocity=torch.from_numpy(v).to(
-                           device=device, dtype=cfg.torch_dtype),
-                       active=torch.from_numpy(a).to(device))
+            fields = (torch.from_numpy(p),
+                      torch.from_numpy(v).to(cfg.torch_dtype),
+                      torch.from_numpy(a))
+            if (torch.device(device).type == "cuda"
+                    and torch.cuda.is_available()):
+                imp = cls(*_staged(fields, device))
+                Impulses.staged_uploads += 1
+                return imp
+            return cls(*(t.to(device) for t in fields))
+
+
+_ALIGN = 16  # bytes between the staged fields' starts
+
+
+def _staged(fields, device):
+    """The bytes of the host tensors ``fields`` laid end to end (each start
+    aligned) in one pinned buffer from the caching host allocator, sent to
+    ``device`` as one non-blocking copy on its current stream.  Returns
+    views of the device copy, shaped and typed as ``fields``.  The
+    allocator records the copy's stream on the pinned block, so the block
+    is not handed out again before the copy has landed."""
+    starts, nbytes = [], 0
+    for t in fields:
+        starts.append(nbytes)
+        nbytes += -(-t.nbytes // _ALIGN) * _ALIGN
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    host = pinned.numpy()
+    for t, at in zip(fields, starts):
+        host[at:at + t.nbytes] = t.view(torch.uint8).numpy().reshape(-1)
+    staged = pinned.to(device, non_blocking=True)
+    return [staged.view(t.dtype).as_strided(t.shape, t.stride(),
+                                            at // t.itemsize)
+            for t, at in zip(fields, starts)]

@@ -45,6 +45,7 @@ from esp32_fluid_simulation_tpu_torch.render.cuda_smoke import (
 from esp32_fluid_simulation_tpu_torch.render.cuda_upscale import (
     render_rgb565_kernel, render_rgb565_reference)
 from mip_cases import MIP_CASES, mip_case
+import feed_cases
 
 pytestmark = pytest.mark.gpu
 
@@ -1065,3 +1066,119 @@ def test_wrapper_launches_on_a_second_card(cuda, rng, case):
     for g, w in zip(got, want):
         assert g.device == second
         assert torch.equal(_bits(g).cpu(), _bits(w).cpu())
+
+
+# -- the feed: Impulses.from_lists through pinned staging -----------------
+
+
+def _feed_cfg(dtype="float32", nd=2):
+    return SimConfig(shape=feed_cases.SHAPES[nd], dtype=dtype)
+
+
+@pytest.mark.parametrize("count", feed_cases.COUNTS)
+@pytest.mark.parametrize("nd", [2, 3])
+@pytest.mark.parametrize("dtype", feed_cases.DTYPES)
+def test_staged_feed_is_the_pageable_batch(cuda, dtype, nd, count):
+    """The card's batch equals the pageable route's bit for bit, its three
+    fields views of one device copy; one call counts one staged upload."""
+    cfg = _feed_cfg(dtype, nd)
+    pos, vel = feed_cases.lists(nd, count)
+    before = Impulses.staged_uploads
+    got = Impulses.from_lists(cfg, pos, vel, device=cuda)
+    assert Impulses.staged_uploads == before + 1
+    feed_cases.assert_bit_equal(got, feed_cases.parent_batch(cfg, pos, vel,
+                                                             cuda))
+    base = got.pos.untyped_storage().data_ptr()
+    assert all(t.untyped_storage().data_ptr() == base for t in got)
+
+
+def test_staged_feed_never_synchronises(cuda):
+    """200 feeds under ``set_sync_debug_mode("error")`` raise nothing; the
+    pageable route raises there, so the mode is on."""
+    cfg = _feed_cfg()
+    pos, vel = feed_cases.lists(2, 8)
+    Impulses.from_lists(cfg, pos, vel, device=cuda)
+    torch.cuda.synchronize()
+    before = Impulses.staged_uploads
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(200):
+            Impulses.from_lists(cfg, pos[: t % 9], vel[: t % 9], device=cuda)
+        with pytest.raises(RuntimeError):
+            feed_cases.parent_batch(cfg, pos, vel, cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert Impulses.staged_uploads == before + 200
+
+
+def test_staged_feeds_behind_a_busy_card_land_whole(cuda):
+    """64 distinct batches fed back to back behind a ~25 ms sleep on the
+    stream (their copies still queued when the host is done) each land
+    equal to the pageable route's: no pinned block is written again
+    before its copy has landed."""
+    cfg = _feed_cfg()
+    cases = [feed_cases.lists(2, 16, seed=1000 + i) for i in range(64)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    got = [Impulses.from_lists(cfg, p, v, device=cuda) for p, v in cases]
+    assert not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    for batch, (p, v) in zip(got, cases):
+        feed_cases.assert_bit_equal(batch, feed_cases.parent_batch(cfg, p, v,
+                                                                   cuda))
+
+
+def _stir(t, nd, n):
+    """Step t's stirring: eight pokes on a ring around the grid's centre."""
+    ang = 0.15 * t + 2 * np.pi * np.arange(8) / 8
+    pos = [((n // 2 + round(0.3 * n * np.cos(a)),
+             n // 2 + round(0.3 * n * np.sin(a))) if nd == 2 else
+            (int(0.6 * n), n // 2 + round(0.1 * n * np.cos(a)),
+             n // 2 + round(0.1 * n * np.sin(a)))) for a in ang]
+    vel = [((-60.0 * np.sin(a), 60.0 * np.cos(a)) if nd == 2 else
+            (0.0, -45.0 * np.sin(a), 45.0 * np.cos(a))) for a in ang]
+    return pos, vel
+
+
+@pytest.mark.parametrize("entry", ["config0", "plume"])
+def test_stirred_steps_fed_staged_equal_steps_fed_pageable(cuda, entry):
+    """Three stirred steps of config 0 at 256^2 (K1, K2) and of the plume at
+    64^3 (K7-K10, the drain), fed through pinned staging, equal the same
+    steps fed through the pageable route, bit for bit."""
+    import json
+    from pathlib import Path
+    from esp32_fluid_simulation_tpu_torch import (SmokeConfig, init_smoke,
+                                                  init_state,
+                                                  make_smoke_step)
+    from esp32_fluid_simulation_tpu_torch.models.stable_fluids import (
+        make_step_render)
+    if entry == "config0":
+        sim = json.loads((Path(__file__).resolve().parents[1] / "examples"
+                          / "config0_4096_production.json").read_text())
+        cfg = SimConfig(**dict(sim, shape=(256, 256), domain_tile=None))
+        step_render, n, nd = make_step_render(cfg), 256, 2
+
+        def run(st, imp):
+            st, frame = step_render(st, imp)
+            return st, (st.velocity, st.color, frame)
+        states = [init_state(cfg, device=cuda) for _ in range(2)]
+    else:
+        cfg = SmokeConfig(shape=(64, 64, 64), advect_impl="pallas",
+                          sor_impl="pallas")
+        step, n, nd = make_smoke_step(cfg), 64, 3
+
+        def run(st, imp):
+            st = step(st, imp)
+            return st, (st.velocity, st.density, st.temperature,
+                        render_smoke(st.density))
+        states = [init_smoke(cfg, device=cuda) for _ in range(2)]
+    staged, pageable = states
+    for t in range(3):
+        pos, vel = _stir(t, nd, n)
+        staged, got = run(staged, Impulses.from_lists(cfg, pos, vel,
+                                                      device=cuda))
+        pageable, want = run(pageable, feed_cases.parent_batch(cfg, pos, vel,
+                                                               cuda))
+    for g, w in zip(got, want):
+        assert torch.equal(feed_cases.bits(g), feed_cases.bits(w))
+    assert float(want[0].abs().max()) > 0.0

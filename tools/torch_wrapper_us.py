@@ -1,10 +1,12 @@
-"""Host time of the kernel wrappers, a call at a time, on one NVIDIA GPU.
+"""Host time of the feed and the kernel wrappers, a call at a time, on one
+NVIDIA GPU.
 
     python3 tools/torch_wrapper_us.py [--root DIR] [--against DIR] [--calls 40]
 
-For each wrapper call of the benchmarked steps -- K1 and both K2 passes of
-config 0's ``step_render`` at 4096² (s=1), K7's two passes, K8's two
-wrappers, K9 and K10 of the 256³ plume -- prints the median host
+For the feed (``Impulses.from_lists`` of 8 pokes, config 0's and the
+plume's) and each wrapper call of the benchmarked steps -- K1 and both K2
+passes of config 0's ``step_render`` at 4096² (s=1), K7's two passes, K8's
+two wrappers, K9 and K10 of the 256³ plume -- prints the median host
 microseconds of ``--calls`` calls, each after a ``torch.cuda.synchronize()``
 (the queue empty, as in a step's first launches), and of as many calls back
 to back, beside the card's name and power limit.  No profiler runs.  The
@@ -42,7 +44,8 @@ def load_package(root: Path, name: str):
 
 
 def wrapper_calls(pkg, root: Path, dev):
-    """``{label: call}`` of ``pkg``'s wrappers at the benchmarked shapes."""
+    """``{label: call}`` of ``pkg``'s feed and wrappers at the benchmarked
+    shapes."""
     import torch
 
     def sub(name):
@@ -72,7 +75,15 @@ def wrapper_calls(pkg, root: Path, dev):
     div = fd3d.divergence3d(v3, sc.dx)
     p = sor3d_solve(div, sc.dx, sc.sor_iters, sc.omega)
     md3 = sc.advect_max_disp
+    pokes2 = ([(1229 + 200 * k, 2867 - 250 * k) for k in range(8)],
+              [(300.0 - 40 * k, -150.0 + 45 * k) for k in range(8)])
+    pokes3 = ([(154, 128 + 3 * k, 102 + 6 * k) for k in range(8)],
+              [(0.0, 45.0 - 11 * k, -20.0 + 7 * k) for k in range(8)])
     return {
+        "feed (config 0)": lambda: pkg.Impulses.from_lists(
+            cfg, *pokes2, device=dev),
+        "feed (plume)": lambda: pkg.Impulses.from_lists(
+            sc, *pokes3, device=dev),
         "K1 project_fused": lambda: project_fused(
             vel, cfg.dx, cfg.sor_iters, cfg.omega, impulses=imp),
         "K2 self-advect": lambda: advect_kernel(
