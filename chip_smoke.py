@@ -72,8 +72,11 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    bit-equality is expected.
 14. Config 4 (``examples/config4_ensemble_256.json``, 256 members of 256^2
    on one 4096^2 supergrid): 10 steps through ``make_ensemble_step`` (launch
-   counters: K2 member = 2*steps, K2 overlay = steps, K1 member = steps),
-   the same schedule through ``make_ensemble_multi_step``, and 10 steps of
+   counters: K2 member = 2*steps, K2 overlay = steps, the member overlay
+   kernel = steps, K1 member = steps), each step's member overlay kernel
+   against its plain version bit for bit, the plain path built on that
+   plain overlay, the same schedule through ``make_ensemble_multi_step``,
+   and 10 steps of
    the tiled ``make_step_render``, each bit-identical to the plain path on
    the card; member 0 also equals the member stepped alone through
    ``make_step`` on the non-member kernels, bit for bit.
@@ -745,7 +748,7 @@ def phase2_golden(dev):
 def reset_counts():
     """Set every launch counter to 0; returns a function that reads them."""
     from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
-        advect_kernel, advect_maccormack_kernel)
+        advect_kernel, advect_maccormack_kernel, member_overlay)
     from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import sor_solve_kernel
     from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
         project_fused)
@@ -780,6 +783,8 @@ def reset_counts():
         # the tiled-domain modes (K6), counted beside their kernels' own
         "K6 K2 advect_kernel member": (advect_kernel, "member_launches"),
         "K6 K2 advect_kernel overlay": (advect_kernel, "overlay_launches"),
+        # an ensemble's member impulses as K2's overlay, one launch a step
+        "K6 K2 member overlay": (member_overlay, "launches"),
         "K6 K1 project_fused member": (project_fused, "member_launches"),
         "K6 K4 member": (sor_solve_kernel, "member_launches"),
         "K6 K5 member": (advect_maccormack_kernel, "member_launches"),
@@ -1250,10 +1255,10 @@ def phase14_config4(dev):
         make_ensemble_multi_step, make_step, make_step_render,
         stack_schedule, tiled_ensemble_config)
     from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
-    from esp32_fluid_simulation_tpu_torch.models.ensemble import (
-        _member_impulse_overlay)
     from esp32_fluid_simulation_tpu_torch.models.stable_fluids import (
         _from_members, _to_members, impulse_overlay)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
+        member_overlay, member_overlay_reference)
 
     member_cfg = SimConfig.from_json(CONFIG4.read_text())
     n, steps = ENSEMBLE_N, ENSEMBLE_STEPS
@@ -1273,6 +1278,7 @@ def phase14_config4(dev):
     want = {"K2 advect_kernel": 2 * steps, "K1 project_fused": steps,
             "K6 K2 advect_kernel member": 2 * steps,
             "K6 K2 advect_kernel overlay": steps,
+            "K6 K2 member overlay": steps,
             "K6 K1 project_fused member": steps, "K1 window route": steps,
             "K1 sequence route": 0, "K3 render_rgb565_kernel": 0,
             "K4 sor_solve_kernel": 0, "K5 advect_maccormack_kernel": 0}
@@ -1295,11 +1301,21 @@ def phase14_config4(dev):
           f"{ {k: nc[k] for k in want} }; finite, dye in [{lo}, {hi}], "
           f"max |v| {float(st.velocity.norm(dim=1).max()):.4g}")
 
+    # the member overlay kernel against its plain version, each step's
+    ov_same = all(torch.equal(member_overlay(imps, gh, gw, mh, mw),
+                              member_overlay_reference(imps, gh, gw, mh, mw))
+                  for imps in sched)
+    print(f"phase 14 member overlay kernel vs plain on the card, {steps} "
+          f"schedules of {n} members: bit-identical={ov_same}")
+    if not ov_same:
+        raise AssertionError("phase 14: the member overlay kernel differs "
+                             "from its plain version")
+
     # the same steps through the plain versions on the card
     ps = SimState(_from_members(state0.velocity, h, w),
                   _from_members(state0.color, h, w), 0)
     for imps in sched:
-        ps = plain_tiled_step(ps, cfg_super, _member_impulse_overlay(
+        ps = plain_tiled_step(ps, cfg_super, member_overlay_reference(
             imps, gh, gw, mh, mw))
     same = (torch.equal(_to_members(ps.velocity, mh, mw), st.velocity)
             and torch.equal(_to_members(ps.color, mh, mw), st.color))
@@ -1380,13 +1396,11 @@ def phase5_config4_timing(dev, card, member_cfg, state0, sched):
         init_state, make_ensemble_multi_step, make_ensemble_step,
         make_step_render, stack_schedule, tiled_ensemble_config)
     from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
-    from esp32_fluid_simulation_tpu_torch.models.ensemble import (
-        _member_impulse_overlay)
     from esp32_fluid_simulation_tpu_torch.models.stable_fluids import (
         _from_members, _to_members)
     from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
         advect_kernel, advect_maccormack_kernel, advect_maccormack_reference,
-        advect_reference)
+        advect_reference, member_overlay, member_overlay_reference)
     from esp32_fluid_simulation_tpu_torch.ops.cuda.project import (
         project_fused, project_fused_reference)
     from esp32_fluid_simulation_tpu_torch.ops.cuda.sor import (
@@ -1425,15 +1439,16 @@ def phase5_config4_timing(dev, card, member_cfg, state0, sched):
     imps = sched[0]
     vel = _from_members(st.velocity, h, w)
     color = _from_members(st.color, h, w)
-    ov = _member_impulse_overlay(imps, gh, gw, *m)
+    ov = member_overlay(imps, gh, gw, *m)
     md, dt = cfg_super.advect_max_disp, cfg_super.dt
     res["to supergrid (velocity + dye)"] = cuda_ms(
         lambda: (_from_members(st.velocity, h, w),
                  _from_members(st.color, h, w)), 10, warmup=2)
     res["from supergrid (velocity + dye)"] = cuda_ms(
         lambda: (_to_members(vel, *m), _to_members(color, *m)), 10, warmup=2)
-    res["overlay build"] = cuda_ms(
-        lambda: _member_impulse_overlay(imps, gh, gw, *m), 10, warmup=2)
+    res["overlay build"], res["overlay build plain"] = time_pair(
+        lambda: member_overlay(imps, gh, gw, *m),
+        lambda: member_overlay_reference(imps, gh, gw, *m))
     res["K2 member+overlay"], res["K2 member+overlay plain"] = time_pair(
         lambda: advect_kernel(vel, vel, dt, True, md, self_advect=True,
                               member=m, overlay=ov),

@@ -742,3 +742,59 @@ extern "C" int fluid_maccormack(const void* field, const void* vel,
   return dispatch_cm<float, Tile>(C, mh, field, vel, out, H, W, mh, mw, dt,
                                   max_disp, no_slip, s);
 }
+
+namespace {
+
+// K2's member overlay: a thread per (member, slot) of an ensemble's [n, K]
+// impulses.  The slot writes its velocity and the flag 1 at its cell of
+// the supergrid unless it is inactive or a later active slot of its member
+// hits the same clamped cell (the last slot wins, as the plain version's
+// member_writes), so no two threads write one cell.
+__global__ void member_overlay_kernel(const int* __restrict__ pos,
+                                      const float* __restrict__ vel,
+                                      const bool* __restrict__ active,
+                                      float* __restrict__ out, int n, int k,
+                                      int gw, int mh, int mw,
+                                      long long plane) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n * k || !active[t]) return;
+  const int m = t / k;
+  const int li = min(max(pos[2 * t], 0), mh - 1);
+  const int lj = min(max(pos[2 * t + 1], 0), mw - 1);
+  for (int u = t + 1; u < (m + 1) * k; ++u)
+    if (active[u] && min(max(pos[2 * u], 0), mh - 1) == li &&
+        min(max(pos[2 * u + 1], 0), mw - 1) == lj)
+      return;
+  const long long cell =
+      (long long)((m / gw) * mh + li) * ((long long)gw * mw) +
+      (long long)(m % gw) * mw + lj;
+  out[cell] = vel[2 * t];
+  out[plane + cell] = vel[2 * t + 1];
+  out[2 * plane + cell] = 1.0f;
+}
+
+}  // namespace
+
+// K2's member overlay.  pos: [n, k, 2] int32, member-local; vel: [n, k, 2]
+// float32; active: [n, k] bool; out: [3, plane] float32 with plane =
+// gh*mh * gw*mw, the members row-major over gw tiles a row.  Sets out to
+// zero, then writes each member's winning slots.
+extern "C" int fluid_member_overlay(const void* pos, const void* vel,
+                                    const void* active, void* out, int n,
+                                    int k, int gw, int mh, int mw,
+                                    int plane, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 0 || k < 0 || gw < 1 || mh < 1 || mw < 1 || plane < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e =
+      cudaMemsetAsync(out, 0, 3 * (size_t)plane * sizeof(float), s);
+  if (e != cudaSuccess) return (int)e;
+  if (n * k > 0) {
+    const int threads = 256;
+    member_overlay_kernel<<<(n * k + threads - 1) / threads, threads, 0, s>>>(
+        static_cast<const int*>(pos), static_cast<const float*>(vel),
+        static_cast<const bool*>(active), static_cast<float*>(out), n, k, gw,
+        mh, mw, plane);
+  }
+  return (int)cudaGetLastError();
+}

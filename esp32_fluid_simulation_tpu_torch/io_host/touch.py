@@ -82,6 +82,13 @@ def scripted_swirl(cfg: SimConfig, t_step: int, n_points: int = 8,
                    speed: float = 300.0, device="cuda") -> Impulses:
     """A rotating ring of tangential pokes around the grid center (the
     scripted stand-in for a finger swirl)."""
+    pos, vel = swirl_lists(cfg, t_step, n_points, speed)
+    return Impulses.from_lists(cfg, pos, vel, device=device)
+
+
+def swirl_lists(cfg: SimConfig, t_step: int, n_points: int = 8,
+                speed: float = 300.0):
+    """``scripted_swirl``'s pokes as ``(positions, velocities)`` lists."""
     h, w = cfg.shape[-2], cfg.shape[-1]
     ci, cj = h / 2.0, w / 2.0
     r = 0.3 * min(h, w)
@@ -95,4 +102,4 @@ def scripted_swirl(cfg: SimConfig, t_step: int, n_points: int = 8,
         vj = -speed * math.sin(a)
         pos.append((np.clip(i, 0, h - 1), np.clip(j, 0, w - 1)))
         vel.append((vi, vj))
-    return Impulses.from_lists(cfg, pos, vel, device=device)
+    return pos, vel

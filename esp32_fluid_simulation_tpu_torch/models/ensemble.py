@@ -12,8 +12,12 @@ in their impulse schedules (batched ``Impulses`` ``[n, K, 2]``,
 ``mode="auto"`` routes a compatible member config onto the tiled supergrid:
 the members become the tiles of one grid (``tiled_ensemble_config``) whose
 kernels evaluate every boundary condition per tile (K6: K1 and K2 with
-``member=``, the impulses as K2's store-time ``overlay=``), so the whole
-ensemble advances in one kernel-path step (``stable_fluids._step_tiled``).
+``member=``, the impulses as K2's store-time ``overlay=``, built on the
+card by ``ops.cuda.advect.member_overlay``), so the whole ensemble
+advances in one kernel-path step (``stable_fluids._step_tiled``).  The
+step's spans are ``fluid.ensemble_step``, ``fluid.ensemble.layout`` (each
+member stack <-> supergrid conversion, counted by ``layout_conversions``)
+and ``fluid.ensemble.overlay``.
 ``mode="vmap"`` steps each member through the port's ``step`` in a Python
 loop — the kernel wrappers take one grid each — so it is the parity oracle,
 not a fast path (JAX vmaps it into one program).
@@ -27,10 +31,12 @@ import math
 import torch
 
 from ..config import SimConfig
+from ..ops.cuda.advect import member_overlay
+from ..ops.impulses import member_cells, member_writes, write_cells
+from ..spans import span
 from ..state import SimState, Impulses
 from .stable_fluids import (_from_members, _step_tiled, _to_members,
-                            init_state, overlay_from_targets, step,
-                            tiled_uses_kernels, write_cells)
+                            init_state, step, tiled_uses_kernels)
 
 
 def init_ensemble(cfg: SimConfig, n: int, device="cuda") -> SimState:
@@ -57,51 +63,21 @@ def _tiled_compatible(cfg: SimConfig) -> bool:
 def _member_impulse_targets(imp: Impulses, gh: int, gw: int, mh: int,
                             mw: int):
     """``[n, K]`` member impulses -> supergrid targets ``(rows[n*K],
-    cols[n*K], vals[nd, n*K])``.  Positions clamp to the member; within a
-    member the last active slot at a cell wins (``.ino:264-269``); the slots
-    that write nothing get row ``gh*mh``, one past the grid."""
+    cols[n*K], vals[nd, n*K])`` (``ops.impulses.member_writes``); the
+    slots that write nothing get row ``gh*mh``, one past the grid."""
     n, k, nd = imp.pos.shape
-    dev = imp.pos.device
-    m = torch.arange(n, device=dev)
-    oi = (m // gw) * mh                                  # [n] tile origins
-    oj = (m % gw) * mw
-    li = imp.pos[:, :, 0].long().clamp(0, mh - 1)        # [n, K] local
-    lj = imp.pos[:, :, 1].long().clamp(0, mw - 1)
-    act = imp.active
-    same = ((li[:, :, None] == li[:, None, :])
-            & (lj[:, :, None] == lj[:, None, :]))        # [n, K, K]
-    later = torch.ones((k, k), dtype=torch.bool, device=dev).triu(1)[None]
-    superseded = (same & later & act[:, None, :]).any(dim=2)
-    write = act & ~superseded
-    rows = torch.where(write, oi[:, None] + li, gh * mh)
-    cols = oj[:, None] + lj
+    rows, cols, write = member_writes(imp, gw, mh, mw)
+    rows = torch.where(write, rows, gh * mh)
     vals = imp.velocity.permute(2, 0, 1).reshape(nd, n * k)
     return rows.reshape(-1), cols.reshape(-1), vals
-
-
-def _member_cells(imp: Impulses, gh: int, gw: int, mh: int, mw: int):
-    """``(flat cells, write mask, vals)`` of the member impulses on the
-    supergrid."""
-    rows, cols, vals = _member_impulse_targets(imp, gh, gw, mh, mw)
-    write = rows < gh * mh
-    return rows.clamp(max=gh * mh - 1) * (gw * mw) + cols, write, vals
 
 
 def _apply_member_impulses(vel, imp: Impulses, gh: int, gw: int, mh: int,
                            mw: int):
     """Batched per-member impulses onto the supergrid velocity: one scatter
     for all (member, slot) points (members write disjoint tiles)."""
-    cells, write, vals = _member_cells(imp, gh, gw, mh, mw)
+    cells, write, vals = member_cells(imp, gh, gw, mh, mw)
     return write_cells(cells, write, vals, vel.shape[1:], base=vel)
-
-
-def _member_impulse_overlay(imp: Impulses, gh: int, gw: int, mh: int,
-                            mw: int) -> torch.Tensor:
-    """Member impulses as K2's ``[3, H, W]`` store-time overlay
-    (``stable_fluids.impulse_overlay`` semantics, supergrid targets): a zero
-    fill and one scatter."""
-    cells, write, vals = _member_cells(imp, gh, gw, mh, mw)
-    return overlay_from_targets(cells, write, vals, (gh * mh, gw * mw))
 
 
 def _resolve_tiled(cfg: SimConfig, mode: str) -> bool:
@@ -132,18 +108,35 @@ def _guard_auto_vmap(cfg: SimConfig, n: int) -> None:
             f"vorticity, solver='sor'/'fused_pallas').")
 
 
+def layout_conversions() -> int:
+    """Running total of state layout conversions, member stack to
+    supergrid or back (``_to_super``, ``_from_super``): a permuting copy
+    of the whole state each.  Read it by difference: ``make_ensemble_step``
+    makes 2 a step, its rollout 2 a call."""
+    return _to_super.calls + _from_super.calls
+
+
 def _to_super(state: SimState, cfg_super: SimConfig) -> SimState:
     """Member-stack ``[n, C, mh, mw]`` state -> one supergrid state."""
-    h, w = cfg_super.shape
-    return SimState(velocity=_from_members(state.velocity, h, w),
-                    color=_from_members(state.color, h, w), step=state.step)
+    with span("fluid.ensemble.layout"):
+        h, w = cfg_super.shape
+        _to_super.calls += 1
+        return SimState(velocity=_from_members(state.velocity, h, w),
+                        color=_from_members(state.color, h, w),
+                        step=state.step)
 
 
 def _from_super(out: SimState, cfg: SimConfig) -> SimState:
     """Supergrid state -> member-stack ``[n, C, mh, mw]`` state."""
-    mh, mw = cfg.shape
-    return SimState(velocity=_to_members(out.velocity, mh, mw),
-                    color=_to_members(out.color, mh, mw), step=out.step)
+    with span("fluid.ensemble.layout"):
+        mh, mw = cfg.shape
+        _from_super.calls += 1
+        return SimState(velocity=_to_members(out.velocity, mh, mw),
+                        color=_to_members(out.color, mh, mw), step=out.step)
+
+
+_to_super.calls = 0
+_from_super.calls = 0
 
 
 def _step_members(state: SimState, imps: Impulses, cfg: SimConfig):
@@ -163,8 +156,10 @@ def _step_super(st: SimState, imps: Impulses, cfg_super: SimConfig, gh: int,
     through the scatter ``apply_fn``."""
     mh, mw = cfg_super.domain_tile
     imps = Impulses(*(t.to(st.velocity.device) for t in imps))
-    overlay = (_member_impulse_overlay(imps, gh, gw, mh, mw)
-               if tiled_uses_kernels(cfg_super, st.velocity) else None)
+    overlay = None
+    if tiled_uses_kernels(cfg_super, st.velocity):
+        with span("fluid.ensemble.overlay"):
+            overlay = member_overlay(imps, gh, gw, mh, mw)
 
     def apply_fn(v):
         return _apply_member_impulses(v, imps, gh, gw, mh, mw)
@@ -185,16 +180,18 @@ def make_ensemble_step(cfg: SimConfig, donate: bool = True,
     del donate
     if not _resolve_tiled(cfg, mode):
         def fn(state: SimState, imps: Impulses) -> SimState:
-            if mode == "auto":
-                _guard_auto_vmap(cfg, state.velocity.shape[0])
-            return _step_members(state, imps, cfg)
+            with span("fluid.ensemble_step"):
+                if mode == "auto":
+                    _guard_auto_vmap(cfg, state.velocity.shape[0])
+                return _step_members(state, imps, cfg)
         return fn
 
     def fn(state: SimState, imps: Impulses) -> SimState:
-        cfg_super, gh, gw = tiled_ensemble_config(cfg,
-                                                  state.velocity.shape[0])
-        return _from_super(_step_super(_to_super(state, cfg_super), imps,
-                                       cfg_super, gh, gw), cfg)
+        with span("fluid.ensemble_step"):
+            cfg_super, gh, gw = tiled_ensemble_config(
+                cfg, state.velocity.shape[0])
+            return _from_super(_step_super(_to_super(state, cfg_super),
+                                           imps, cfg_super, gh, gw), cfg)
     return fn
 
 

@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 
 import numpy as np
 import torch
@@ -41,9 +40,10 @@ from ..state import SimState, Impulses
 from ..ops.advect import advect, advect_maccormack, advect_rk2
 from ..ops.blur import triangular_blur_inplace
 from ..ops.fd import divergence, subtract_gradient, vorticity_confinement
-# the drain, whose names stay importable from here
+# the drain and its scatters, whose names stay importable from here
 from ..ops.impulses import (_resolved_impulse_targets, apply_impulses,
-                            apply_impulses_, impulses_in_window)
+                            apply_impulses_, impulses_in_window,
+                            overlay_from_targets, write_cells)
 from ..ops.poisson import (jacobi_solve, poisson_solve, poisson_residual,
                            sor_solve)
 from ..ops.cuda.advect import advect_kernel, advect_maccormack_kernel
@@ -91,37 +91,6 @@ def init_state(cfg: SimConfig, device="cuda") -> SimState:
     vel = torch.zeros((cfg.ndim,) + tuple(cfg.shape), dtype=cfg.torch_dtype,
                       device=device)
     return SimState(velocity=vel, color=init_color(cfg, device), step=0)
-
-
-def write_cells(cells, write, vals, shape, base=None):
-    """A ``[C, *shape]`` tensor: ``base`` (zeros when None, in ``vals``'
-    dtype) with ``vals`` (``[C, K]``) written at the flat cell indices
-    ``cells`` (``[K]``) where ``write``.  The other slots land in one spare
-    element past the end and are dropped (JAX's ``mode="drop"``), so nothing
-    waits on the host; the cells written must be distinct."""
-    c, n = vals.shape[0], math.prod(shape)
-    dev = vals.device
-    if base is None:
-        flat = torch.zeros(c * n + 1, dtype=vals.dtype, device=dev)
-    else:
-        flat = torch.empty(c * n + 1, dtype=base.dtype, device=dev)
-        flat[:-1].copy_(base.reshape(-1))
-        vals = vals.to(base.dtype)
-    ch = torch.arange(c, device=dev)[:, None] * n
-    idx = torch.where(write[None, :], ch + cells[None, :], c * n)
-    flat[idx.reshape(-1)] = vals.reshape(-1)
-    return flat[:-1].view((c,) + tuple(shape))
-
-
-def overlay_from_targets(cells, write, vals, shape):
-    """The dense ``[nd+1, *shape]`` float32 overlay of K2's store-time
-    drain: channels ``[0, nd)`` the values written at ``cells`` where
-    ``write``, channel ``nd`` a 1.0 write flag."""
-    k = vals.shape[1]
-    combo = torch.cat([vals.to(torch.float32),
-                       torch.ones((1, k), dtype=torch.float32,
-                                  device=vals.device)], dim=0)
-    return write_cells(cells, write, combo, shape)
 
 
 def impulse_overlay(imp: Impulses, shape) -> torch.Tensor:

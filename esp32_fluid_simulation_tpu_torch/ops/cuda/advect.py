@@ -57,6 +57,14 @@ bit.  It takes 1-3 channels, float32 and bfloat16 fields, ``no_slip``,
 package) raise ``NotImplementedError``.  K5 refuses block mode with
 ``ValueError``, as in JAX: the sharded MacCormack composes K2.
 
+K2's member overlay (``member_overlay``): an ensemble's ``[n, K]`` member
+impulses as the dense ``[3, gh*mh, gw*mw]`` overlay that ``overlay=``
+reads, built in one set and one launch (a thread a member's slot, which
+writes unless a later active slot of its member hits its clamped cell)
+in place of ~25 eager ops; its plain version is ``ops.impulses``'
+``member_cells`` and ``overlay_from_targets``, and
+``member_overlay.launches`` counts its launches.
+
 Each mode has its own launch counter beside ``launches``:
 ``advect_kernel.member_launches``, ``.overlay_launches`` and
 ``.block_launches``; ``advect_maccormack_kernel.launches`` counts the
@@ -70,7 +78,9 @@ import torch
 
 from ...render.upscale import pack_rgb565
 from ...spans import span
+from ...state import Impulses
 from ..advect import noslip_axis_factor
+from ..impulses import member_cells, overlay_from_targets
 from .build import launch
 from .modes import (BLOCK_MODE, F32, FLOATS, check_block, check_launch,
                     check_member, refuse_unported)
@@ -375,3 +385,46 @@ def advect_maccormack_kernel(field: torch.Tensor, vel: torch.Tensor,
 advect_maccormack_kernel.launches = 0
 advect_maccormack_kernel.member_launches = 0
 advect_maccormack_kernel.two_launch_calls = 0
+
+
+_I32, _BOOL = (torch.int32,), (torch.bool,)
+
+
+def member_overlay_reference(imp: Impulses, gh: int, gw: int, mh: int,
+                             mw: int) -> torch.Tensor:
+    """Plain PyTorch version of ``member_overlay``: the winning slots'
+    cells and values scattered into a zeroed overlay."""
+    return overlay_from_targets(*member_cells(imp, gh, gw, mh, mw),
+                                (gh * mh, gw * mw))
+
+
+def member_overlay(imp: Impulses, gh: int, gw: int, mh: int,
+                   mw: int) -> torch.Tensor:
+    """An ensemble's member impulses (``pos`` ``[n, K, 2]`` member-local,
+    ``velocity``, ``active`` ``[n, K]``; members row-major over a ``gh x
+    gw`` tiling of ``mh x mw`` tiles) as K2's ``[3, gh*mh, gw*mw]``
+    float32 store-time overlay, bit-equal to its plain version; on CPU
+    tensors the plain version."""
+    n, k, nd = imp.pos.shape
+    plane = gh * mh * gw * mw
+    if nd != 2 or n != gh * gw or imp.active.shape != (n, k):
+        raise ValueError("member_overlay: needs pos [gh*gw, K, 2] and "
+                         "active [gh*gw, K]")
+    if imp.pos.device.type == "cpu":
+        return member_overlay_reference(imp, gh, gw, mh, mw)
+    vel = imp.velocity.to(torch.float32).contiguous()
+    pos, active = imp.pos.contiguous(), imp.active.contiguous()
+    check_launch("member_overlay", pos=(pos, _I32), vel=(vel, F32),
+                 active=(active, _BOOL))
+    if plane >= 2 ** 31:
+        raise ValueError("member_overlay: the supergrid has 2^31 cells or "
+                         "more")
+    out = torch.empty((nd + 1, gh * mh, gw * mw), dtype=torch.float32,
+                      device=pos.device)
+    launch("fluid_member_overlay", pos, pos, vel, active, out, n, k, gw, mh,
+           mw, plane)
+    member_overlay.launches += 1
+    return out
+
+
+member_overlay.launches = 0

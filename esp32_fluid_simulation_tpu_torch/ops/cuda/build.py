@@ -75,6 +75,8 @@ _SIGNATURES = {
     "fluid_project_trapezoid": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _F, _F, _I, _F, _F, _I,
                                 _I, _I, _P),
+    # pos, vel, active, out, n, K, gw, mh, mw, plane, stream
+    "fluid_member_overlay": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # color, out, H, W, color_bf16, s, bswap, unit_range, stream
     "fluid_render_rgb565": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     # field, vel, out, C, D, H, W, field_bf16, vel_bf16, dt, max_disp,

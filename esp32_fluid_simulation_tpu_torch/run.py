@@ -29,7 +29,7 @@ from .state import Impulses
 from .models.stable_fluids import init_state
 from .models import make_step, make_step_with_metrics
 from .render import render_rgb8
-from .io_host.touch import scripted_swirl
+from .io_host.touch import scripted_swirl, swirl_lists
 from .utils.checkpoint import save_checkpoint, load_checkpoint, dump_arr
 from .utils.metrics import MetricsLogger, summarize
 from .utils.watchdog import make_guarded_step
@@ -87,14 +87,21 @@ def _impulses(args, cfg, t, dev):
 
 def run_ensemble(args, cfg):
     """BASELINE config 4: N independent sims stepped together."""
-    from .models.ensemble import (init_ensemble, make_ensemble_step,
-                                  stack_impulses)
+    from .models.ensemble import init_ensemble, make_ensemble_step
     n, dev = args.ensemble, args.device
     state = init_ensemble(cfg, n, device=dev)
 
     def member_imps(t):
-        return stack_impulses([_impulses(args, cfg, t + 7 * m, dev)
-                               for m in range(n)])
+        """Member m's swirl at step ``t + 7 * m``, fed as one batch."""
+        member, pos, vel = [], [], []
+        if args.impulses == "swirl":
+            for m in range(n):
+                p, v = swirl_lists(cfg, t + 7 * m, speed=args.impulse_speed)
+                member += [m] * len(p)
+                pos += p
+                vel += v
+        return Impulses.from_member_lists(cfg, n, member, pos, vel,
+                                          device=dev)
 
     if args.steps > 1:
         # rollout: the member stack converts to the supergrid once per

@@ -87,6 +87,61 @@ class Impulses(NamedTuple):
                 return imp
             return cls(*(t.to(device) for t in fields))
 
+    @classmethod
+    def from_member_lists(cls, cfg: SimConfig, n: int, member, pos, vel,
+                          device="cuda") -> "Impulses":
+        """Build an ensemble's ``[n, K, nd]`` / ``[n, K]`` batch from flat
+        sequences of a step's pokes (lists, or numpy arrays, which cross
+        without a Python object a poke): poke ``i`` goes to member
+        ``member[i]`` at the member-local cell ``pos[i]`` with velocity
+        ``vel[i]``.
+
+        Each member keeps its first ``K = cfg.max_impulses`` pokes in list
+        order and drops the rest, as ``from_lists`` does for one grid, so
+        the batch equals ``stack_impulses`` of one ``from_lists`` a member,
+        field for field.  The padding is vectorised in numpy over all pokes;
+        for a CUDA ``device`` the batch crosses as one pinned block and one
+        non-blocking copy, as in ``from_lists``, and counts one
+        ``Impulses.staged_uploads``."""
+        with span("fluid.impulses"):
+            k, nd, count = cfg.max_impulses, cfg.ndim, len(member)
+            if not count == len(pos) == len(vel):
+                raise ValueError(
+                    f"{count} members, {len(pos)} positions and "
+                    f"{len(vel)} velocities: one of each a poke")
+            m = np.asarray(member, np.int64).reshape(count)
+            p_all = np.asarray(pos, np.int32).reshape(count, nd)
+            v_all = np.asarray(vel, np.float64).reshape(count, nd)
+            # member-major lists, the usual order, skip the sort
+            if count > 1 and not (m[1:] >= m[:-1]).all():
+                order = np.argsort(m, kind="stable")
+                m, p_all, v_all = m[order], p_all[order], v_all[order]
+            if count and not (0 <= m[0] and m[-1] < n):
+                raise ValueError(f"member indices outside [0, {n})")
+            # a poke's slot: its rank among its member's pokes
+            slot = np.arange(count) - np.searchsorted(m, m)
+            cell = m * k + slot
+            if count and slot.max() >= k:
+                keep = slot < k
+                cell, p_all, v_all = cell[keep], p_all[keep], v_all[keep]
+            p = np.zeros((n * k, nd), np.int32)
+            v = np.zeros((n * k, nd), np.float32)  # cast below, as from_lists
+            a = np.zeros(n * k, np.bool_)
+            p[cell] = p_all
+            v[cell] = v_all
+            a[cell] = True
+            p, v = p.reshape(n, k, nd), v.reshape(n, k, nd)
+            a = a.reshape(n, k)
+            fields = (torch.from_numpy(p),
+                      torch.from_numpy(v).to(cfg.torch_dtype),
+                      torch.from_numpy(a))
+            if (torch.device(device).type == "cuda"
+                    and torch.cuda.is_available()):
+                imp = cls(*_staged(fields, device))
+                Impulses.staged_uploads += 1
+                return imp
+            return cls(*(t.to(device) for t in fields))
+
 
 _ALIGN = 16  # bytes between the staged fields' starts
 

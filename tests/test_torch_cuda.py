@@ -726,8 +726,9 @@ def test_maccormack_member_kernel_bit_equal(cuda, rng, dtype, channels,
 
 def test_tiled_ensemble_step_kernel_route(cuda, rng):
     """Four 32x48 members through ``make_ensemble_step`` on the card (the
-    kernel route: K2 member twice, once with the overlay, K1 member once)
-    against the same step through the plain versions on the card."""
+    kernel route: the member overlay built by one launch, K2 member twice,
+    once with the overlay, K1 member once) against the same step through
+    the plain versions on the card, the overlay's included."""
     cfg = SimConfig(shape=(32, 48), sor_iters=4, max_impulses=2,
                     advect_impl="pallas")
     n = 4
@@ -736,12 +737,15 @@ def test_tiled_ensemble_step_kernel_route(cuda, rng):
         cfg, [(8 + k, 9), (20, 4 + k)], [(50.0 + 30 * k, -40.0),
                                           (25.0, -60.0 + 10 * k)],
         device=cuda) for k in range(n)])
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
+        member_overlay, member_overlay_reference)
     before = (advect_kernel.member_launches, advect_kernel.overlay_launches,
-              project_fused.member_launches)
+              project_fused.member_launches, member_overlay.launches)
     out = make_ensemble_step(cfg)(st, imps)
     assert (advect_kernel.member_launches, advect_kernel.overlay_launches,
-            project_fused.member_launches) == (before[0] + 2, before[1] + 1,
-                                               before[2] + 1)
+            project_fused.member_launches,
+            member_overlay.launches) == (before[0] + 2, before[1] + 1,
+                                         before[2] + 1, before[3] + 1)
     from esp32_fluid_simulation_tpu_torch.models import ensemble as E
     from esp32_fluid_simulation_tpu_torch.models.stable_fluids import (
         _from_members, _to_members)
@@ -749,7 +753,7 @@ def test_tiled_ensemble_step_kernel_route(cuda, rng):
     h, w = cfg_super.shape
     m = cfg.shape
     vel = _from_members(st.velocity, h, w)
-    ov = E._member_impulse_overlay(imps, gh, gw, *m)
+    ov = member_overlay_reference(imps, gh, gw, *m)
     vel = advect_reference(vel, vel, cfg.dt, True, member=m, overlay=ov)
     vel, _ = project_fused_reference(vel, cfg.dx, cfg.sor_iters, cfg.omega,
                                      member=m)

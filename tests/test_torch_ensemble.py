@@ -37,6 +37,8 @@ from esp32_fluid_simulation_tpu_torch.interop import (
     tensor_from_numpy)
 from esp32_fluid_simulation_tpu_torch.models import ensemble as tens
 from esp32_fluid_simulation_tpu_torch.models import stable_fluids as tsf
+from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
+    member_overlay_reference)
 
 torch.set_num_threads(1)
 
@@ -128,7 +130,7 @@ def test_member_impulses_match_jax(rng):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     np.testing.assert_array_equal(
-        tens._member_impulse_overlay(timp, gh, gw, 8, 10).numpy(),
+        member_overlay_reference(timp, gh, gw, 8, 10).numpy(),
         np.asarray(jens._member_impulse_overlay(jimp, gh, gw, 8, 10)))
     vel = rng.normal(0, 5, (2,) + cfg_super.shape).astype(F)
     np.testing.assert_array_equal(
