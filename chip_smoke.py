@@ -68,15 +68,20 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    ``overlay=``) against their plain versions on a 2x3 grid of odd 17x21
    members, a 2x2 grid of 32x64 members, a 3x5 grid of 48x40 members (their
    walls cross K1's tiles) and config 4's 4096^2 supergrid of 256^2
-   members (K1 and K4 at iters 0, 1, 10 and 20 on the small ones);
-   bit-equality is expected.
+   members (K1 and K4 at iters 0, 1, 10 and 20 on the small ones), and K1
+   (iters 0, 1, 10, 15; 10 at 4096^2) and K2 (self-advect with the overlay,
+   the f32 and bf16 dye) on each grid's member stack against their
+   supergrid member modes under the permute; bit-equality is expected.
 14. Config 4 (``examples/config4_ensemble_256.json``, 256 members of 256^2
    on one 4096^2 supergrid): 10 steps through ``make_ensemble_step`` (launch
    counters: K2 member = 2*steps, K2 overlay = steps, the member overlay
-   kernel = steps, K1 member = steps), each step's member overlay kernel
-   against its plain version bit for bit, the plain path built on that
-   plain overlay, the same schedule through ``make_ensemble_multi_step``,
-   and 10 steps of
+   kernel = steps, K1 member = steps, all on the member stack: stack
+   launches K2 = 2*steps, K1 = steps, and no layout conversion), each
+   step's member overlay kernel against its plain version bit for bit, the
+   plain path built on that plain overlay, the same steps with the state
+   laid out on the supergrid and back around the supergrid member modes
+   (``supergrid_route``), the same schedule through
+   ``make_ensemble_multi_step``, and 10 steps of
    the tiled ``make_step_render``, each bit-identical to the plain path on
    the card; member 0 also equals the member stepped alone through
    ``make_step`` on the non-member kernels, bit for bit.
@@ -155,9 +160,11 @@ file; it exits non-zero on any failure and imports nothing of JAX.
    mesh's.
 5. Times (CUDA events), last: ms/step of the kernel and plain paths at
    4096^2, at 256^3, of config 3, of the ``sor_pallas`` step, of config 2
-   and of config 4 (whole-ensemble step, member-steps/s, the rollout's step,
-   the tiled ``step_render``, and the step's split into kernels, overlay
-   build and layout permutes), and ms per call of each kernel and mode and
+   and of config 4 (whole-ensemble step beside ``supergrid_route``'s in
+   turns, member-steps/s, the rollout's step, the tiled ``step_render``,
+   and the step's split into kernels on the member stack and on the
+   supergrid, overlay build and layout permutes), and ms per call of each
+   kernel and mode and
    its plain version; K1's and K4's device launches per call on both
    routes, K5's per call, and K9's per pass (a profiler count: 1 on the
    window routes in every mode, K5's included, 1 per pass for K9 and
@@ -786,6 +793,9 @@ def reset_counts():
         # an ensemble's member impulses as K2's overlay, one launch a step
         "K6 K2 member overlay": (member_overlay, "launches"),
         "K6 K1 project_fused member": (project_fused, "member_launches"),
+        # the member modes on a member stack, counted in the rows above too
+        "K6 K2 stack": (advect_kernel, "stack_launches"),
+        "K6 K1 stack": (project_fused, "stack_launches"),
         "K6 K4 member": (sor_solve_kernel, "member_launches"),
         "K6 K5 member": (advect_maccormack_kernel, "member_launches"),
         # block mode (K11)
@@ -1108,7 +1118,7 @@ def phase13_k6_kernels(dev):
     difference per summary row."""
     from esp32_fluid_simulation_tpu_torch import SimConfig, Impulses
     from esp32_fluid_simulation_tpu_torch.models.stable_fluids import (
-        impulse_overlay)
+        _to_members, impulse_overlay)
     from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
         advect_kernel, advect_maccormack_kernel, advect_maccormack_reference,
         advect_reference)
@@ -1195,6 +1205,36 @@ def phase13_k6_kernels(dev):
                       f"({label})", got_v, want_v)
                 check("K6 K1 project_fused member", f"K1 member pressure "
                       f"({label})", got_p, want_p)
+        # the member stack (the supergrid's members row-major, as
+        # modes.member_grid tiles them), addressed in place, against the
+        # supergrid member mode under the permute
+        for iters in ((10,) if h * w > 1 << 20 else (0, 1, 10, 15)):
+            got_v, got_p = project_fused(_to_members(vel, *member), 1.0,
+                                         iters, 1.96, member=member)
+            want_v, want_p = project_fused(vel, 1.0, iters, 1.96,
+                                           member=member)
+            check("K6 K1 project_fused member", f"K1 stack velocity "
+                  f"iters={iters}", got_v, _to_members(want_v, *member))
+            check("K6 K1 project_fused member", f"K1 stack pressure "
+                  f"iters={iters}", got_p,
+                  _to_members(want_p[None], *member)[:, 0])
+        vel = 200.0 * torch.randn((2, h, w), generator=gen, device=dev)
+        vs = _to_members(vel, *member)
+        check("K6 K2 advect_kernel overlay", "K2 stack+overlay self-advect",
+              advect_kernel(vs, None, dt, True, 12, self_advect=True,
+                            member=member, overlay=ov),
+              _to_members(advect_kernel(vel, vel, dt, True, 12,
+                                        self_advect=True, member=member,
+                                        overlay=ov), *member))
+        for dtype in (torch.float32, torch.bfloat16):
+            c = dye.to(dtype)
+            check("K6 K2 advect_kernel member",
+                  f"K2 stack dye {str(dtype)[6:]} clip01",
+                  advect_kernel(_to_members(c, *member), vs, dt, False, 12,
+                                clip01=True, member=member),
+                  _to_members(advect_kernel(c, vel, dt, False, 12,
+                                            clip01=True, member=member),
+                              *member))
         d = torch.randn(shape, generator=gen, device=dev)
         for iters, dx in ((10, 1.0), (1, 0.7)) + (
                 () if h * w > 1 << 20 else ((0, 1.0), (20, 1.0))):
@@ -1245,6 +1285,20 @@ def plain_tiled_step(state, cfg_super, overlay, rgb565=False):
     return (st, frame) if rgb565 else st
 
 
+def supergrid_route(member_cfg, cfg_super, gh, gw):
+    """The ensemble step with the member stack laid out on the supergrid
+    and back around the kernels' supergrid member modes (the route before
+    the kernels addressed the stack in place; still the route above K1's
+    trapezoid)."""
+    from esp32_fluid_simulation_tpu_torch.models.ensemble import (
+        _from_super, _step_super, _to_super)
+
+    def step(state, imps):
+        return _from_super(_step_super(_to_super(state, cfg_super), imps,
+                                       cfg_super, gh, gw), member_cfg)
+    return step
+
+
 def phase14_config4(dev):
     """Config 4 through the ensemble entry points and the tiled
     ``step_render``; returns the launch counts of the ensemble run, the
@@ -1255,6 +1309,8 @@ def phase14_config4(dev):
         make_ensemble_multi_step, make_step, make_step_render,
         stack_schedule, tiled_ensemble_config)
     from esp32_fluid_simulation_tpu_torch.io_host.touch import scripted_swirl
+    from esp32_fluid_simulation_tpu_torch.models.ensemble import (
+        layout_conversions)
     from esp32_fluid_simulation_tpu_torch.models.stable_fluids import (
         _from_members, _to_members, impulse_overlay)
     from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
@@ -1270,16 +1326,19 @@ def phase14_config4(dev):
     ens_step = make_ensemble_step(member_cfg)
     torch.cuda.synchronize()
     counts = reset_counts()
+    layouts = layout_conversions()
     st = state0
     for imps in sched:
         st = ens_step(st, imps)
     torch.cuda.synchronize()
     nc = counts()
+    nc["layouts"] = layout_conversions() - layouts
     want = {"K2 advect_kernel": 2 * steps, "K1 project_fused": steps,
             "K6 K2 advect_kernel member": 2 * steps,
             "K6 K2 advect_kernel overlay": steps,
             "K6 K2 member overlay": steps,
             "K6 K1 project_fused member": steps, "K1 window route": steps,
+            "K6 K2 stack": 2 * steps, "K6 K1 stack": steps, "layouts": 0,
             "K1 sequence route": 0, "K3 render_rgb565_kernel": 0,
             "K4 sor_solve_kernel": 0, "K5 advect_maccormack_kernel": 0}
     bad = {k: (nc[k], v) for k, v in want.items() if nc[k] != v}
@@ -1325,6 +1384,24 @@ def phase14_config4(dev):
         raise AssertionError("phase 14: the ensemble step differs from the "
                              "plain path")
 
+    # the same steps with the state laid out on the supergrid and back
+    # around the kernels: bit-equal, and its 2 conversions a step
+    layouts = layout_conversions()
+    ps = state0
+    super_step = supergrid_route(member_cfg, cfg_super, gh, gw)
+    for imps in sched:
+        ps = super_step(ps, imps)
+    torch.cuda.synchronize()
+    conversions = layout_conversions() - layouts
+    same = (torch.equal(ps.velocity, st.velocity)
+            and torch.equal(ps.color, st.color) and ps.step == st.step)
+    print(f"phase 14 the member stack addressed in place vs laid out on the "
+          f"supergrid and back ({conversions} conversions in {steps} "
+          f"steps): bit-identical={same}")
+    if not same or conversions != 2 * steps:
+        raise AssertionError("phase 14: the ensemble step on the member "
+                             "stack differs from the supergrid route")
+
     run = make_ensemble_multi_step(member_cfg)(state0, stack_schedule(sched))
     same = (torch.equal(run.velocity, st.velocity)
             and torch.equal(run.color, st.color) and run.step == steps)
@@ -1362,6 +1439,7 @@ def phase14_config4(dev):
     want_r = {"K6 K2 advect_kernel member": 2 * steps,
               "K6 K2 advect_kernel overlay": steps,
               "K6 K1 project_fused member": steps,
+              "K6 K2 stack": 0, "K6 K1 stack": 0,
               "K3 render_rgb565_kernel": 0}
     bad = {k: (nr[k], v) for k, v in want_r.items() if nr[k] != v}
     if bad:
@@ -1389,9 +1467,12 @@ def phase14_config4(dev):
 
 
 def phase5_config4_timing(dev, card, member_cfg, state0, sched):
-    """Times of config 4: the whole-ensemble step, the rollout's step, the
-    tiled step_render, the step's split, and each K6 mode (K4's and K5's
-    too) against its plain version; returns the K6 rows' work."""
+    """Times of config 4: the whole-ensemble step beside the same step laid
+    out on the supergrid and back (``supergrid_route``), the rollout's
+    step, the tiled step_render, the step's split, and each K6 mode (K4's
+    and K5's too) against its plain version, K1's and K2's on the member
+    stack and on the supergrid; returns the K6 rows' work (the member
+    stack's, the ensemble's path)."""
     from esp32_fluid_simulation_tpu_torch import (
         init_state, make_ensemble_multi_step, make_ensemble_step,
         make_step_render, stack_schedule, tiled_ensemble_config)
@@ -1419,7 +1500,18 @@ def phase5_config4_timing(dev, card, member_cfg, state0, sched):
         box["t"] += 1
 
     ens_step = make_ensemble_step(member_cfg)
+    sbox = {"st": state0, "t": 0}
+    super_step = supergrid_route(member_cfg, cfg_super, gh, gw)
+
+    def super_one():
+        sbox["st"] = super_step(sbox["st"], sched[sbox["t"] % steps])
+        sbox["t"] += 1
+
+    # in turns: stack, supergrid, supergrid, stack
     res["ensemble step"] = cuda_ms(ens_one, 10, warmup=2)
+    res["ensemble step, supergrid route"] = cuda_ms(super_one, 10, warmup=2)
+    res["ensemble step, supergrid route (2nd)"] = cuda_ms(super_one, 10)
+    res["ensemble step (2nd)"] = cuda_ms(ens_one, 10)
     rollout = make_ensemble_multi_step(member_cfg)
     schedule = stack_schedule(sched)
     res["ensemble rollout step"] = cuda_ms(
@@ -1463,6 +1555,16 @@ def phase5_config4_timing(dev, card, member_cfg, state0, sched):
     res["K1 member"], res["K1 member plain"] = time_pair(
         lambda: project_fused(vel, dx, it, om, member=m),
         lambda: project_fused_reference(vel, dx, it, om, member=m))
+    # the same launches on the member stack, the ensemble's path
+    vs, cs = st.velocity, st.color
+    res["K2 stack+overlay"] = cuda_ms(
+        lambda: advect_kernel(vs, None, dt, True, md, self_advect=True,
+                              member=m, overlay=ov), 20, warmup=2)
+    res["K2 stack dye"] = cuda_ms(
+        lambda: advect_kernel(cs, vs, dt, False, md, clip01=True, member=m),
+        20, warmup=2)
+    res["K1 stack"] = cuda_ms(
+        lambda: project_fused(vs, dx, it, om, member=m), 20, warmup=2)
     # K4's and K5's member= have no caller on any path: timed at config 4's
     # shapes for the kernel table only
     d = divergence(vel, dx)
@@ -1503,14 +1605,14 @@ def phase5_config4_timing(dev, card, member_cfg, state0, sched):
           f"{k5_bound:.4f} ms; overlay flagged cells {flagged}")
     return {
         "K6 K2 advect_kernel member": (
-            res["K2 member+overlay"] + res["K2 member dye"],
+            res["K2 stack+overlay"] + res["K2 stack dye"],
             res["K2 member+overlay plain"] + res["K2 member dye plain"],
             self_bytes + dye_bytes, cells * (49 + 60)),
         "K6 K2 advect_kernel overlay": (
-            res["K2 member+overlay"], res["K2 member+overlay plain"],
+            res["K2 stack+overlay"], res["K2 member+overlay plain"],
             self_bytes, cells * 49),
         "K6 K1 project_fused member": (
-            res["K1 member"], res["K1 member plain"],
+            res["K1 stack"], res["K1 member plain"],
             2 * nbytes(vel) + 4 * cells, cells * (13 + 8 * it)),
     }
 

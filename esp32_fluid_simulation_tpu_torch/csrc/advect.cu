@@ -68,6 +68,21 @@
 // without a member compiles to the code it had before.  It costs one
 // integer division per axis and cell and no bytes.
 //
+// On a member stack (csrc/stack.cuh; the ensemble's [n, C, mh, mw] state,
+// with a [n, 2, mh, mw] velocity) the member mode reads and writes the
+// stack in place: every coordinate, clamp and weight is the supergrid's,
+// and only the loads of the cell's velocity and the store move, and the
+// taps, which MEMBER keeps inside the cell's member, sit at the same
+// offsets from the cell as on the supergrid with the row stride mw.  The
+// launch walks the members (grid.z), a block 32 x 4 cells of one, so a
+// thread's addresses and its tile's origin take one division, the
+// member's row of tiles, the same across the block: in the supergrid's
+// order, with the member tiles found by division, the self-advect took
+// 15% longer than the supergrid member mode, and in this order about as
+// long (PERF.md, section 6).  A template flag beside
+// MEMBER; it takes the overlay (still [C+1, H, W] on the supergrid) and
+// the dye clip, not the extrema, the frame or block mode.
+//
 // The overlay (K6, advect.py:601-607) is the drag queue's drain riding the
 // store: a dense [C+1, H, W] float32 array whose channel C flags (> 0) the
 // cells where channel ch replaces the advected value, after the no-slip
@@ -94,6 +109,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "stack.cuh"
 
 namespace {
 
@@ -163,21 +180,26 @@ struct Stencil {
 
 // From the unclamped source (si_raw, sj_raw) of node (i, j): the CFL clamp
 // to max_disp cells, then the domain clamp (edge lerp) of the whole grid or,
-// with MEMBER, of the node's mh x mw member tile; the no-slip factor from
-// the unclamped coordinate (member-relative with MEMBER).
+// with MEMBER, of the node's mh x mw member tile, whose origin (oi, oj) is
+// (i / mh) * mh, (j / mw) * mw unless the caller has it (oi >= 0); the
+// no-slip factor from the unclamped coordinate (member-relative with
+// MEMBER).
 template <bool MEMBER>
 __device__ __forceinline__ Stencil stencil(int i, int j, float si_raw,
                                            float sj_raw, int H, int W,
                                            float max_disp, int no_slip,
-                                           int mh, int mw) {
+                                           int mh, int mw, int oi = -1,
+                                           int oj = -1) {
   const float fi = (float)i;
   const float fj = (float)j;
   float si = fminf(fmaxf(si_raw, fi - max_disp), fi + max_disp);
   float sj = fminf(fmaxf(sj_raw, fj - max_disp), fj + max_disp);
   float i0f, j0f, ns;
   if constexpr (MEMBER) {
-    const int oi = (i / mh) * mh;
-    const int oj = (j / mw) * mw;
+    if (oi < 0) {
+      oi = (i / mh) * mh;
+      oj = (j / mw) * mw;
+    }
     const float lo_i = (float)oi;
     const float lo_j = (float)oj;
     si = fminf(fmaxf(si, lo_i), (float)(oi + mh - 1));
@@ -224,7 +246,8 @@ struct Block {
 // Everything one launch of the advect kernel takes.  out (and lo, hi) are
 // [C, H, W] in the field dtype, the field too or, in block mode, [C, H +
 // 2 halo, W + 2 halo]; overlay is [C+1, H, W] float32 or null; mh = 0 means
-// no member tiling.
+// no member tiling.  With stack, field and out are member stacks [n, C,
+// mh, mw] and vel [n, 2, mh, mw] of the H x W supergrid.
 struct AdvectArgs {
   const void* field;
   const float* vel;
@@ -236,37 +259,65 @@ struct AdvectArgs {
   int H, W, mh, mw;
   Block blk;
   float dt, max_disp;
-  int no_slip, clip01, bswap;
+  int no_slip, clip01, bswap, stack;
   cudaStream_t stream;
 };
 
-template <typename T, int C, int MM, bool MEMBER, bool OVERLAY, bool BLOCK>
+template <typename T, int C, int MM, bool MEMBER, bool OVERLAY, bool BLOCK,
+          bool STACK>
 __global__ void advect_kernel(const T* __restrict__ field,
                               const float* __restrict__ vel,
                               const float* __restrict__ overlay,
                               T* __restrict__ out,
                               uint16_t* __restrict__ frame,
                               T* __restrict__ lo, T* __restrict__ hi, int H,
-                              int W, int mh, int mw, const Block b, float dt,
-                              float max_disp, int no_slip, int clip01,
-                              int bswap) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= H || j >= W) return;
+                              int W, int mh, int mw, int gw, const Block b,
+                              float dt, float max_disp, int no_slip,
+                              int clip01, int bswap) {
+  // the cell (i, j), its place in the velocity (vc) and in the field and
+  // the output (oc) and, on the stack, its member tile's origin (oi, oj): a
+  // block there walks a member's rows and columns (grid.z the member, gw
+  // members a row of tiles), so a thread's addresses and tile take one
+  // division, the block's tile row
+  int i, j, oi = -1, oj = -1;
+  long vc, oc;
+  if constexpr (STACK) {
+    const int r = blockIdx.y * blockDim.y + threadIdx.y;
+    const int cc = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r >= mh || cc >= mw) return;
+    const int m = blockIdx.z;
+    const int qi = m / gw;
+    oi = qi * mh;
+    oj = (m - qi * gw) * mw;
+    i = oi + r;
+    j = oj + cc;
+    const long cells = (long)mh * mw, loc = (long)r * mw + cc;
+    vc = m * (2 * cells) + loc;
+    oc = m * (C * cells) + loc;
+  } else {
+    j = blockIdx.x * blockDim.x + threadIdx.x;
+    i = blockIdx.y * blockDim.y + threadIdx.y;
+    if (i >= H || j >= W) return;
+    vc = oc = (long)i * W + j;
+  }
   const long plane = (long)H * W;
-  const long c = (long)i * W + j;
+  const long c = (long)i * W + j;  // on the supergrid: the overlay, the frame
+  const long oplane = plane_of<STACK>(H, W, mh, mw);
   const int gi = BLOCK ? i + b.ox : i;
   const int gj = BLOCK ? j + b.oy : j;
-  const Stencil s = stencil<MEMBER>(gi, gj, (float)gi - vel[c] * dt,
-                                    (float)gj - vel[plane + c] * dt,
+  const Stencil s = stencil<MEMBER>(gi, gj, (float)gi - vel[vc] * dt,
+                                    (float)gj - vel[oplane + vc] * dt,
                                     BLOCK ? b.GH : H, BLOCK ? b.GW : W,
-                                    max_disp, no_slip, mh, mw);
-  // the field's row stride and plane, and the base tap within it
-  const int fw = BLOCK ? W + 2 * b.halo : W;
-  const long fplane = BLOCK ? (long)(H + 2 * b.halo) * fw : plane;
-  const long base = BLOCK ? (long)(s.i0 - b.ox + b.halo) * fw +
+                                    max_disp, no_slip, mh, mw, oi, oj);
+  // the field's row stride and plane, and the base tap within it (on the
+  // stack the taps lie in the cell's member, at the supergrid's offsets
+  // from the cell with the row stride mw)
+  const int fw = BLOCK ? W + 2 * b.halo : STACK ? mw : W;
+  const long fplane = BLOCK ? (long)(H + 2 * b.halo) * fw : oplane;
+  const long base = BLOCK   ? (long)(s.i0 - b.ox + b.halo) * fw +
                                 (s.j0 - b.oy + b.halo)
-                          : (long)s.i0 * W + s.j0;
+                    : STACK ? oc + (long)(s.i0 - i) * mw + (s.j0 - j)
+                            : (long)s.i0 * W + s.j0;
   // the drain flag of the overlay (a NaN flag writes nothing)
   const bool drain = OVERLAY && overlay[C * plane + c] > 0.f;
 
@@ -281,7 +332,7 @@ __global__ void advect_kernel(const T* __restrict__ field,
     float a = bilerp(s, t00, t01, t10, t11, no_slip);
     if (clip01) a = fminf(fmaxf(a, 0.f), 1.f);
     if (drain) a = overlay[ch * plane + c];
-    stored[ch] = store(out + ch * plane, c, a);
+    stored[ch] = store(out + ch * oplane, oc, a);
     if (MM == kRaw) {
       // extrema of the undiscounted taps, exact in the field dtype
       store(lo + ch * plane, c, min_nan(min_nan(t00, t01), min_nan(t10, t11)));
@@ -289,7 +340,8 @@ __global__ void advect_kernel(const T* __restrict__ field,
     }
   }
 
-  if (!BLOCK && C == 3 && frame != nullptr && i < H - 1 && j < W - 1) {
+  if (!BLOCK && !STACK && C == 3 && frame != nullptr && i < H - 1 &&
+      j < W - 1) {
     int word = (quant_unit(stored[0], 5) << 11) |
                (quant_unit(stored[1 % C], 6) << 5) |
                quant_unit(stored[2 % C], 5);
@@ -298,29 +350,47 @@ __global__ void advect_kernel(const T* __restrict__ field,
   }
 }
 
-template <typename T, int C, int MM, bool MEMBER, bool OVERLAY, bool BLOCK>
+template <typename T, int C, int MM, bool MEMBER, bool OVERLAY, bool BLOCK,
+          bool STACK = false>
 cudaError_t launch(const AdvectArgs& a) {
-  const dim3 block(32, 8);
-  const dim3 grid((a.W + block.x - 1) / block.x,
-                  (a.H + block.y - 1) / block.y);
-  advect_kernel<T, C, MM, MEMBER, OVERLAY, BLOCK>
+  // on the stack a block is 32 x 4 cells of a member, grid.z the members
+  // (32 x 8 took ~2.5% longer there, 64 x 2 as long; PERF.md)
+  const dim3 block(32, STACK ? 4 : 8);
+  const dim3 grid =
+      STACK ? dim3((a.mw + block.x - 1) / block.x,
+                   (a.mh + block.y - 1) / block.y, (a.H / a.mh) * (a.W / a.mw))
+            : dim3((a.W + block.x - 1) / block.x,
+                   (a.H + block.y - 1) / block.y);
+  advect_kernel<T, C, MM, MEMBER, OVERLAY, BLOCK, STACK>
       <<<grid, block, 0, a.stream>>>(
           static_cast<const T*>(a.field), a.vel, a.overlay,
           static_cast<T*>(a.out), C == 3 ? a.frame : nullptr,
           static_cast<T*>(a.lo), static_cast<T*>(a.hi), a.H, a.W, a.mh, a.mw,
-          a.blk, a.dt, a.max_disp, a.no_slip, a.clip01, a.bswap);
+          STACK ? a.W / a.mw : 0, a.blk, a.dt, a.max_disp, a.no_slip,
+          a.clip01, a.bswap);
   return cudaGetLastError();
 }
 
 // The member, overlay and block modes; the overlay only without extrema,
-// block mode alone.
+// block mode alone, the member stack only with members and without
+// extrema or frame.
 template <typename T, int C, int MM>
 cudaError_t dispatch_mode(const AdvectArgs& a) {
   const bool member = a.mh > 0;
   if (a.blk.halo > 0) {
-    if (member || a.overlay != nullptr || a.frame != nullptr)
+    if (member || a.overlay != nullptr || a.frame != nullptr || a.stack)
       return cudaErrorInvalidValue;
     return launch<T, C, MM, false, false, true>(a);
+  }
+  if (a.stack) {
+    if constexpr (MM == kNone) {
+      if (!member || a.frame != nullptr) return cudaErrorInvalidValue;
+      return a.overlay != nullptr
+                 ? launch<T, C, MM, true, true, false, true>(a)
+                 : launch<T, C, MM, true, false, false, true>(a);
+    } else {
+      return cudaErrorInvalidValue;
+    }
   }
   if (a.overlay != nullptr) {
     if constexpr (MM == kNone) {
@@ -686,19 +756,22 @@ struct Tile {
 // member tile (mh = 0: none; else mh, mw >= 2 dividing H, W).  Block mode
 // when halo > 0 (no member, overlay or frame; minmax 0 or 1): out, vel, lo
 // and hi are the owned H x W block at global (ox, oy) of a GH x GW domain,
-// field is [C, H + 2 halo, W + 2 halo].
+// field is [C, H + 2 halo, W + 2 halo].  stack = 1: field and out are the
+// member stack [H/mh * W/mw, C, mh, mw] of the H x W supergrid, vel [n, 2,
+// mh, mw] (members, minmax 0, no frame or block mode; the overlay stays
+// on the supergrid).
 extern "C" int fluid_advect(const void* field, const void* vel,
                             const void* overlay, void* out, void* frame,
                             void* lo, void* hi, int C, int H, int W,
                             int field_bf16, float dt, int max_disp, int mh,
                             int mw, int ox, int oy, int halo, int GH, int GW,
                             int no_slip, int clip01, int bswap, int minmax,
-                            void* stream) {
+                            int stack, void* stream) {
   const AdvectArgs a{field, static_cast<const float*>(vel),
                      static_cast<const float*>(overlay), out,
                      static_cast<uint16_t*>(frame), lo, hi, H, W, mh, mw,
                      Block{ox, oy, halo, GH, GW}, dt, (float)max_disp,
-                     no_slip, clip01, bswap,
+                     no_slip, clip01, bswap, stack,
                      static_cast<cudaStream_t>(stream)};
   if (field_bf16) return (int)dispatch_channels<__nv_bfloat16>(C, minmax, a);
   return (int)dispatch_channels<float>(C, minmax, a);

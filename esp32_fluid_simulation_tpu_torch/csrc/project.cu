@@ -68,6 +68,19 @@
 // at every member wall; the drain is unchanged, so impulses and members
 // combine.
 //
+// On a member stack (csrc/stack.cuh; the ensemble's [n, 2, mh, mw]
+// velocity) the trapezoid reads the velocity and writes the velocity and
+// the [n, mh, mw] pressure in place: its window, walls, flags, drain and
+// half-sweeps stay in supergrid coordinates, and only the row offset, the
+// column offset and the plane of a load or a store change.  A block takes
+// its window's row and column offsets from tables that it fills in shared
+// memory first (StackWindow, csrc/stack.cuh, 8 B a window row and column):
+// computed in the loops, a division a row and the 64-bit products spilled
+// registers out of the half-sweeps and cost the launch a quarter of its
+// time.  A load clamped across a member wall may land in another member's
+// memory; it is never used, as a clamped load is not on the supergrid.  A
+// template flag; the sequence route and the strip take no stack.
+//
 // Block mode (K11, project.py:212-217, called per shard by
 // parallel/sharded.py): vel is one shard's block with a halo of at least
 // 2*iters+2 exchanged cells per side, in global coordinates
@@ -89,6 +102,7 @@
 #include <stdint.h>
 
 #include "rb2d.cuh"
+#include "stack.cuh"
 
 namespace {
 
@@ -671,15 +685,15 @@ constexpr int kBatch = 4;
 // drained vx of the two rows above the batch in registers.  Loads are
 // clamped into the array, so they are unconditional; a value read across
 // a wall or the array's edge is never used.  DRAIN: the window holds
-// impulses.
-template <bool BLOCK, bool DRAIN>
+// impulses; STACK: vel is a member stack, its offsets in sw.
+template <bool BLOCK, bool DRAIN, bool STACK>
 __device__ __forceinline__ void window_divergence(
     const float* __restrict__ vel, const Drain& d, const Geom& g,
-    const RbWindow& win, int ai0, int aj0, int wi0, int wj0, float dx,
-    float inv2dx) {
-  const int H = g.H, W = g.W;
+    const RbWindow& win, const StackWindow& sw, int ai0, int aj0, int wi0,
+    int wj0, float dx, float inv2dx) {
+  const int H = g.H, W = g.W, mh = g.mh, mw = g.mw;
   const float* v0 = vel;
-  const float* v1 = vel + (long)H * W;
+  const float* v1 = vel + plane_of<STACK>(H, W, mh, mw);
   const int n = win.rows - 2;  // shared evenly by the warps
   const int a0 = 1 + n * (int)threadIdx.y / (int)blockDim.y;
   const int a1 = 1 + n * ((int)threadIdx.y + 1) / (int)blockDim.y;
@@ -689,24 +703,36 @@ __device__ __forceinline__ void window_divergence(
     const int j = aj0 + b, gj = wj0 + b;
     const int jc = min(max(j, 0), W - 1);
     const int jl = max(jc - 1, 0), jr = min(jc + 1, W - 1);
-    // row offset of window row a, clamped into the array
-    auto row_at = [&](int a) { return (long)min(max(ai0 + a, 0), H - 1) * W; };
+    // column offsets of the column and its neighbours (on the stack the
+    // window's columns b - 1, b and b + 1: jl, jc and jr in the array,
+    // clamped offsets beyond it, where nothing read is used)
+    const long oc = STACK ? sw.col(b, 2) : jc;
+    const long ol = STACK ? sw.col(b - 1, 2) : jl;
+    const long orr = STACK ? sw.col(b + 1, 2) : jr;
+    // row offset of window row a, clamped into the array (the rows past
+    // the window that a batch reads are never used)
+    auto row_at = [&](int a) -> long {
+      if constexpr (STACK)
+        return sw.row(min(a, win.rows - 1), 2);
+      else
+        return (long)min(max(ai0 + a, 0), H - 1) * W;
+    };
     auto vx_at = [&](int a, float v) {  // drained v0 of window row a
       return DRAIN ? drained(d, v, wi0 + a, gj, 0) : v;
     };
     // vx of rows a - 1 .. a + kBatch of the batch starting at row a
     float vx[kBatch + 2];
-    vx[0] = vx_at(a0 - 1, v0[row_at(a0 - 1) + jc]);
-    vx[1] = vx_at(a0, v0[row_at(a0) + jc]);
+    vx[0] = vx_at(a0 - 1, v0[row_at(a0 - 1) + oc]);
+    vx[1] = vx_at(a0, v0[row_at(a0) + oc]);
     for (int a = a0; a < a1; a += kBatch) {
       float vy[kBatch], vy_l[kBatch], vy_r[kBatch];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const long r = row_at(a + u), r1 = row_at(a + u + 1);
-        vx[u + 2] = v0[r1 + jc];
-        vy[u] = v1[r + jc];
-        vy_l[u] = v1[r + jl];
-        vy_r[u] = v1[r + jr];
+        vx[u + 2] = v0[r1 + oc];
+        vy[u] = v1[r + oc];
+        vy_l[u] = v1[r + ol];
+        vy_r[u] = v1[r + orr];
       }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
@@ -751,26 +777,31 @@ __device__ __forceinline__ void window_divergence(
 // The window route's gradient on the tile, rows and columns [R, R + th) x
 // [R, R + tw) of the window (Neumann walls: the outside pressure is the
 // center value), written with the pressure to the owned cells: lanes along
-// a row, each warp walking a run of rows, kBatch rows at a time.
-template <bool DRAIN>
+// a row, each warp walking a run of rows, kBatch rows at a time.  STACK:
+// vel and out are member stacks, p_out [n, mh, mw] (no block mode), their
+// offsets in sw.
+template <bool DRAIN, bool STACK>
 __device__ __forceinline__ void window_gradient(
     const float* __restrict__ vel, float* __restrict__ out,
     float* __restrict__ p_out, const Drain& d, const Geom& g,
-    const RbWindow& win, int R, int th, int tw, int t0, int u0, int ai0,
-    int aj0, int wi0, int wj0, int bh, int bw, float inv2dx) {
-  const long plane = (long)g.H * g.W;
-  const long out_plane = (long)bh * bw;
+    const RbWindow& win, const StackWindow& sw, int R, int th, int tw,
+    int t0, int u0, int ai0, int aj0, int wi0, int wj0, int bh, int bw,
+    float inv2dx) {
+  const long plane = plane_of<STACK>(g.H, g.W, g.mh, g.mw);
+  const long out_plane = STACK ? plane : (long)bh * bw;
   const int a0 = R + th * (int)threadIdx.y / (int)blockDim.y;
   const int a1 = R + th * ((int)threadIdx.y + 1) / (int)blockDim.y;
   if (a0 >= a1) return;
   for (int b = R + threadIdx.x; b < R + tw; b += 32) {
     const int cf = win.col_flags[b];
+    const long oc = STACK ? sw.col(b, 2) : aj0 + b;
     for (int a = a0; a < a1; a += kBatch) {
       float vx[kBatch], vy[kBatch];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         // rows past the run are clamped to its last: loaded, never used
-        const long c = (long)(ai0 + min(a + u, a1 - 1)) * g.W + (aj0 + b);
+        const int ra = min(a + u, a1 - 1);
+        const long c = (STACK ? sw.row(ra, 2) : (long)(ai0 + ra) * g.W) + oc;
         vx[u] = vel[c];
         vy[u] = vel[plane + c];
       }
@@ -788,10 +819,14 @@ __device__ __forceinline__ void window_gradient(
             DRAIN ? drained(d, vx[u], wi0 + ar, wj0 + b, 0) : vx[u];
         const float vyc =
             DRAIN ? drained(d, vy[u], wi0 + ar, wj0 + b, 1) : vy[u];
-        const long k = (long)(t0 + ar - R) * bw + (u0 + b - R);
+        // the owned cell in the outputs (on the stack without block mode:
+        // window cell (ar, b))
+        const long k = STACK ? sw.row(ar, 2) + oc
+                             : (long)(t0 + ar - R) * bw + (u0 + b - R);
+        const long kp = STACK ? sw.row(ar, 1) + sw.col(b, 1) : k;
         out[k] = vxc - (p_ip1 - p_im1) * inv2dx;
         out[out_plane + k] = vyc - (p_jp1 - p_jm1) * inv2dx;
-        p_out[k] = pc;
+        p_out[kp] = pc;
       }
     }
   }
@@ -802,8 +837,9 @@ __device__ __forceinline__ void window_gradient(
 // [halo, W - halo).  The window is the tile +- R, R = 2*iters + 1, in
 // shared memory: p and dx*d split by colour (RbWindow, csrc/rb2d.cuh), then
 // the row and column flags.  Window cell (a, b) is array cell (ai0 + a,
-// aj0 + b) and global (wi0 + a, wj0 + b).
-template <bool MEMBER, bool BLOCK>
+// aj0 + b) and global (wi0 + a, wj0 + b).  STACK: vel, out and p_out
+// are member stacks of the H x W supergrid (MEMBER, no block mode).
+template <bool MEMBER, bool BLOCK, bool STACK>
 __global__ void __launch_bounds__(1024)
     project_tile_kernel(const float* __restrict__ vel,
                         float* __restrict__ out, float* __restrict__ p_out,
@@ -832,20 +868,28 @@ __global__ void __launch_bounds__(1024)
   unsigned char* col_flags = row_flags + TH + 2 * R;
   const RbWindow win{sp, sd, row_flags, col_flags, rows, cols, stride,
                      (wi0 + wj0) & 1};
+  // STACK: the window's offsets in the member stack, after the flags
+  StackWindow sw{};
+  if constexpr (STACK) {
+    int* t = reinterpret_cast<int*>(row_flags + ((TH + TW + 4 * R + 3) & ~3));
+    sw = StackWindow{t, t + rows, t + 2 * rows, t + 2 * rows + cols};
+  }
   load_drain(d, imp, g.GH, g.GW, wi0, wi0 + rows - 1, wj0, wj0 + cols - 1);
 
-  // 1. the flags and p = 0
+  // 1. the flags, the stack's offsets and p = 0
   rb_window_init<MEMBER>(win, row_flags, col_flags, g, ai0, aj0);
+  if constexpr (STACK)
+    stack_window_init(sw, rows, cols, ai0, aj0, g.H, g.W, g.mh, g.mw);
   __syncthreads();
 
   // 2. dx * div on the tile +- (R - 1), 0 outside the domain
   if (iters > 0) {
     if (d.n > 0)
-      window_divergence<BLOCK, true>(vel, d, g, win, ai0, aj0, wi0, wj0, dx,
-                                     inv2dx);
+      window_divergence<BLOCK, true, STACK>(vel, d, g, win, sw, ai0, aj0,
+                                            wi0, wj0, dx, inv2dx);
     else
-      window_divergence<BLOCK, false>(vel, d, g, win, ai0, aj0, wi0, wj0,
-                                      dx, inv2dx);
+      window_divergence<BLOCK, false, STACK>(vel, d, g, win, sw, ai0, aj0,
+                                             wi0, wj0, dx, inv2dx);
     __syncthreads();
   }
 
@@ -855,14 +899,15 @@ __global__ void __launch_bounds__(1024)
   // 4. the gradient on the tile, written with the pressure to the owned
   // cells
   if (d.n > 0)
-    window_gradient<true>(vel, out, p_out, d, g, win, R, th, tw, t0, u0, ai0,
-                          aj0, wi0, wj0, bh, bw, inv2dx);
+    window_gradient<true, STACK>(vel, out, p_out, d, g, win, sw, R, th, tw,
+                                 t0, u0, ai0, aj0, wi0, wj0, bh, bw, inv2dx);
   else
-    window_gradient<false>(vel, out, p_out, d, g, win, R, th, tw, t0, u0,
-                           ai0, aj0, wi0, wj0, bh, bw, inv2dx);
+    window_gradient<false, STACK>(vel, out, p_out, d, g, win, sw, R, th, tw,
+                                  t0, u0, ai0, aj0, wi0, wj0, bh, bw,
+                                  inv2dx);
 }
 
-template <bool MEMBER, bool BLOCK>
+template <bool MEMBER, bool BLOCK, bool STACK = false>
 cudaError_t project_trapezoid(const float* v, float* vo, float* po,
                               const ImpulseArgs& imp, const Geom& g, int halo,
                               int TH, int TW, int threads_y, float dx,
@@ -870,17 +915,21 @@ cudaError_t project_trapezoid(const float* v, float* vo, float* po,
                               float one_m_w, cudaStream_t s) {
   const WindowShape ws = window_shape(TH, TW, 2 * iters + 1);
   if (ws.cols == 0) return cudaErrorInvalidValue;
+  const int bytes =
+      ws.bytes + (STACK ? stack_window_bytes(TH + 4 * iters + 2,
+                                             TW + 4 * iters + 2)
+                        : 0);
   // this overload of project_tile_kernel, not the strip's
   void (*kernel)(const float*, float*, float*, const ImpulseArgs, const Geom,
                  int, int, int, int, float, float, int, float, float) =
-      project_tile_kernel<MEMBER, BLOCK>;
+      project_tile_kernel<MEMBER, BLOCK, STACK>;
   // above 48 KB a block's shared memory must be asked for
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ws.bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((g.W - 2 * halo + TW - 1) / TW,
                   (g.H - 2 * halo + TH - 1) / TH);
-  kernel<<<grid, dim3(32, threads_y), ws.bytes, s>>>(
+  kernel<<<grid, dim3(32, threads_y), bytes, s>>>(
       v, vo, po, imp, g, halo, TH, TW, ws.stride, dx, inv2dx, iters, omega,
       one_m_w);
   return cudaGetLastError();
@@ -946,7 +995,9 @@ extern "C" int fluid_project_window(const void* vel, void* vel_out,
 
 // The trapezoid route (one launch), for member tiles: the arguments as for
 // fluid_project_window, with TH x TW tiles and blocks of 32 x threads_y
-// threads in place of the strips and segments.
+// threads in place of the strips and segments.  stack = 1: vel and
+// vel_out are the member stack [H/mh * W/mw, 2, mh, mw] of the H x W
+// supergrid and p_out [n, mh, mw] (members, no block mode).
 extern "C" int fluid_project_trapezoid(const void* vel, void* vel_out,
                                        void* p_out, const void* ipos,
                                        const void* ivel, const void* iact,
@@ -955,9 +1006,10 @@ extern "C" int fluid_project_trapezoid(const void* vel, void* vel_out,
                                        int halo, float dx, float inv2dx,
                                        int iters, float omega, float one_m_w,
                                        int tile_h, int tile_w, int threads_y,
-                                       void* stream) {
+                                       int stack, void* stream) {
   if (n_imp < 0 || n_imp > kMaxImpulses || iters < 0 || tile_h < 1 ||
-      tile_w < 1 || threads_y < 1 || threads_y > 32)
+      tile_w < 1 || threads_y < 1 || threads_y > 32 ||
+      (stack && (mh <= 0 || halo > 0)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* v = static_cast<const float*>(vel);
@@ -979,6 +1031,10 @@ extern "C" int fluid_project_trapezoid(const void* vel, void* vel_out,
                                                s);
   }
   const Geom g{H, W, 0, 0, H, W, mh, mw};
+  if (stack)
+    return (int)project_trapezoid<true, false, true>(
+        v, vo, po, imp, g, 0, tile_h, tile_w, threads_y, dx, inv2dx, iters,
+        omega, one_m_w, s);
   if (mh > 0)
     return (int)project_trapezoid<true, false>(v, vo, po, imp, g, 0, tile_h,
                                                tile_w, threads_y, dx, inv2dx,

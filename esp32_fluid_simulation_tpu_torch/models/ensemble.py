@@ -14,10 +14,15 @@ the members become the tiles of one grid (``tiled_ensemble_config``) whose
 kernels evaluate every boundary condition per tile (K6: K1 and K2 with
 ``member=``, the impulses as K2's store-time ``overlay=``, built on the
 card by ``ops.cuda.advect.member_overlay``), so the whole ensemble
-advances in one kernel-path step (``stable_fluids._step_tiled``).  The
-step's spans are ``fluid.ensemble_step``, ``fluid.ensemble.layout`` (each
-member stack <-> supergrid conversion, counted by ``layout_conversions``)
-and ``fluid.ensemble.overlay``.
+advances in one kernel-path step (``stable_fluids._step_tiled``).  On the
+kernel path with K1's trapezoid (``project_fused_takes_stack``) the
+supergrid is only an addressing scheme: K2 and K1 read and write the member
+stack in place, and the state is never laid out otherwise.  Elsewhere (the
+eager ops, K1's sequence route) the member stack is converted to the
+supergrid and back around the step.  The step's spans are
+``fluid.ensemble_step``, ``fluid.ensemble.layout`` (each member stack <->
+supergrid conversion, counted by ``layout_conversions``) and
+``fluid.ensemble.overlay``.
 ``mode="vmap"`` steps each member through the port's ``step`` in a Python
 loop — the kernel wrappers take one grid each — so it is the parity oracle,
 not a fast path (JAX vmaps it into one program).
@@ -26,12 +31,13 @@ not a fast path (JAX vmaps it into one program).
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 
 from ..config import SimConfig
 from ..ops.cuda.advect import member_overlay
+from ..ops.cuda.modes import member_grid
+from ..ops.cuda.project import project_fused_takes_stack
 from ..ops.impulses import member_cells, member_writes, write_cells
 from ..spans import span
 from ..state import SimState, Impulses
@@ -112,7 +118,8 @@ def layout_conversions() -> int:
     """Running total of state layout conversions, member stack to
     supergrid or back (``_to_super``, ``_from_super``): a permuting copy
     of the whole state each.  Read it by difference: ``make_ensemble_step``
-    makes 2 a step, its rollout 2 a call."""
+    makes 2 a step and its rollout 2 a call, but none on the stack route
+    (``_on_stack``)."""
     return _to_super.calls + _from_super.calls
 
 
@@ -149,11 +156,19 @@ def _step_members(state: SimState, imps: Impulses, cfg: SimConfig):
                     step=state.step + 1)
 
 
+def _on_stack(cfg_super: SimConfig, vel: torch.Tensor) -> bool:
+    """Whether the step runs on the member stack as it lies: the kernel
+    path, with K1's trapezoid, the one K1 route that takes a stack."""
+    return (tiled_uses_kernels(cfg_super, vel)
+            and project_fused_takes_stack(cfg_super.sor_iters))
+
+
 def _step_super(st: SimState, imps: Impulses, cfg_super: SimConfig, gh: int,
                 gw: int) -> SimState:
     """One supergrid step with batched member impulses: on the kernel path
     they drain at the velocity advect's store (the overlay), otherwise
-    through the scatter ``apply_fn``."""
+    through the scatter ``apply_fn``.  ``st`` lies on the supergrid, or
+    as the member stack on the stack route (``_on_stack``)."""
     mh, mw = cfg_super.domain_tile
     imps = Impulses(*(t.to(st.velocity.device) for t in imps))
     overlay = None
@@ -190,6 +205,8 @@ def make_ensemble_step(cfg: SimConfig, donate: bool = True,
         with span("fluid.ensemble_step"):
             cfg_super, gh, gw = tiled_ensemble_config(
                 cfg, state.velocity.shape[0])
+            if _on_stack(cfg_super, state.velocity):
+                return _step_super(state, imps, cfg_super, gh, gw)
             return _from_super(_step_super(_to_super(state, cfg_super),
                                            imps, cfg_super, gh, gw), cfg)
     return fn
@@ -200,9 +217,9 @@ def make_ensemble_multi_step(cfg: SimConfig, donate: bool = True,
     """Ensemble rollout ``run(state, schedule) -> state``: ``schedule`` is
     an ``Impulses`` with leading ``[n_steps, n_members]`` axes
     (``stable_fluids.stack_schedule`` over per-step ``stack_impulses``).  On
-    the tiled route the member stack converts to and from the supergrid
-    once per call instead of once per step.  ``donate`` is accepted for
-    the JAX signature and has no effect on eager code."""
+    the tiled route off the stack route the member stack converts to and
+    from the supergrid once per call instead of once per step.  ``donate``
+    is accepted for the JAX signature and has no effect on eager code."""
     del donate
     if not _resolve_tiled(cfg, mode):
         def run(state: SimState, schedule: Impulses) -> SimState:
@@ -217,11 +234,12 @@ def make_ensemble_multi_step(cfg: SimConfig, donate: bool = True,
     def run(state: SimState, schedule: Impulses) -> SimState:
         cfg_super, gh, gw = tiled_ensemble_config(cfg,
                                                   state.velocity.shape[0])
-        st = _to_super(state, cfg_super)
+        on_stack = _on_stack(cfg_super, state.velocity)
+        st = state if on_stack else _to_super(state, cfg_super)
         for t in range(schedule.pos.shape[0]):
             st = _step_super(st, Impulses(*(x[t] for x in schedule)),
                              cfg_super, gh, gw)
-        return _from_super(st, cfg)
+        return st if on_stack else _from_super(st, cfg)
     return run
 
 
@@ -231,10 +249,7 @@ def tiled_ensemble_config(member_cfg: SimConfig, n: int,
     of a ``gh x gw`` grid (the most square factorization of n) and every
     boundary condition acts per tile (``SimConfig.domain_tile``).  Returns
     ``(supergrid_cfg, gh, gw)``."""
-    gh = math.isqrt(n)
-    while n % gh:
-        gh -= 1
-    gw = n // gh
+    gh, gw = member_grid(n)
     h, w = member_cfg.shape
     return dataclasses.replace(member_cfg, shape=(gh * h, gw * w),
                                domain_tile=(h, w), solver=solver), gh, gw

@@ -47,6 +47,8 @@ from ..ops.impulses import (_resolved_impulse_targets, apply_impulses,
 from ..ops.poisson import (jacobi_solve, poisson_solve, poisson_residual,
                            sor_solve)
 from ..ops.cuda.advect import advect_kernel, advect_maccormack_kernel
+# the layouts of a tiled domain, whose names stay importable from here
+from ..ops.cuda.modes import _from_members, _to_members
 from ..ops.cuda.project import project_fused
 from ..render.upscale import render_rgb565
 
@@ -180,24 +182,6 @@ def _impulses_and_forces(vel: torch.Tensor, impulses: Impulses,
     return vel
 
 
-def _to_members(x: torch.Tensor, mh: int, mw: int) -> torch.Tensor:
-    """``[C, gh*mh, gw*mw]`` -> ``[gh*gw, C, mh, mw]`` (tiled domain ->
-    member stack, row-major over the tile grid)."""
-    c, h, w = x.shape
-    gh, gw = h // mh, w // mw
-    return (x.reshape(c, gh, mh, gw, mw).permute(1, 3, 0, 2, 4)
-            .reshape(gh * gw, c, mh, mw))
-
-
-def _from_members(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """``[gh*gw, C, mh, mw]`` -> ``[C, h, w]``, the inverse of
-    ``_to_members``."""
-    n, c, mh, mw = x.shape
-    gh, gw = h // mh, w // mw
-    return (x.reshape(gh, gw, c, mh, mw).permute(2, 0, 3, 1, 4)
-            .reshape(c, h, w))
-
-
 def tiled_uses_kernels(cfg: SimConfig, vel: torch.Tensor) -> bool:
     """Whether ``_step_tiled`` takes the kernel path: the fused projection
     and the kernel advect."""
@@ -221,8 +205,12 @@ def _step_tiled(state: SimState, impulses: Impulses | None, cfg: SimConfig,
     store: ``(state, frame)``.
 
     The kernel path runs K2 with ``member=`` twice and K1 with ``member=``
-    once.  The eager path steps each member on its own grid through the
-    composed ops in a loop (JAX vmaps them), then clips the dye."""
+    once; there the state may also be the member stack of the tiles
+    (velocity ``[n, 2, mh, mw]``, row-major over the supergrid's tiling),
+    which the kernels read and write in place (with ``overlay`` or
+    ``apply_fn`` for the drain, and K1's trapezoid).  The eager path steps
+    each member on its own grid through the composed ops in a loop (JAX
+    vmaps them), then clips the dye."""
     mh, mw = cfg.domain_tile
     h, w = cfg.shape
     if impulses is not None:

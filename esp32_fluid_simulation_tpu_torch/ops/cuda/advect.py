@@ -41,6 +41,16 @@ K6, the tiled-domain modes (``advect.py:112-165, 601-607``):
   is > 0, channel ``ch`` replaces the value after the no-slip factor and the
   clip, before the store (the drag queue's drain riding the store).  Not
   with ``rgb565`` or ``return_minmax``, as in the JAX package.
+* the member stack: a ``[n, C, mh, mw]`` field (with ``member=(mh, mw)``,
+  its own; a ``[n, 2, mh, mw]`` velocity, or the field under
+  ``self_advect``) is the ensemble's state as it lies, the members
+  row-major over the ``modes.member_grid(n)`` tiling of an ``[C, gh*mh,
+  gw*mw]`` supergrid.  The kernel computes on that supergrid's coordinates
+  and reads and writes the stack in place (``csrc/stack.cuh``), so the
+  result is the supergrid member mode's laid out as a stack, bit for bit.
+  It takes ``overlay=`` (on the supergrid) and ``clip01``, not
+  ``rgb565``, ``return_minmax`` or block mode; its plain version is the
+  supergrid's between ``modes._from_members`` and ``_to_members``.
 
 K11, block mode (``global_offset=``/``global_shape=``/``halo=``,
 ``advect.py:741-747, 786-795``, the sharded step's kernel advection):
@@ -66,10 +76,11 @@ in place of ~25 eager ops; its plain version is ``ops.impulses``'
 ``member_overlay.launches`` counts its launches.
 
 Each mode has its own launch counter beside ``launches``:
-``advect_kernel.member_launches``, ``.overlay_launches`` and
-``.block_launches``; ``advect_maccormack_kernel.launches`` counts the
-window route's launches, ``.member_launches`` those with ``member=``, and
-``.two_launch_calls`` the calls of the two-launch route.
+``advect_kernel.member_launches`` (the member stack's too),
+``.overlay_launches``, ``.block_launches`` and ``.stack_launches``;
+``advect_maccormack_kernel.launches``
+counts the window route's launches, ``.member_launches`` those with
+``member=``, and ``.two_launch_calls`` the calls of the two-launch route.
 """
 
 from __future__ import annotations
@@ -82,8 +93,9 @@ from ...state import Impulses
 from ..advect import noslip_axis_factor
 from ..impulses import member_cells, overlay_from_targets
 from .build import launch
-from .modes import (BLOCK_MODE, F32, FLOATS, check_block, check_launch,
-                    check_member, refuse_unported)
+from .modes import (BLOCK_MODE, F32, FLOATS, _from_members, _to_members,
+                    check_block, check_launch, check_member, check_stack,
+                    refuse_unported)
 
 _NONE, _RAW = 0, 1   # enum MinMax in csrc/advect.cu
 _WINDOW_TOO_LARGE = -1   # kWindowTooLarge in csrc/advect.cu
@@ -205,9 +217,10 @@ def _checked_3d(name, field, vel, max_disp, block=None):
     return f3
 
 
-def _checked_overlay(overlay, f3, squeeze):
-    """The overlay as a float32 ``[C+1, H, W]`` tensor beside ``f3``."""
-    c, h, w = f3.shape
+def _checked_overlay(overlay, f3, squeeze, grid=None):
+    """The overlay as a float32 ``[C+1, H, W]`` tensor beside ``f3``, on
+    the supergrid ``grid`` ``(H, W)`` of a member stack where given."""
+    c, h, w = f3.shape[-3:] if grid is None else (f3.shape[1], *grid)
     if tuple(overlay.shape) != (c + 1, h, w):
         shape = tuple(f3.shape[1:] if squeeze else f3.shape)
         raise ValueError(f"overlay must be [{c + 1}, H, W] (values + write "
@@ -237,8 +250,42 @@ def _launch_advect(f3, vel, dt, no_slip, max_disp, clip01=False,
     launch("fluid_advect", f3, f3, vel, overlay, out, frame, lo, hi, c, h, w,
            int(f3.dtype == torch.bfloat16), float(dt), int(max_disp), mh, mw,
            ox, oy, g, gh, gw, int(no_slip), int(clip01), int(bswap),
-           int(minmax))
+           int(minmax), 0)
     return out, frame, lo, hi
+
+
+def _advect_stack(field, vel, dt, no_slip, max_disp, clip01, member,
+                  overlay):
+    """K2's member mode on a member stack (module docstring)."""
+    n, c, mh, mw = field.shape
+    gh, gw = check_stack("advect_kernel", field, member, (1, 2, 3))
+    h, w = gh * mh, gw * mw
+    if tuple(vel.shape) != (n, 2, mh, mw):
+        raise ValueError(f"advect_kernel: a member stack takes the velocity "
+                         f"[{n}, 2, {mh}, {mw}], got {list(vel.shape)}")
+    if overlay is not None:
+        overlay = _checked_overlay(overlay, field, False, (h, w))
+    if field.device.type == "cpu":
+        out = advect_reference(_from_members(field, h, w),
+                               _from_members(vel, h, w), dt, no_slip,
+                               max_disp=max_disp, clip01=clip01,
+                               member=(mh, mw), overlay=overlay)
+        return _to_members(out, mh, mw)
+    check_launch("advect_kernel", field=(field, FLOATS), vel=(vel, F32))
+    # the launch puts the members on grid.z, at most 65535
+    if n > 65535 or not 0 <= max_disp < 2 ** 24:
+        raise ValueError(f"advect_kernel: {n} members or max_disp="
+                         f"{max_disp} out of range")
+    out = torch.empty_like(field)
+    launch("fluid_advect", field, field, vel, overlay, out, None, None, None,
+           c, h, w, int(field.dtype == torch.bfloat16), float(dt),
+           int(max_disp), mh, mw, 0, 0, 0, h, w, int(no_slip), int(clip01),
+           1, _NONE, 1)
+    advect_kernel.launches += 1
+    advect_kernel.member_launches += 1
+    advect_kernel.overlay_launches += overlay is not None
+    advect_kernel.stack_launches += 1
+    return out
 
 
 def advect_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
@@ -254,8 +301,9 @@ def advect_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
     ``clip01``), or ``(field, cmin, cmax)`` with ``return_minmax=True``.
     ``self_advect=True`` advects the velocity by itself (``field`` is the
     velocity; ``vel`` is ignored) into a fresh tensor.  ``member`` and
-    ``overlay`` are the tiled-domain modes, ``global_offset``,
-    ``global_shape`` and ``halo`` block mode (module docstring)."""
+    ``overlay`` are the tiled-domain modes, on a supergrid or on a
+    ``[n, C, mh, mw]`` member stack, ``global_offset``, ``global_shape``
+    and ``halo`` block mode (module docstring)."""
     with span("fluid.k2.advect"):
         refuse_unported("advect_kernel", unported, also=("sample_bf16",))
         if rgb565 and (not clip01 or field.dim() != 3 or field.shape[0] != 3
@@ -265,11 +313,20 @@ def advect_kernel(field: torch.Tensor, vel: torch.Tensor, dt: float,
         if overlay is not None and (rgb565 or return_minmax):
             raise ValueError("overlay needs the plain store (no return_minmax "
                              "or rgb565)")
+        stack = field.dim() == 4
         if self_advect:
-            if field.dim() != 3 or field.shape[0] != 2:
-                raise ValueError("self_advect needs the [2, H, W] velocity as "
-                                 "field")
+            if field.dim() not in (3, 4) or field.shape[-3] != 2:
+                raise ValueError("self_advect needs the [2, H, W] velocity "
+                                 "(or its member stack) as field")
             vel = field
+        if stack:
+            if (rgb565 or return_minmax or halo
+                    or global_offset is not None
+                    or global_shape is not None):
+                raise ValueError("advect_kernel: a member stack takes no "
+                                 "rgb565, return_minmax or block mode")
+            return _advect_stack(field, vel, dt, no_slip, max_disp, clip01,
+                                 member, overlay)
         squeeze = field.dim() == 2
         f3 = field[None] if squeeze else field
         blk = check_block("advect_kernel", global_offset, global_shape, halo,
@@ -316,6 +373,7 @@ advect_kernel.launches = 0
 advect_kernel.member_launches = 0
 advect_kernel.overlay_launches = 0
 advect_kernel.block_launches = 0
+advect_kernel.stack_launches = 0
 
 
 def maccormack_reach(vel, dt, max_disp):

@@ -48,9 +48,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # field, vel, overlay, out, frame, lo, hi, C, H, W, field_bf16, dt,
     # max_disp, mh, mw, ox, oy, halo, GH, GW, no_slip, clip01, bswap,
-    # minmax, stream
+    # minmax, stack, stream
     "fluid_advect": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
-                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # field, phi_hat, cmin, cmax, vel, out, C, H, W, field_bf16, dt,
     # max_disp, mh, mw, no_slip, stream
     "fluid_maccormack_correct": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
@@ -71,10 +71,10 @@ _SIGNATURES = {
     "fluid_project_window_blocks": (_I,),
     # vel, vel_out, p_out, ipos, ivel, iact, n_imp, H, W, mh, mw, oi, oj,
     # GH, GW, halo, dx, inv2dx, iters, omega, one_m_w, tile_h, tile_w,
-    # threads_y, stream
+    # threads_y, stack, stream
     "fluid_project_trapezoid": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _F, _F, _I, _F, _F, _I,
-                                _I, _I, _P),
+                                _I, _I, _I, _P),
     # pos, vel, active, out, n, K, gw, mh, mw, plane, stream
     "fluid_member_overlay": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # color, out, H, W, color_bf16, s, bswap, unit_range, stream

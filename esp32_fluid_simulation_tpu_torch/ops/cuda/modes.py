@@ -1,9 +1,12 @@
 """Argument checks shared by the kernel wrappers: the tensors of a CUDA
 launch, block mode (K11) of K1, K2, K4, K7 and K9, and the member-tile
-shape of the tiled-domain modes (K6)."""
+shape of the tiled-domain modes (K6) on a supergrid or on a member stack,
+and the two layouts' permutes (``_to_members``, ``_from_members``), on
+which the stack modes' plain versions lay a stack out as its supergrid."""
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -166,3 +169,44 @@ def check_member(name, member, h, w):
         raise ValueError(f"{name}: member {tuple(member)} must be at least "
                          f"2x2 and divide the grid {h}x{w}")
     return mh, mw
+
+
+def member_grid(n):
+    """``(gh, gw)``: the tiling of ``n`` members, the most square
+    factorization with ``gh <= gw``, members row-major over it."""
+    gh = math.isqrt(n)
+    while n % gh:
+        gh -= 1
+    return gh, n // gh
+
+
+def check_stack(name, x, member, channels=None):
+    """For a member stack ``x`` ``[n, C, mh, mw]`` (``C`` in ``channels``
+    where given), ``member`` must be its ``(mh, mw)``; returns the tiling
+    ``(gh, gw)`` of its supergrid (``member_grid``)."""
+    n, c, mh, mw = x.shape
+    if member is None or tuple(int(m) for m in member) != (mh, mw):
+        raise ValueError(f"{name}: a member stack {tuple(x.shape)} needs "
+                         f"member=({mh}, {mw}), got {member}")
+    if n < 1 or mh < 2 or mw < 2 or (channels and c not in channels):
+        raise ValueError(f"{name}: member stack {tuple(x.shape)} not "
+                         "supported")
+    return member_grid(n)
+
+
+def _to_members(x: torch.Tensor, mh: int, mw: int) -> torch.Tensor:
+    """``[C, gh*mh, gw*mw]`` -> ``[gh*gw, C, mh, mw]`` (tiled domain ->
+    member stack, row-major over the tile grid)."""
+    c, h, w = x.shape
+    gh, gw = h // mh, w // mw
+    return (x.reshape(c, gh, mh, gw, mw).permute(1, 3, 0, 2, 4)
+            .reshape(gh * gw, c, mh, mw))
+
+
+def _from_members(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """``[gh*gw, C, mh, mw]`` -> ``[C, h, w]``, the inverse of
+    ``_to_members``."""
+    n, c, mh, mw = x.shape
+    gh, gw = h // mh, w // mw
+    return (x.reshape(gh, gw, c, mh, mw).permute(2, 0, 3, 1, 4)
+            .reshape(c, h, w))

@@ -30,6 +30,19 @@ same masked ops over the whole grid (not the composed ops per member, whose
 parity would start at each member's origin).  It combines with
 ``impulses``; ``project_fused.member_launches`` counts its launches.
 
+On a member stack (``vel`` ``[n, 2, mh, mw]`` with ``member=(mh, mw)``,
+its own: the ensemble's state as it lies, the members row-major over the
+``modes.member_grid(n)`` tiling of a ``[2, gh*mh, gw*mw]`` supergrid) the
+trapezoid computes on that supergrid's coordinates and reads and writes the
+stack in place (``csrc/stack.cuh``): it returns the ``[n, 2, mh, mw]``
+velocity and the ``[n, mh, mw]`` pressure, the supergrid member mode's laid
+out as stacks, bit for bit.  Only the trapezoid takes a stack
+(``project_fused_takes_stack``), so ``iters`` above ``WINDOW_MAX_ITERS``
+raise ``ValueError``, as does block mode; ``impulses`` keep supergrid
+positions.  Its plain version is the supergrid's between
+``modes._from_members`` and ``_to_members``; ``project_fused.stack_launches``
+counts its launches, which count as member and trapezoid launches too.
+
 Block mode (K11, ``global_offset=``/``global_shape=``/``halo=``,
 ``project.py:212-229``, the sharded step's ``solver="fused_pallas"``):
 ``vel`` is one shard's block with ``halo >= 2*iters + 2`` exchanged cells
@@ -55,8 +68,9 @@ from ..fd import divergence, subtract_gradient
 from ..impulses import apply_impulses, impulses_in_window
 from ..poisson import _shift_zero, sor_solve
 from .build import launch, query
-from .modes import (F32, block_coords, check_block, check_launch,
-                    check_member, refuse_unported)
+from .modes import (F32, _from_members, _to_members, block_coords,
+                    check_block, check_launch, check_member, check_stack,
+                    refuse_unported)
 from .sor import (WINDOW_MAX_ITERS, member_sor_solve, member_walls, owned,
                   walls_at, window_tile)
 
@@ -157,6 +171,22 @@ def project_fused_reference(vel, dx=1.0, iters=10, omega=1.96,
     return _member_subtract_gradient(vel, p, dx, walls), p
 
 
+def project_fused_takes_stack(iters: int) -> bool:
+    """Whether ``project_fused`` takes a member stack at ``iters``: only
+    its trapezoid does (module docstring)."""
+    return iters <= WINDOW_MAX_ITERS
+
+
+def _stack_reference(vel, dx, iters, omega, impulses, grid):
+    """The plain version on a member stack: the supergrid's, with the
+    stack laid out as the supergrid and back."""
+    gh, gw = grid
+    _, _, mh, mw = vel.shape
+    v, p = project_fused_reference(_from_members(vel, gh * mh, gw * mw), dx,
+                                   iters, omega, impulses, (mh, mw))
+    return _to_members(v, mh, mw), _to_members(p[None], mh, mw)[:, 0]
+
+
 def project_fused(vel: torch.Tensor, dx: float = 1.0, iters: int = 10,
                   omega: float = 1.96, impulses=None, member=None,
                   global_offset=None, global_shape=None, halo: int = 0,
@@ -165,21 +195,43 @@ def project_fused(vel: torch.Tensor, dx: float = 1.0, iters: int = 10,
     velocity: optional impulse drain (clamped positions, the last active
     slot wins, values rounded through ``vel.dtype``), divergence,
     ``iters`` RB-SOR sweeps from zero, gradient subtract; per member tile
-    with ``member``; of the owned block of a haloed shard block in block
-    mode."""
+    with ``member``, on a supergrid or on a ``[n, 2, mh, mw]`` member stack;
+    of the owned block of a haloed shard block in block mode."""
     with span("fluid.k1.project"):
         refuse_unported("project_fused", unported)
-        if vel.dim() != 3 or vel.shape[0] != 2:
-            raise ValueError("project_fused: vel must be [2, H, W]")
+        grid = None
+        if vel.dim() == 4 and vel.shape[1] == 2:
+            if global_offset is not None or global_shape is not None or halo:
+                raise ValueError("project_fused: a member stack takes no "
+                                 "block mode")
+            if not project_fused_takes_stack(iters):
+                raise ValueError(f"project_fused: a member stack takes iters "
+                                 f"<= {WINDOW_MAX_ITERS} (the trapezoid), "
+                                 f"got {iters}")
+            grid = check_stack("project_fused", vel, member)
+            member = tuple(vel.shape[2:])
+            if vel.numel() >= 2 ** 31:
+                raise ValueError("project_fused: a member stack of 2^31 "
+                                 "values or more")
+        elif vel.dim() != 3 or vel.shape[0] != 2:
+            raise ValueError("project_fused: vel must be [2, H, W] or a "
+                             "member stack [n, 2, mh, mw]")
         blk = check_block("project_fused", global_offset, global_shape, halo,
-                          vel.shape[1:], 2 * iters + 2, "2*iters+2")
-        member = check_member("project_fused", member,
-                              *(vel.shape[1:] if blk is None
-                                else (blk.gh, blk.gw)))
+                          vel.shape[-2:], 2 * iters + 2, "2*iters+2")
+        if grid is None:
+            member = check_member("project_fused", member,
+                                  *(vel.shape[1:] if blk is None
+                                    else (blk.gh, blk.gw)))
         if vel.device.type == "cpu":
+            if grid is not None:
+                return _stack_reference(vel, dx, iters, omega, impulses,
+                                        grid)
             return project_fused_reference(vel, dx, iters, omega, impulses,
                                            member, blk)
-        _, h, w = vel.shape
+        if grid is None:
+            _, h, w = vel.shape
+        else:
+            h, w = grid[0] * vel.shape[2], grid[1] * vel.shape[3]
         # the launches put rows on grid.y, 8 a block, at most 65535 blocks
         if h < 2 or w < 2 or h > 8 * 65535 or iters < 0:
             raise ValueError("project_fused: needs 2 <= H <= 524280, W >= 2 "
@@ -206,8 +258,11 @@ def project_fused(vel: torch.Tensor, dx: float = 1.0, iters: int = 10,
         else:
             g, (oi, oj), (gh, gw) = blk.halo, blk.origin, (blk.gh, blk.gw)
             bh, bw = blk.bh, blk.bw
-        out = torch.empty((2, bh, bw), dtype=vel.dtype, device=vel.device)
-        p_out = torch.empty((bh, bw), dtype=vel.dtype, device=vel.device)
+        out = torch.empty((2, bh, bw) if grid is None else vel.shape,
+                          dtype=vel.dtype, device=vel.device)
+        p_out = torch.empty((bh, bw) if grid is None else
+                            vel[:, 0].shape, dtype=vel.dtype,
+                            device=vel.device)
         imps = (ipos, ivel, iact)
         geometry = (n_imp, h, w, mh, mw, oi, oj, gh, gw, g)
         numbers = (float(dx), float(np.float32(1.0 / (2.0 * dx))), int(iters),
@@ -219,9 +274,11 @@ def project_fused(vel: torch.Tensor, dx: float = 1.0, iters: int = 10,
             project_fused.window_launches += 1
         elif iters <= WINDOW_MAX_ITERS:
             launch("fluid_project_trapezoid", vel, vel, out, p_out, *imps,
-                   *geometry, *numbers, *window_tile(2 * iters + 1))
+                   *geometry, *numbers, *window_tile(2 * iters + 1),
+                   int(grid is not None))
             project_fused.window_launches += 1
             project_fused.trapezoid_launches += 1
+            project_fused.stack_launches += grid is not None
         else:
             # scratch: the haloed block's pressure in block mode, dx * div
             p = p_out if blk is None else torch.empty_like(vel[0])
@@ -241,3 +298,4 @@ project_fused.block_launches = 0
 project_fused.window_launches = 0
 project_fused.trapezoid_launches = 0
 project_fused.sequence_launches = 0
+project_fused.stack_launches = 0

@@ -25,7 +25,8 @@ The spans, which the benchmark's breakdown of the card's idle time names
 ``fluid.ensemble_step``     ``models.ensemble.make_ensemble_step``'s step
 ``fluid.ensemble.layout``   ``models.ensemble._to_super`` and
                             ``_from_super`` (a member stack to the supergrid
-                            or back)
+                            or back; not on the kernel route, whose
+                            kernels take the stack as it lies)
 ``fluid.ensemble.overlay``  ``ops.cuda.advect.member_overlay`` in
                             ``models.ensemble._step_super`` (the members'
                             drain as K2's overlay)

@@ -724,11 +724,75 @@ def test_maccormack_member_kernel_bit_equal(cuda, rng, dtype, channels,
     assert advect_maccormack_kernel.member_launches == before + 1
 
 
+# member stacks: (members, member tile), tiled 2x2, 2x3 and 1x3
+STACKS = {"2x2": (4, (32, 48)), "2x3": (6, (32, 32)), "1x3": (3, (64, 32))}
+
+
+@pytest.mark.parametrize("layout", sorted(STACKS))
+def test_stack_member_kernels_bit_equal(cuda, rng, layout):
+    """K2 and K1 on a member stack (addressed in place) against their
+    supergrid member modes on the card under the permute, bit for bit:
+    K2's self-advect with and without the overlay, its dye in float32 and
+    bfloat16 with the clip, K1's trapezoid at iters 0, 1, 10 and 15 with
+    and without impulses; each a stack launch."""
+    from esp32_fluid_simulation_tpu_torch.models.stable_fluids import (
+        _from_members, _to_members)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
+        member_overlay)
+    from esp32_fluid_simulation_tpu_torch.ops.cuda.modes import member_grid
+    n, m = STACKS[layout]
+    gh, gw = member_grid(n)
+    h, w = gh * m[0], gw * m[1]
+    vel_s = _on((200 * rng.standard_normal((n, 2) + m)).astype(np.float32),
+                cuda)
+    vel = _from_members(vel_s, h, w)
+    imps = stack_impulses([Impulses.from_lists(
+        SimConfig(shape=m, max_impulses=2), [(k + 3, 0), (m[0] - 1, 9 + k)],
+        [(50.0 + 30 * k, -40.0), (25.0, -60.0 + 10 * k)], device=cuda)
+        for k in range(n)])
+    ov = member_overlay(imps, gh, gw, *m)
+    before = (advect_kernel.stack_launches, advect_kernel.member_launches,
+              project_fused.stack_launches, project_fused.member_launches)
+    for overlay in (None, ov):
+        got = advect_kernel(vel_s, None, 1 / 30, True, self_advect=True,
+                            member=m, overlay=overlay)
+        want = advect_kernel(vel, vel, 1 / 30, True, self_advect=True,
+                             member=m, overlay=overlay)
+        assert torch.equal(got, _to_members(want, *m))
+    for dtype in (torch.float32, torch.bfloat16):
+        dye_s = _on(rng.random((n, 3) + m, dtype=np.float32) * 2 - 0.5,
+                    cuda).to(dtype)
+        got = advect_kernel(dye_s, vel_s, 1 / 30, False, clip01=True,
+                            member=m)
+        want = advect_kernel(_from_members(dye_s, h, w), vel, 1 / 30, False,
+                             clip01=True, member=m)
+        assert torch.equal(_bits(got), _bits(_to_members(want, *m)))
+    vel_s = _on(rng.normal(0, 40, (n, 2) + m).astype(np.float32), cuda)
+    vel = _from_members(vel_s, h, w)
+    imp = Impulses.from_lists(
+        SimConfig(shape=(h, w), max_impulses=4),
+        [(3, 5), (m[0], w - 1), (h - 1, m[1] - 1)],
+        [(30.0, -12.0), (-8.0, 25.0), (9.0, 1.0)], device=cuda)
+    for iters in (0, 1, 10, 15):
+        for impulses in (None, imp):
+            v, p = project_fused(vel_s, 1.0, iters, 1.96, impulses=impulses,
+                                 member=m)
+            rv, rp = project_fused(vel, 1.0, iters, 1.96, impulses=impulses,
+                                   member=m)
+            assert torch.equal(v, _to_members(rv, *m))
+            assert torch.equal(p, _to_members(rp[None], *m)[:, 0])
+    assert (advect_kernel.stack_launches, advect_kernel.member_launches,
+            project_fused.stack_launches, project_fused.member_launches) == (
+        before[0] + 4, before[1] + 8, before[2] + 8, before[3] + 16)
+
+
 def test_tiled_ensemble_step_kernel_route(cuda, rng):
     """Four 32x48 members through ``make_ensemble_step`` on the card (the
-    kernel route: the member overlay built by one launch, K2 member twice,
-    once with the overlay, K1 member once) against the same step through
-    the plain versions on the card, the overlay's included."""
+    kernel route on the member stack: the member overlay built by one
+    launch, K2 member twice, once with the overlay, K1 member once, each a
+    stack launch, no layout conversion) against the same step through the
+    plain versions on the supergrid on the card, the overlay's
+    included."""
     cfg = SimConfig(shape=(32, 48), sor_iters=4, max_impulses=2,
                     advect_impl="pallas")
     n = 4
@@ -739,14 +803,18 @@ def test_tiled_ensemble_step_kernel_route(cuda, rng):
         device=cuda) for k in range(n)])
     from esp32_fluid_simulation_tpu_torch.ops.cuda.advect import (
         member_overlay, member_overlay_reference)
+    from esp32_fluid_simulation_tpu_torch.models import ensemble as E
     before = (advect_kernel.member_launches, advect_kernel.overlay_launches,
-              project_fused.member_launches, member_overlay.launches)
+              project_fused.member_launches, member_overlay.launches,
+              advect_kernel.stack_launches, project_fused.stack_launches,
+              E.layout_conversions())
     out = make_ensemble_step(cfg)(st, imps)
     assert (advect_kernel.member_launches, advect_kernel.overlay_launches,
-            project_fused.member_launches,
-            member_overlay.launches) == (before[0] + 2, before[1] + 1,
-                                         before[2] + 1, before[3] + 1)
-    from esp32_fluid_simulation_tpu_torch.models import ensemble as E
+            project_fused.member_launches, member_overlay.launches,
+            advect_kernel.stack_launches, project_fused.stack_launches,
+            E.layout_conversions()) == (
+        before[0] + 2, before[1] + 1, before[2] + 1, before[3] + 1,
+        before[4] + 2, before[5] + 1, before[6])
     from esp32_fluid_simulation_tpu_torch.models.stable_fluids import (
         _from_members, _to_members)
     cfg_super, gh, gw = E.tiled_ensemble_config(cfg, n)

@@ -3,11 +3,15 @@
 * under a ``torch.profiler`` one ensemble step on the kernel path
   (``advect_impl="pallas"``, whose wrappers run their plain versions here)
   records the feed's ``fluid.impulses``, then ``fluid.ensemble_step`` with
-  ``fluid.ensemble.layout`` twice, ``fluid.ensemble.overlay`` once and the
-  kernel wrappers nested in it; the eager route records no overlay, the
+  ``fluid.ensemble.overlay`` once and the kernel wrappers nested in it, and
+  no ``fluid.ensemble.layout``: the wrappers take the member stack as it
+  lies; the eager route records the layout twice and no overlay, the
   member loop (``mode="vmap"``) no layout;
-* ``models.ensemble.layout_conversions()`` advances 2 a step, 2 a rollout
-  call, and not at all in the member loop;
+* ``models.ensemble.layout_conversions()`` advances 2 a step and 2 a
+  rollout call on the eager route, not at all on the kernel route or in
+  the member loop; the kernel route's wrappers take the member stack 3
+  times a step (K2 twice, K1 once), and on the CPU, where their plain
+  versions run, ``stack_launches`` stays where it was;
 * with no profiler recording no span calls ``record_function``, and a
   step's outputs are bit-equal with and without a profiler recording.
 """
@@ -23,15 +27,14 @@ from esp32_fluid_simulation_tpu_torch import (Impulses, SimConfig,
                                               stack_schedule)
 from esp32_fluid_simulation_tpu_torch.models.ensemble import (
     layout_conversions)
+from stack_spy import spy_stack_calls, stack_launches
 
 N = 4
 MEMBER = [0, 1, 1, 3]
 POS = [(5, 7), (12, 20), (18, 9), (30, 40)]
 VEL = [(40.0, -25.0), (-30.0, 10.0), (5.0, 35.0), (20.0, 20.0)]
-KERNEL_STEP = ["fluid.ensemble_step", "fluid.ensemble.layout",
-               "fluid.ensemble.overlay", "fluid.k2.advect",
-               "fluid.k1.project", "fluid.k2.advect",
-               "fluid.ensemble.layout"]
+KERNEL_STEP = ["fluid.ensemble_step", "fluid.ensemble.overlay",
+               "fluid.k2.advect", "fluid.k1.project", "fluid.k2.advect"]
 EAGER_STEP = ["fluid.ensemble_step", "fluid.ensemble.layout",
               "fluid.ensemble.layout"]
 
@@ -84,24 +87,37 @@ def test_member_loop_records_the_step_and_no_layout():
     assert "fluid.ensemble.overlay" not in names
 
 
-@pytest.mark.parametrize("mode,steps,want", [("auto", 1, 2), ("auto", 3, 6),
-                                             ("vmap", 2, 0)])
-def test_layout_counter_advances_two_a_step(mode, steps, want):
-    cfg = _cfg("auto")
+# (advect_impl, mode, steps, layout conversions, wrapper calls on a stack)
+@pytest.mark.parametrize("advect_impl,mode,steps,want,stacked", [
+    ("auto", "auto", 1, 2, 0), ("auto", "auto", 3, 6, 0),
+    ("auto", "vmap", 2, 0, 0), ("pallas", "auto", 1, 0, 3),
+    ("pallas", "auto", 3, 0, 9)])
+def test_layout_counter_advances_two_a_step(advect_impl, mode, steps, want,
+                                            stacked, monkeypatch):
+    cfg = _cfg(advect_impl)
     step = make_ensemble_step(cfg, mode=mode)
     st, fed = _state(cfg), _feed(cfg)
-    before = layout_conversions()
+    seen = spy_stack_calls(monkeypatch)
+    before = layout_conversions(), stack_launches()
     for _ in range(steps):
         st = step(st, fed)
-    assert layout_conversions() - before == want
+    assert layout_conversions() - before[0] == want
+    assert seen["calls"] == stacked
+    assert stack_launches() == before[1]
 
 
-def test_rollout_converts_twice_a_call():
-    cfg = _cfg("auto")
+@pytest.mark.parametrize("advect_impl,want,stacked", [("auto", 2, 0),
+                                                      ("pallas", 0, 9)])
+def test_rollout_converts_twice_a_call(advect_impl, want, stacked,
+                                       monkeypatch):
+    cfg = _cfg(advect_impl)
     run = make_ensemble_multi_step(cfg)
-    before = layout_conversions()
+    seen = spy_stack_calls(monkeypatch)
+    before = layout_conversions(), stack_launches()
     run(_state(cfg), stack_schedule([_feed(cfg)] * 3))
-    assert layout_conversions() - before == 2
+    assert layout_conversions() - before[0] == want
+    assert seen["calls"] == stacked
+    assert stack_launches() == before[1]
 
 
 def test_spans_change_no_output(monkeypatch):
