@@ -20,9 +20,11 @@ supergrid is only an addressing scheme: K2 and K1 read and write the member
 stack in place, and the state is never laid out otherwise.  Elsewhere (the
 eager ops, K1's sequence route) the member stack is converted to the
 supergrid and back around the step.  The step's spans are
-``fluid.ensemble_step``, ``fluid.ensemble.layout`` (each member stack <->
-supergrid conversion, counted by ``layout_conversions``) and
-``fluid.ensemble.overlay``.
+``fluid.ensemble_step``, ``fluid.ensemble.plan`` (its host-only
+planning), ``fluid.ensemble.move`` (the impulses onto the state's device),
+``fluid.ensemble.layout`` (each member stack <-> supergrid conversion,
+counted by ``layout_conversions``), ``fluid.ensemble.overlay`` and, off
+the kernel route, ``fluid.drain``.
 ``mode="vmap"`` steps each member through the port's ``step`` in a Python
 loop — the kernel wrappers take one grid each — so it is the parity oracle,
 not a fast path (JAX vmaps it into one program).
@@ -82,8 +84,9 @@ def _apply_member_impulses(vel, imp: Impulses, gh: int, gw: int, mh: int,
                            mw: int):
     """Batched per-member impulses onto the supergrid velocity: one scatter
     for all (member, slot) points (members write disjoint tiles)."""
-    cells, write, vals = member_cells(imp, gh, gw, mh, mw)
-    return write_cells(cells, write, vals, vel.shape[1:], base=vel)
+    with span("fluid.drain"):
+        cells, write, vals = member_cells(imp, gh, gw, mh, mw)
+        return write_cells(cells, write, vals, vel.shape[1:], base=vel)
 
 
 def _resolve_tiled(cfg: SimConfig, mode: str) -> bool:
@@ -170,7 +173,8 @@ def _step_super(st: SimState, imps: Impulses, cfg_super: SimConfig, gh: int,
     through the scatter ``apply_fn``.  ``st`` lies on the supergrid, or
     as the member stack on the stack route (``_on_stack``)."""
     mh, mw = cfg_super.domain_tile
-    imps = Impulses(*(t.to(st.velocity.device) for t in imps))
+    with span("fluid.ensemble.move"):
+        imps = Impulses(*(t.to(st.velocity.device) for t in imps))
     overlay = None
     if tiled_uses_kernels(cfg_super, st.velocity):
         with span("fluid.ensemble.overlay"):
@@ -203,9 +207,11 @@ def make_ensemble_step(cfg: SimConfig, donate: bool = True,
 
     def fn(state: SimState, imps: Impulses) -> SimState:
         with span("fluid.ensemble_step"):
-            cfg_super, gh, gw = tiled_ensemble_config(
-                cfg, state.velocity.shape[0])
-            if _on_stack(cfg_super, state.velocity):
+            with span("fluid.ensemble.plan"):
+                cfg_super, gh, gw = tiled_ensemble_config(
+                    cfg, state.velocity.shape[0])
+                on_stack = _on_stack(cfg_super, state.velocity)
+            if on_stack:
                 return _step_super(state, imps, cfg_super, gh, gw)
             return _from_super(_step_super(_to_super(state, cfg_super),
                                            imps, cfg_super, gh, gw), cfg)

@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from ..spans import span
 from ..state import Impulses
 
 
@@ -48,11 +49,12 @@ def apply_impulses_(vel: torch.Tensor, imp: Impulses) -> torch.Tensor:
     with (the winner's, or the cell's own where no active slot writes it),
     so duplicate indices carry equal values and the write order does not
     matter — no host sync, no per-slot pass, no copy of the field."""
-    idx, winner = _resolved_impulse_targets(imp, vel.shape[1:])
-    where = (slice(None),) + idx
-    vals = imp.velocity.to(vel.dtype)[winner.clamp(min=0)].T   # [nd, k]
-    vel[where] = torch.where(winner >= 0, vals, vel[where])
-    return vel
+    with span("fluid.drain"):
+        idx, winner = _resolved_impulse_targets(imp, vel.shape[1:])
+        where = (slice(None),) + idx
+        vals = imp.velocity.to(vel.dtype)[winner.clamp(min=0)].T  # [nd, k]
+        vel[where] = torch.where(winner >= 0, vals, vel[where])
+        return vel
 
 
 def impulses_in_window(imp: Impulses, global_shape, origin,

@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..spans import span
 from .upscale import pack_rgb565
 
 
@@ -49,21 +50,22 @@ def render_smoke(density: torch.Tensor, mode: str = "mip", axis: int = 0,
     """``[D, H, W]`` density -> packed 2D view: uint16 ``[H', W']`` for
     ``fmt="rgb565"``, uint8 ``[H', W', 3]`` for ``fmt="rgb8"``.  ``vmax``
     rescales intensities (the density is source-clamped to [0, 1])."""
-    if density.dim() != 3:
-        raise ValueError(f"density must be [D, H, W], got "
-                         f"{tuple(density.shape)}")
-    if fmt not in ("rgb565", "rgb8"):
-        raise ValueError(f"unknown fmt {fmt!r}")
-    if (mode == "mip" and axis == 0 and fmt == "rgb565" and density.is_cuda
-            and density.shape[1] * density.shape[2] >= 128 * 128):
-        from .cuda_smoke import render_smoke_mip_kernel
-        # a view (a transpose, a slice) is copied to the kernel's layout
-        return render_smoke_mip_kernel(density.contiguous(), bswap=bswap,
-                                       vmax=vmax)
-    view = _view(density, mode, axis, index)
-    t = view.to(torch.float32) * float(np.float32(1.0 / vmax))
-    rgb = heat_colormap(t)
-    if fmt == "rgb565":
-        return pack_rgb565(rgb, bswap=bswap)
-    q = torch.clamp(torch.floor(rgb * 256.0), 0, 255).to(torch.uint8)
-    return q.movedim(0, -1).contiguous()
+    with span("fluid.render"):
+        if density.dim() != 3:
+            raise ValueError(f"density must be [D, H, W], got "
+                             f"{tuple(density.shape)}")
+        if fmt not in ("rgb565", "rgb8"):
+            raise ValueError(f"unknown fmt {fmt!r}")
+        if (mode == "mip" and axis == 0 and fmt == "rgb565" and density.is_cuda
+                and density.shape[1] * density.shape[2] >= 128 * 128):
+            from .cuda_smoke import render_smoke_mip_kernel
+            # a view (a transpose, a slice) is copied to the kernel's layout
+            return render_smoke_mip_kernel(density.contiguous(), bswap=bswap,
+                                           vmax=vmax)
+        view = _view(density, mode, axis, index)
+        t = view.to(torch.float32) * float(np.float32(1.0 / vmax))
+        rgb = heat_colormap(t)
+        if fmt == "rgb565":
+            return pack_rgb565(rgb, bswap=bswap)
+        q = torch.clamp(torch.floor(rgb * 256.0), 0, 255).to(torch.uint8)
+        return q.movedim(0, -1).contiguous()

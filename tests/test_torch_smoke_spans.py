@@ -2,18 +2,24 @@
 
 * under a ``torch.profiler`` one plume step (K7 and K9 forced, whose
   wrappers run their plain versions here) records ``fluid.smoke_step``
-  with ``fluid.k7.advect3d`` twice and ``fluid.k9.sor3d`` once nested in
-  it; on the card, at 128^3, the step also nests ``fluid.k8.fd3d`` twice
-  and its MIP frame records ``fluid.k10.mip`` after it;
+  with ``fluid.k7.advect3d`` twice, the drain ``fluid.drain`` and
+  ``fluid.k9.sor3d`` once nested in it, and its MIP frame records
+  ``fluid.render`` after it; on the card, at 128^3, the step also nests
+  ``fluid.k8.fd3d`` twice and the frame nests ``fluid.k10.mip`` in
+  ``fluid.render``;
 * each 3D wrapper called directly records its span;
-* with no profiler recording no span calls ``record_function``, and the
-  step's outputs are bit-equal with and without a profiler recording.
+* a ``spans.record()`` gives the same spans with the same nesting;
+* with no profiler recording no span calls ``record_function``, and with
+  neither it nor a recorder none reads the clock; the step's outputs are
+  bit-equal with and without a profiler recording or a recorder open.
 """
 
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from span_records import counting_clock, profiled, recorded
+from esp32_fluid_simulation_tpu_torch import spans
 from esp32_fluid_simulation_tpu_torch import (Impulses, SmokeConfig,
                                               init_smoke, make_smoke_step,
                                               render_smoke)
@@ -30,9 +36,10 @@ CFG = SmokeConfig(shape=(10, 12, 14), advect_impl="pallas",
 POS = [(6, 5, 7), (6, 8, 3)]
 VEL = [(0.0, 20.0, -15.0), (0.0, -10.0, 25.0)]
 STEP = ["fluid.smoke_step", "fluid.k7.advect3d", "fluid.k7.advect3d",
-        "fluid.k9.sor3d"]
+        "fluid.drain", "fluid.k9.sor3d"]
 CARD_STEP = ["fluid.smoke_step", "fluid.k7.advect3d", "fluid.k7.advect3d",
-             "fluid.k8.fd3d", "fluid.k9.sor3d", "fluid.k8.fd3d"]
+             "fluid.drain", "fluid.k8.fd3d", "fluid.k9.sor3d",
+             "fluid.k8.fd3d"]
 
 
 def _step_and_frame(cfg=CFG, device="cpu"):
@@ -80,7 +87,7 @@ def _assert_nested(events, step, after):
 
 def test_step_records_the_3d_wrappers_inside_smoke_step():
     _, events = _recorded(_step_and_frame)
-    _assert_nested(events, STEP, [])
+    _assert_nested(events, STEP, ["fluid.render"])
 
 
 @pytest.mark.gpu
@@ -89,7 +96,9 @@ def test_card_step_and_frame_record_every_3d_wrapper():
         pytest.skip("needs a CUDA device (K8 and K10 run only there)")
     cfg = SmokeConfig(shape=(128, 128, 128))
     _, events = _recorded(lambda: _step_and_frame(cfg, "cuda"))
-    _assert_nested(events, CARD_STEP, ["fluid.k10.mip"])
+    _assert_nested(events, CARD_STEP, ["fluid.render", "fluid.k10.mip"])
+    frame, mip = events[-2].time_range, events[-1].time_range
+    assert frame.start <= mip.start <= mip.end <= frame.end
 
 
 @pytest.mark.parametrize("name", ["fluid.k7.advect3d", "fluid.k8.fd3d",
@@ -114,3 +123,32 @@ def test_no_record_function_without_a_profiler(monkeypatch):
             assert torch.equal(getattr(st, name), getattr(plain_state, name))
     assert torch.equal(frame, plain_frame)
     assert torch.equal(traced_frame, plain_frame)
+
+
+def test_recorder_gives_the_profilers_spans_and_nesting():
+    _, want = profiled(_step_and_frame)
+    _, got, _ = recorded(_step_and_frame)
+    assert got == want
+    assert got == ([("fluid.impulses", None)]
+                   + [(STEP[0], None)] + [(n, STEP[0]) for n in STEP[1:]]
+                   + [("fluid.render", None)])
+
+
+def test_outputs_bit_equal_with_the_recorder_and_no_clock_without_it(
+        monkeypatch):
+    plain_state, plain_frame = _step_and_frame()
+    (stamped, stamped_frame), _, rec = recorded(_step_and_frame)
+    clock, calls = counting_clock()
+    with spans.record(clock):
+        pass
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: pytest.fail(f"record_function({name})"))
+    state, frame = _step_and_frame()
+    assert calls == []
+    for st in (stamped, state):
+        for name in ("velocity", "density", "temperature"):
+            assert torch.equal(getattr(st, name), getattr(plain_state, name))
+    assert torch.equal(stamped_frame, plain_frame)
+    assert torch.equal(frame, plain_frame)
+    drain = rec.totals()["fluid.drain"]
+    assert drain.calls == 1 and drain.self_ns == drain.total_ns > 0
